@@ -1,0 +1,12 @@
+from deeplio_tpu_torch.config.loader import load_config, load_config_dict
+from deeplio_tpu_torch.config.schema import (
+    Config,
+    ConfigError,
+    DatasetConfig,
+    FusionConfig,
+    ImuFeatConfig,
+    LidarFeatConfig,
+    ModelConfig,
+    OdomFeatConfig,
+    ProjectionConfig,
+)

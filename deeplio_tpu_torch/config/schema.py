@@ -1,0 +1,305 @@
+"""Typed configuration for the streaming-odometry slice of the port.
+
+Reads the same YAML keys as ``deeplio_tpu/config/schema.py`` (hyphenated
+or underscored), for the settings the serving path consumes: the
+projection, the channel stack and its normalization, the IMU window and
+the DeepLIO model. Blocks that only training or data loading read
+(``losses``, ``optimizer``, ``train``, the KITTI split lists, window
+striding, augmentation) are accepted and ignored.
+
+A setting that would change what the streaming path computes, and that
+this slice cannot compute yet, raises ``ConfigError`` (a ``ValueError``)
+naming the later slice that adds it, instead of silently serving a
+different model.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
+
+CHANNEL_ORDER = ("x", "y", "z", "remission", "depth", "normals")
+
+# Later slices, as ROADMAP.md orders them.
+_LATER_PROJECTION = "a later projection slice (ROADMAP.md Queue 1)"
+_LATER_VARIANTS = "the model-variants slice (ROADMAP.md Queue 1)"
+_LATER_DATA = "the KITTI data slice (ROADMAP.md Queue 1)"
+
+
+class ConfigError(ValueError):
+    pass
+
+
+def _get(d: Dict[str, Any], key: str, default=None):
+    """Fetch a key accepting both hyphenated (YAML) and underscored names."""
+    for k in (key, key.replace("-", "_"), key.replace("_", "-")):
+        if k in d:
+            return d[k]
+    return default
+
+
+def _require(d: Dict[str, Any], key: str, ctx: str):
+    v = _get(d, key, None)
+    if v is None:
+        raise ConfigError(f"missing required config key '{key}' in {ctx}")
+    return v
+
+
+def _unsupported(what: str, later: str) -> ConfigError:
+    return ConfigError(f"{what} is not supported by the streaming slice of "
+                       f"the port; {later} adds it")
+
+
+@dataclass(frozen=True)
+class ProjectionConfig:
+    """Spherical range-image projection (SqueezeSeg convention)."""
+    height: int = 64
+    width: int = 1024
+    fov_up_deg: float = 3.0
+    fov_down_deg: float = -25.0
+    max_points: int = 131072
+    # The ring route always carries packed-f16 payloads, so ``packed`` does
+    # not change its result (as in the JAX package's pallas-ring backend).
+    packed: bool = False
+    backend: str = "pallas-ring"
+    # ``kernel-spb`` and ``kernel-packed`` only choose how the TPU kernel
+    # schedules and encodes its work; its results are bit-identical either
+    # way. They are parsed and validated here and have no effect in the
+    # port, whose CUDA kernel has one schedule.
+    kernel_spb: int = 1
+    kernel_packed: str = "auto"
+    kernel_aligned: str = "off"
+
+
+@dataclass(frozen=True)
+class DatasetConfig:
+    channels: Tuple[str, ...] = ("x", "y", "z", "remission", "depth")
+    projection: ProjectionConfig = field(default_factory=ProjectionConfig)
+    mean: Tuple[float, ...] = ()
+    std: Tuple[float, ...] = ()
+    max_imu_per_pair: int = 16
+
+    @property
+    def num_image_channels(self) -> int:
+        return len(self.channels)
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "DatasetConfig":
+        proj = ProjectionConfig(
+            height=int(_get(d, "image-height", 64)),
+            width=int(_get(d, "image-width", 1024)),
+            fov_up_deg=float(_get(d, "fov-up", 3.0)),
+            fov_down_deg=float(_get(d, "fov-down", -25.0)),
+            max_points=int(_get(d, "max-points", 131072)),
+            packed=bool(_get(d, "packed", False)),
+            backend=str(_get(d, "backend", "sort")),
+            kernel_spb=int(_get(d, "kernel-spb", 1)),
+            kernel_packed=str(_get(d, "kernel-packed", "auto")),
+            kernel_aligned=str(_get(d, "kernel-aligned", "off")),
+        )
+        if proj.kernel_packed not in ("auto", "on", "off"):
+            raise ConfigError(f"kernel-packed must be auto|on|off, got "
+                              f"{proj.kernel_packed!r}")
+        if proj.kernel_spb < 1:
+            raise ConfigError(f"kernel-spb must be >= 1, got "
+                              f"{proj.kernel_spb}")
+        if proj.kernel_aligned not in ("auto", "on", "off", "trust",
+                                       "halves"):
+            raise ConfigError(
+                f"kernel-aligned must be auto|on|off|trust|halves, got "
+                f"{proj.kernel_aligned!r}")
+        if proj.backend != "pallas-ring":
+            raise _unsupported(f"projection backend {proj.backend!r}",
+                               _LATER_PROJECTION)
+        if proj.kernel_aligned != "off":
+            raise _unsupported(f"kernel-aligned={proj.kernel_aligned}",
+                               _LATER_PROJECTION)
+        if bool(_get(d, "slot-bin", False)):
+            raise _unsupported("slot-bin", _LATER_DATA)
+        channels = tuple(_get(d, "channels",
+                              ["x", "y", "z", "remission", "depth"]))
+        for c in channels:
+            if c not in CHANNEL_ORDER:
+                raise ConfigError(f"unknown projection channel '{c}'")
+            if c == "normals":
+                raise _unsupported("the normals channel", _LATER_PROJECTION)
+        mean = tuple(float(x) for x in (_get(d, "mean", []) or []))
+        std = tuple(float(x) for x in (_get(d, "std", []) or []))
+        if bool(mean) != bool(std):
+            raise ConfigError(
+                "normalization requires both mean and std (or neither)")
+        for name, vals in (("mean", mean), ("std", std)):
+            if vals and len(vals) != len(channels):
+                raise ConfigError(f"normalization {name} has {len(vals)} "
+                                  f"entries for {len(channels)} channels")
+        if any(v == 0 for v in std):
+            raise ConfigError("normalization std contains a zero")
+        return DatasetConfig(
+            channels=channels,
+            projection=proj,
+            mean=mean,
+            std=std,
+            max_imu_per_pair=int(_get(d, "max-imu-per-pair", 16)),
+        )
+
+
+@dataclass(frozen=True)
+class LidarFeatConfig:
+    name: str = "lidar-feat-pointseg"
+    part: str = "encoder"
+    feature_size: int = 512
+    h_stride: int = 1
+    w_stride: int = 2
+    se: bool = True
+    el_squeeze: int = 0
+    stem: str = "classic"
+    fire: str = "classic"
+    pool: str = "stride"
+
+    @staticmethod
+    def from_dict(name: str, d: Dict[str, Any]) -> "LidarFeatConfig":
+        if name != "lidar-feat-pointseg":
+            raise _unsupported(f"lidar-feat-net {name!r}", _LATER_VARIANTS)
+        bypass = bool(_get(d, "bypass", False))
+        part = str(_get(d, "part",
+                        "encoder+decoder" if bypass else "encoder"))
+        stem = str(_get(d, "stem", "classic"))
+        fire = str(_get(d, "fire", "classic"))
+        pool = str(_get(d, "pool", "classic"))
+        for what, got, want in (("part", part, "encoder"),
+                                ("stem", stem, "classic"),
+                                ("fire", fire, "classic"),
+                                ("pool", pool, "stride")):
+            if got != want:
+                raise _unsupported(f"lidar {what}={got!r}", _LATER_VARIANTS)
+        return LidarFeatConfig(
+            name=name,
+            part=part,
+            feature_size=int(_get(d, "feature-size", 512)),
+            h_stride=int(_get(d, "h-stride", 1)),
+            w_stride=int(_get(d, "w-stride", 2)),
+            se=bool(_get(d, "se", True)),
+            el_squeeze=int(_get(d, "el-squeeze", 0)),
+            stem=stem,
+            fire=fire,
+            pool=pool,
+        )
+
+
+def _rnn_checks(kind: str, name: str, want: str, d: Dict[str, Any]) -> None:
+    if name != want:
+        raise _unsupported(f"{kind} {name!r}", _LATER_VARIANTS)
+    cell = str(_get(d, "type", "lstm"))
+    if cell != "lstm":
+        raise _unsupported(f"{kind} type={cell!r} (GRU)", _LATER_VARIANTS)
+    if bool(_get(d, "bidirectional", False)):
+        raise _unsupported(f"bidirectional {kind}", _LATER_VARIANTS)
+
+
+@dataclass(frozen=True)
+class ImuFeatConfig:
+    name: str = "imu-feat-rnn"
+    rnn_type: str = "lstm"
+    input_size: int = 6
+    hidden_size: int = 128
+    num_layers: int = 2
+
+    @staticmethod
+    def from_dict(name: str, d: Dict[str, Any]) -> "ImuFeatConfig":
+        _rnn_checks("imu-feat-net", name, "imu-feat-rnn", d)
+        return ImuFeatConfig(
+            name=name,
+            input_size=int(_get(d, "input-size", 6)),
+            hidden_size=int(_get(d, "hidden-size", 128)),
+            num_layers=int(_get(d, "num-layers", 2)),
+        )
+
+
+@dataclass(frozen=True)
+class FusionConfig:
+    kind: str = "soft"  # soft | hard
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "FusionConfig":
+        kind = str(_get(d, "type", "soft"))
+        if kind not in ("soft", "hard"):
+            raise ConfigError(f"fusion-net type must be soft|hard, got {kind}")
+        return FusionConfig(kind=kind)
+
+
+@dataclass(frozen=True)
+class OdomFeatConfig:
+    name: str = "odom-feat-rnn"
+    rnn_type: str = "lstm"
+    hidden_size: int = 256
+    num_layers: int = 2
+
+    @staticmethod
+    def from_dict(name: str, d: Dict[str, Any]) -> "OdomFeatConfig":
+        _rnn_checks("odom-feat-net", name, "odom-feat-rnn", d)
+        return OdomFeatConfig(
+            name=name,
+            hidden_size=int(_get(d, "hidden-size", 256)),
+            num_layers=int(_get(d, "num-layers", 2)),
+        )
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    arch: str = "deeplio"
+    lidar: Optional[LidarFeatConfig] = None
+    imu: Optional[ImuFeatConfig] = None
+    fusion: Optional[FusionConfig] = None
+    odom: OdomFeatConfig = field(default_factory=OdomFeatConfig)
+    compute_dtype: str = "bfloat16"
+
+
+def _net_name(block: Dict[str, Any], key: str, default: str) -> str:
+    spec = _get(block, key, default)
+    if isinstance(spec, str):
+        return spec
+    return str(_get(spec or {}, "name", default))
+
+
+@dataclass(frozen=True)
+class Config:
+    datasets: DatasetConfig
+    model: ModelConfig
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "Config":
+        datasets = DatasetConfig.from_dict(_get(d, "datasets", {}) or {})
+        arch = str(_get(d, "arch", "deeplio")).lower()
+        if arch != "deeplio":
+            if arch in ("deepio", "deeplo"):
+                raise _unsupported(f"arch {arch!r}", _LATER_VARIANTS)
+            raise ConfigError(
+                f"arch must be deepio|deeplo|deeplio, got {arch}")
+        block: Dict[str, Any] = _get(d, arch, {}) or {}
+        lspec = _require(block, "lidar-feat-net", f"'{arch}' block")
+        lname = str(lspec if isinstance(lspec, str)
+                    else _get(lspec or {}, "name", "lidar-feat-pointseg"))
+        iname = _net_name(block, "imu-feat-net", "imu-feat-rnn")
+        oname = _net_name(block, "odom-feat-net", "odom-feat-rnn")
+        if _get(block, "fusion-net") is None:
+            raise ConfigError("arch deeplio requires a fusion-net block")
+        compute = str(_get(d, "compute-dtype", "bfloat16"))
+        if compute not in ("bfloat16", "float32", "float16"):
+            raise ConfigError(f"compute-dtype must be bfloat16|float32|"
+                              f"float16, got {compute!r}")
+        param = str(_get(d, "param-dtype", "float32"))
+        if param != "float32":
+            raise _unsupported(f"param-dtype={param!r}", _LATER_VARIANTS)
+        model = ModelConfig(
+            arch=arch,
+            lidar=LidarFeatConfig.from_dict(lname, _get(d, lname, {}) or {}),
+            imu=ImuFeatConfig.from_dict(iname, _get(d, iname, {}) or {}),
+            fusion=FusionConfig.from_dict(_get(block, "fusion-net", {}) or {}),
+            odom=OdomFeatConfig.from_dict(oname, _get(d, oname, {}) or {}),
+            compute_dtype=compute,
+        )
+        return Config(datasets=datasets, model=model)
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,2 @@
+"""Model zoo: PointSeg blocks, DeepLIO feature nets, the flax weight
+bridge."""

@@ -1,0 +1,143 @@
+"""PointSeg building blocks (counterpart of ``deeplio_tpu/models/blocks.py``:
+``ConvBN``, ``SELayer``, classic ``Fire`` and ``ASPP``).
+
+Modules take NCHW tensors. Submodules carry the names flax gives the
+matching parameters (``Conv_0``, ``BatchNorm_0``, ``Dense_0``...), so
+``models/from_flax.py`` maps a flax variable tree onto them path by path.
+
+Convolutions use flax's SAME padding, which is asymmetric for a strided
+kernel (the extra row or column goes at the bottom/right); PyTorch's
+``padding=`` is symmetric, so :class:`SameConv2d` pads explicitly.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Pair = Tuple[int, int]
+
+
+def _pair(v) -> Pair:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def same_pads(size: int, kernel: int, stride: int,
+              dilation: int = 1) -> Pair:
+    """flax/XLA SAME padding (before, after) along one axis."""
+    k = (kernel - 1) * dilation + 1
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv2d(nn.Conv2d):
+    """``nn.Conv2d`` with flax's SAME padding for any stride/dilation."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel=(3, 3),
+                 stride=(1, 1), dilation=(1, 1), bias: bool = True):
+        super().__init__(in_channels, out_channels, _pair(kernel),
+                         stride=_pair(stride), dilation=_pair(dilation),
+                         padding=0, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ph = same_pads(x.shape[-2], self.kernel_size[0], self.stride[0],
+                       self.dilation[0])
+        pw = same_pads(x.shape[-1], self.kernel_size[1], self.stride[1],
+                       self.dilation[1])
+        if ph[0] == ph[1] and pw[0] == pw[1]:
+            return F.conv2d(x, self.weight, self.bias, self.stride,
+                            (ph[0], pw[0]), self.dilation)
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+        return F.conv2d(x, self.weight, self.bias, self.stride, 0,
+                        self.dilation)
+
+
+class ConvBN(nn.Module):
+    """SAME conv without bias -> eval BatchNorm -> ReLU.
+
+    BatchNorm uses flax's epsilon 1e-5 and its running statistics (this
+    slice serves; the training slice owns the statistics update)."""
+
+    def __init__(self, in_channels: int, features: int, kernel=(3, 3),
+                 strides=(1, 1)):
+        super().__init__()
+        self.Conv_0 = SameConv2d(in_channels, features, kernel, strides,
+                                 bias=False)
+        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-5, momentum=0.01)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.BatchNorm_0(self.Conv_0(x)))
+
+
+class SELayer(nn.Module):
+    """Squeeze-and-excitation channel attention (reduction 16)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        hidden = max(channels // 16, 4)
+        self.Dense_0 = nn.Linear(channels, hidden)
+        self.Dense_1 = nn.Linear(hidden, channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = x.mean(dim=(-2, -1))
+        s = torch.sigmoid(self.Dense_1(F.relu(self.Dense_0(s))))
+        return x * s[..., None, None]
+
+
+class Fire(nn.Module):
+    """Fire module: strided 1x1 squeeze ConvBN -> parallel 1x1 and 3x3
+    expands, concatenated, ReLU (the classic, unfused form)."""
+
+    def __init__(self, in_channels: int, squeeze: int, expand1: int,
+                 expand3: int, strides=(1, 1)):
+        super().__init__()
+        self.ConvBN_0 = ConvBN(in_channels, squeeze, (1, 1), strides)
+        self.Conv_0 = SameConv2d(squeeze, expand1, (1, 1))
+        self.Conv_1 = SameConv2d(squeeze, expand3, (3, 3))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.ConvBN_0(x)
+        return F.relu(torch.cat([self.Conv_0(s), self.Conv_1(s)], dim=1))
+
+
+class ASPP(nn.Module):
+    """Atrous pyramid "enlargement layer": a 1x1 and 3x3 branches dilated
+    by 1, 2 and 4.
+
+    ``squeeze > 0``: 1x1 squeeze -> branches at the squeeze width,
+    concatenated, ReLU -> 1x1 expand -> ReLU. ``squeeze == 0``: full-width
+    branches summed, ReLU.
+    """
+
+    RATES = (1, 2, 4)
+
+    def __init__(self, in_channels: int, features: int, squeeze: int = 0):
+        super().__init__()
+        self.squeeze_width = squeeze
+        width = squeeze if squeeze > 0 else features
+        src = squeeze if squeeze > 0 else in_channels
+        if squeeze > 0:
+            self.squeeze = SameConv2d(in_channels, squeeze, (1, 1))
+        self.Conv_0 = SameConv2d(src, width, (1, 1))
+        for i, r in enumerate(self.RATES):
+            setattr(self, f"Conv_{i + 1}",
+                    SameConv2d(src, width, (3, 3), dilation=(r, r)))
+        self.n_branches = 1 + len(self.RATES)
+        if squeeze > 0:
+            self.expand = SameConv2d(squeeze * self.n_branches, features,
+                                     (1, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        branches = [getattr(self, f"Conv_{i}") for i in range(self.n_branches)]
+        if self.squeeze_width > 0:
+            s = F.relu(self.squeeze(x))
+            y = F.relu(torch.cat([conv(s) for conv in branches], dim=1))
+            return F.relu(self.expand(y))
+        out = branches[0](x)
+        for conv in branches[1:]:
+            out = out + conv(x)
+        return F.relu(out)

@@ -1,0 +1,111 @@
+"""Feature nets of DeepLIO (counterpart of ``deeplio_tpu/models/feat_nets.py``:
+``LidarPointSegFeat``, ``ImuFeatRnn``, ``FusionLayer``, ``OdomFeatRNN``,
+``PoseHeads``).
+
+This slice builds the serving (eval) graph. Dropout is the identity there,
+so the modules hold none; the training slice adds it.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from deeplio_tpu_torch.models.blocks import ConvBN
+from deeplio_tpu_torch.models.pointseg import PointSegNet
+from deeplio_tpu_torch.ops.rnn import MaskedRNN
+
+
+class LidarPointSegFeat(nn.Module):
+    """PointSeg encoder over pair-stacked images [B, 2C, H, W] -> two
+    strided 3x3 ConvBNs -> spatial mean -> Dense -> ReLU -> [B, F]."""
+
+    def __init__(self, in_channels: int, feature_size: int = 512,
+                 h_stride: int = 1, w_stride: int = 2, se: bool = True,
+                 el_squeeze: int = 0):
+        super().__init__()
+        self.pointseg = PointSegNet(in_channels, h_stride=h_stride,
+                                    w_stride=w_stride, with_se=se,
+                                    el_squeeze=el_squeeze)
+        self.ConvBN_0 = ConvBN(512, 256, (3, 3), (2, 2))
+        self.ConvBN_1 = ConvBN(256, 256, (3, 3), (2, 2))
+        self.Dense_0 = nn.Linear(256, feature_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        feat = self.ConvBN_1(self.ConvBN_0(self.pointseg(x)))
+        return F.relu(self.Dense_0(feat.mean(dim=(-2, -1))))
+
+
+class ImuFeatRnn(nn.Module):
+    """Masked LSTM over each pair's padded IMU window -> final hidden."""
+
+    def __init__(self, input_size: int = 6, hidden_size: int = 128,
+                 num_layers: int = 2):
+        super().__init__()
+        self.MaskedRNN_0 = MaskedRNN(input_size, hidden_size, num_layers)
+
+    def forward(self, imu: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """imu [B, T, 6], mask [B, T] -> [B, H]."""
+        return self.MaskedRNN_0(imu, mask)[1]
+
+
+class FusionLayer(nn.Module):
+    """hard: concat(lidar, imu). soft: each modality gated by a learned
+    sigmoid mask computed from both, then concatenated."""
+
+    def __init__(self, lidar_size: int, imu_size: int, kind: str = "soft"):
+        super().__init__()
+        if kind not in ("soft", "hard"):
+            raise ValueError(f"fusion kind must be soft|hard, got {kind!r}")
+        self.kind = kind
+        if kind == "soft":
+            self.gate_lidar = nn.Linear(lidar_size + imu_size, lidar_size)
+            self.gate_imu = nn.Linear(lidar_size + imu_size, imu_size)
+
+    def forward(self, lidar: torch.Tensor, imu: torch.Tensor) -> torch.Tensor:
+        both = torch.cat([lidar, imu], dim=-1)
+        if self.kind == "hard":
+            return both
+        gl = torch.sigmoid(self.gate_lidar(both))
+        gi = torch.sigmoid(self.gate_imu(both))
+        return torch.cat([lidar * gl, imu * gi], dim=-1)
+
+
+class OdomFeatRNN(nn.Module):
+    """LSTM over the window's pair sequence: [B, P, F] -> [B, P, H]."""
+
+    def __init__(self, input_size: int, hidden_size: int = 256,
+                 num_layers: int = 2):
+        super().__init__()
+        self.MaskedRNN_0 = MaskedRNN(input_size, hidden_size, num_layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.MaskedRNN_0(x, None)[0]
+
+
+class PoseHeads(nn.Module):
+    """Twin heads: translation R^3 and a unit quaternion R^4.
+
+    The hidden layers run in the compute dtype; the output layers run in
+    float32 outside any autocast region, as in the JAX package. The
+    ``q_out`` bias starts at [1, 0, 0, 0] (identity rotation)."""
+
+    def __init__(self, in_features: int):
+        super().__init__()
+        hidden = 128
+        self.x_fc = nn.Linear(in_features, hidden)
+        self.q_fc = nn.Linear(in_features, hidden)
+        self.x_out = nn.Linear(hidden, 3)
+        self.q_out = nn.Linear(hidden, 4)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        hx = F.relu(self.x_fc(x))
+        hq = F.relu(self.q_fc(x))
+        with torch.autocast(x.device.type, enabled=False):
+            x_out = self.x_out(hx.float())
+            q_raw = self.q_out(hq.float())
+        norm = torch.linalg.vector_norm(q_raw, dim=-1, keepdim=True)
+        return x_out, q_raw / torch.clamp_min(norm, 1e-8)

@@ -1,0 +1,55 @@
+"""Quaternion and SE(3) math in float32 (counterpart of the subset of
+``deeplio_tpu/utils/spatial.py`` that streaming odometry uses).
+
+Conventions as in the JAX package: quaternions are [w, x, y, z], rotation
+matrices are world-from-body, everything broadcasts over leading dims.
+
+Pose composition is written as an elementwise product and sum instead of
+``torch.matmul``: a float32 matmul may run in TF32 on the card when a
+caller enabled it, and trajectories must compose in full float32 (the JAX
+package pins HIGHEST precision for the same reason).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Return q / ||q||, guarding the zero quaternion."""
+    n = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return q / torch.clamp_min(n, eps)
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion -> 3x3 rotation matrix."""
+    q = quat_normalize(q)
+    w, x, y, z = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    row0 = torch.stack([1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)], -1)
+    row1 = torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], -1)
+    row2 = torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], -1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def se3_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Pack (R [..., 3, 3], t [..., 3]) into a 4x4 homogeneous transform."""
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    R = R.expand(batch + (3, 3))
+    t = t.expand(batch + (3,))
+    top = torch.cat([R, t[..., :, None]], dim=-1)
+    bottom = R.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(batch + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
+
+
+def se3_compose(Ta: torch.Tensor, Tb: torch.Tensor) -> torch.Tensor:
+    """Ta @ Tb in full float32 (no TF32 on any device)."""
+    return (Ta[..., :, :, None] * Tb[..., None, :, :]).sum(dim=-2)
+
+
+def apply_relative(T: torch.Tensor, dx: torch.Tensor,
+                   dq: torch.Tensor) -> torch.Tensor:
+    """Chain one relative motion onto a global pose: T @ [R(dq) | dx]."""
+    return se3_compose(T, se3_matrix(quat_to_rotmat(dq), dx))

@@ -1,0 +1,111 @@
+"""The port imports nothing of JAX or of the JAX package, and its entry
+points run on CUDA unless asked for the CPU."""
+
+import ast
+import pathlib
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from deeplio_tpu_torch.config import load_config  # noqa: E402
+from deeplio_tpu_torch.device import resolve_device  # noqa: E402
+from deeplio_tpu_torch.eval.streaming import StreamingOdometry  # noqa: E402
+from deeplio_tpu_torch.models.zoo import build_model  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "deeplio_tpu")
+PORT_FILES = sorted((ROOT / "deeplio_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module
+            elif node.level:
+                yield "<relative>"
+
+
+def _forbidden(name):
+    return name.split(".")[0] in FORBIDDEN
+
+
+def test_forbidden_matcher():
+    assert _forbidden("jax.numpy") and _forbidden("deeplio_tpu.ops")
+    assert _forbidden("flax") and _forbidden("deeplio_tpu")
+    assert not _forbidden("deeplio_tpu_torch.ops.projection")
+    assert not _forbidden("jaxtyping_like") and not _forbidden("numpy")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_module_imports_no_jax(path):
+    names = list(_imported(ast.parse(path.read_text(), str(path))))
+    bad = [n for n in names if _forbidden(n) or n == "<relative>"]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_has_its_modules():
+    mods = {p.relative_to(ROOT / "deeplio_tpu_torch").as_posix()
+            for p in PORT_FILES if "deeplio_tpu_torch" in p.parts}
+    for want in ("device.py", "config/schema.py", "config/loader.py",
+                 "utils/spatial.py", "ops/projection.py",
+                 "ops/projection_ring.py", "ops/_kernels.py", "ops/rnn.py",
+                 "models/blocks.py", "models/pointseg.py",
+                 "models/feat_nets.py", "models/zoo.py",
+                 "models/from_flax.py", "data/synthetic.py",
+                 "data/np_spatial.py", "data/drives.py",
+                 "eval/streaming.py"):
+        assert want in mods, want
+    assert (ROOT / "deeplio_tpu_torch" / "csrc" / "ring_project.cu").exists()
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device(no_cuda):
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_entry_points_default_to_cuda(no_cuda):
+    """With no device argument and no GPU the entry points raise, not fall
+    back to the CPU."""
+    cfg = load_config(ROOT / "configs" / "deeplio_kitti_tpu.yaml")
+    with pytest.raises(RuntimeError):
+        build_model(cfg)
+    model = build_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError):
+        StreamingOdometry(cfg, model)
+    StreamingOdometry(cfg, model, device="cpu")
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """Without a GPU the smoke test exits non-zero and prints no result;
+    alone in a directory (no package beside it) it fails too."""
+    import shutil
+    import subprocess
+    import sys
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py would run for real")
+    run = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, cwd=ROOT,
+                         timeout=120)
+    assert run.returncode != 0 and '"ok"' not in run.stdout
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", lone)
+    run = subprocess.run([sys.executable, str(lone)], capture_output=True,
+                         text=True, cwd=tmp_path, timeout=120,
+                         env={"PATH": "/usr/bin:/bin"})
+    assert run.returncode != 0 and '"ok"' not in run.stdout

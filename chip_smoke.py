@@ -3,23 +3,42 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, streaming DeepLIO odometry on raw ring-ordered
-scans at the full width of ``configs/deeplio_kitti_tpu.yaml``, and holds
-its CUDA kernel against the kernel's plain PyTorch version:
+Drives the port's two paths at the full width of
+``configs/deeplio_kitti_tpu.yaml`` and holds each CUDA kernel against its
+plain PyTorch version:
 
 1. device: the GPU's name and power limit; build the kernels from
-   ``deeplio_tpu_torch/csrc`` (into ``build/kernels/``) and time the build;
+   ``deeplio_tpu_torch/csrc`` (into ``build/kernels/``, one ``nvcc`` per
+   source, all at once) and time the build;
+
+Slice 1, streaming odometry on raw ring-ordered scans (ring kernel):
+
 2. the ring-projection kernel against its plain version at full width
    (B = 1 and 9, N = 131072, 64x1024) on ring scans and edge cases: the
    selected words and the whole projector must be bit-identical;
-3. the slice: a full-width SyntheticDrive streamed through
-   ``StreamingOdometry`` in bfloat16 with seeded weights; the kernel must
-   launch once per frame; poses finite, first tick the identity; bfloat16
-   within a stated tolerance of the port's own float32 run; the float32
-   model on the card against the same model on the CPU on one frame;
+3. a full-width SyntheticDrive streamed through ``StreamingOdometry`` in
+   bfloat16 with seeded weights; the kernel must launch once per frame;
+   poses finite, first tick the identity; bfloat16 within a stated
+   tolerance of the port's own float32 run; the float32 model on the card
+   against the same model on the CPU on one frame;
 4. a torch.profiler trace of a short stream (device busy and idle share);
 5. timings with CUDA events (median of 30 runs after warm-up), per Python
    call and as device time from CUDA-graph replays.
+
+Slice 2, the training step on unordered scans (point-scatter kernel), the
+slice configuration being the file above with ``backend: pallas`` and
+``augment-yaw: true``:
+
+6. the scatter kernel against its plain version at full width, B = 1 and
+   144, on unordered, ring and yaw-rotated ring scans and edge cases: the
+   selected words and the whole projector must be bit-identical;
+7. ``train_step`` in bfloat16 from seeded weights on 16 windows of 9
+   unordered synthetic frames: 3 warm-up and 10 timed steps, exactly one
+   scatter launch per step, finite losses; 20 steps on one batch without
+   augmentation or dropout must lower the loss; one float32 step on the
+   card against the same step on the CPU at 16x128;
+8. a torch.profiler trace of training steps;
+9. the scatter kernel's timings, as in 5.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails. The last line is the JSON object
@@ -28,6 +47,7 @@ check fails. The last line is the JSON object
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import pathlib
@@ -37,19 +57,32 @@ import time
 
 import numpy as np
 import torch
+import yaml
 
-from deeplio_tpu_torch.config import load_config
+from deeplio_tpu_torch.config import load_config, load_config_dict
+from deeplio_tpu_torch.data.dataset import WindowDataset
 from deeplio_tpu_torch.data.drives import SyntheticDrive
 from deeplio_tpu_torch.data.synthetic import synthetic_ring_batch
 from deeplio_tpu_torch.eval.streaming import StreamingOdometry
+from deeplio_tpu_torch.models.from_flax import to_flax_variables
 from deeplio_tpu_torch.models.zoo import build_model
 from deeplio_tpu_torch.ops import _kernels
+from deeplio_tpu_torch.ops.projection import rq_bits_for
 from deeplio_tpu_torch.ops.projection_ring import (
     project_batch_ring_planes,
     ring_prologue,
     ring_select,
     ring_select_reference,
 )
+from deeplio_tpu_torch.ops.projection_scatter import (
+    SENTINEL,
+    project_batch_scatter_planes,
+    scatter_prologue,
+    scatter_select,
+    scatter_select_reference,
+)
+from deeplio_tpu_torch.train.state import create_train_state
+from deeplio_tpu_torch.train.step import batch_to_device, build_train_step
 
 CONFIG = pathlib.Path(__file__).resolve().parent / "configs" / \
     "deeplio_kitti_tpu.yaml"
@@ -68,6 +101,24 @@ REPS = 30
 # the __global__ functions of csrc/ring_project.cu, as the profiler names them
 RING_PASSES = ("tile_max_kernel", "tile_carry_kernel", "ring_min_kernel",
                "ring_payload_kernel")
+# ... and of csrc/proj_scatter.cu
+SCATTER_PASSES = ("scatter_min_kernel", "scatter_payload_kernel")
+RQ_BITS = rq_bits_for(H * W)
+# the training slice: windows per batch, frames per window, steps
+TRAIN_B, TRAIN_S = 16, 9
+TRAIN_PAIRS = TRAIN_B * (TRAIN_S - 1)
+WARMUP_STEPS, TIMED_STEPS, FIT_STEPS, PROFILE_STEPS = 3, 10, 20, 2
+# one float32 step on the card (TF32 off) against the CPU, 16x128, B = 2,
+# S = 3. At this size the last ConvBN normalises over 8 values per channel,
+# which magnifies the rounding of different summation orders: the CPU
+# tests measure gradients that move by up to 6e-4 of the largest with the
+# thread count alone, and Adam's first update keeps only each gradient's
+# sign. So: the loss within 1e-4 of its magnitude, grad_norm within 1e-2,
+# the BatchNorm statistics within 1e-4 of each leaf's largest value, and
+# the parameter update in L2 within 20% (sign flips where |g| is at the
+# rounding level).
+STEP_LOSS_RTOL, STEP_NORM_RTOL, STEP_STATS_RTOL, STEP_UPDATE_L2 = (
+    1e-4, 1e-2, 1e-4, 0.2)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -114,6 +165,15 @@ def graph_ms(fn, inner: int = 10, reps: int = REPS) -> float:
         for _ in range(inner):
             fn()
     return cuda_ms(graph.replay, reps) / inner
+
+
+def device_kernels(events, span_prefix: str):
+    """The profiler's device rows that are kernels or copies. The
+    ``record_function`` spans, and the optimizer's own, also show up as
+    device-typed annotation rows that hold each span's whole range."""
+    return [e for e in events if e.device_type.name == "CUDA"
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith((span_prefix, "Optimizer."))]
 
 
 def kernel_cases(rng):
@@ -189,13 +249,18 @@ def phase_timings(dev, rng, gpu):
 
         k_call, p_call = cuda_ms(kernel), cuda_ms(plain)
         k_ms, p_ms = graph_ms(kernel), graph_ms(plain)
-        nbytes = 4 * 4 * b * N + 3 * 4 * b * H * W
+        landed = int((kernel()[0] != SENTINEL).sum())
+        # each point's pixel and key read once; the two payload words only
+        # of each landed pixel's winner; the three output planes written
+        nbytes = 8 * b * N + 8 * landed + 12 * b * H * W
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         out[b] = (k_ms, p_ms, bound_ms)
         print(f"timing ring_project B={b}: device (graph replay) kernel "
               f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; per Python call kernel "
               f"{k_call:.4f} ms, plain {p_call:.4f} ms; bound "
-              f"{bound_ms * 1e3:.3f} us ({nbytes} B at 3.35 TB/s) [{gpu}]")
+              f"{bound_ms * 1e3:.3f} us ({nbytes} B at 3.35 TB/s: 8 B per "
+              f"point, 8 B per landed pixel, {landed} landed, 12 B per "
+              f"pixel written) [{gpu}]")
     return out
 
 
@@ -287,11 +352,8 @@ def phase_profile(so, gpu, frames: int = 8):
         so.run(short)
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    # the stream.* spans show up twice: as host ranges and as annotations
-    # on the device timeline (device_type CUDA); only the rest are kernels.
     spans = [e for e in events if e.key.startswith("stream.")]
-    kernels = [e for e in events if e.device_type.name == "CUDA"
-               and not e.key.startswith("stream.")]
+    kernels = device_kernels(events, "stream.")
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / frames
     if busy_ms <= 0:
         print("profile: the profiler recorded no device time")
@@ -314,9 +376,322 @@ def phase_profile(so, gpu, frames: int = 8):
           f"{sum(e.count for e in ring) / frames:.0f} kernels (its passes "
           f"alone, without the wrapper's fills) [{gpu}]")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"profile kernel {e.key[:90]}: "
+        print(f"profile kernel {e.key[:160]}: "
               f"{e.self_device_time_total / frames:.1f} us/frame, "
               f"{e.count / frames:.1f} launches/frame")
+
+
+# ------------------------------------------------------------- slice 2
+
+def slice2_config(**over):
+    """The slice configuration (``backend: pallas``, ``augment-yaw``), with
+    ``datasets`` keys and the top-level ``compute-dtype``/``dropout``
+    (both dropout rates) overridden from ``over``."""
+    with open(CONFIG) as f:
+        d = yaml.safe_load(f)
+    d["datasets"].update({"backend": "pallas", "augment-yaw": True})
+    if "compute_dtype" in over:
+        d["compute-dtype"] = over.pop("compute_dtype")
+    if "dropout" in over:
+        d["deeplio"]["dropout"] = over.pop("dropout")
+        d["lidar-feat-pointseg"]["dropout"] = 0.0
+    d["datasets"].update({k.replace("_", "-"): v for k, v in over.items()})
+    return load_config_dict(d)
+
+
+def training_batch():
+    """One host batch of 16 windows of 9 unordered full-width frames (16
+    synthetic drives of 9 frames; every scan built before any timing)."""
+    cfg = slice2_config()
+    drives = [SyntheticDrive(n_frames=TRAIN_S, max_points=N, seed=s,
+                             world_points=300_000) for s in range(TRAIN_B)]
+    ds = WindowDataset(cfg.datasets, drives)
+    check(len(ds) == TRAIN_B, f"{len(ds)} windows, want {TRAIN_B}")
+    return next(ds.iter_batches(TRAIN_B, shuffle=False))
+
+
+def rotate_yaw(pts: np.ndarray, rng) -> np.ndarray:
+    """Each scan of [B, N, 4] rotated about z by its own random yaw."""
+    phi = rng.uniform(-np.pi, np.pi, pts.shape[0]).astype(np.float32)
+    c, s = np.cos(phi)[:, None], np.sin(phi)[:, None]
+    out = pts.copy()
+    out[..., 0] = c * pts[..., 0] - s * pts[..., 1]
+    out[..., 1] = s * pts[..., 0] + c * pts[..., 1]
+    return out
+
+
+def scatter_cases(rng, batch):
+    """(name, points [B, N, 4], valid [B, N]) at full width."""
+    un = np.stack([batch[k] for k in ("points_x", "points_y", "points_z",
+                                      "points_rem")], -1)     # [144, N, 4]
+    un_valid = batch["points_valid"]
+    ring = synthetic_ring_batch(rng, TRAIN_B * TRAIN_S, N)
+    ones = np.ones((1, N), bool)
+    one = un[:1]
+    cases = [(f"unordered B={len(un)}", un, un_valid),
+             ("unordered B=1", one, un_valid[:1]),
+             (f"ring B={len(ring)}", ring, np.ones(ring.shape[:2], bool)),
+             (f"yaw-rotated ring B={len(ring)}", rotate_yaw(ring, rng),
+              np.ones(ring.shape[:2], bool)),
+             ("yaw-rotated ring B=1", rotate_yaw(ring[:1], rng), ones),
+             ("30% interleaved invalid", one, rng.uniform(size=(1, N)) >= 0.3),
+             ("all invalid", one, np.zeros((1, N), bool))]
+    short = 126979
+    cases.append((f"N = {short}", one[:, :short].copy(), ones[:, :short]))
+    dup = one.copy()
+    src = rng.choice(N, N // 5, replace=False)
+    dst = rng.choice(N, N // 5, replace=False)
+    dup[0, dst] = one[0, src]                     # exact duplicates
+    cases.append(("duplicated points", dup, ones))
+    cases.append(("one hot pixel", hot_pixel_scan(rng), ones))
+    return cases
+
+
+def hot_pixel_scan(rng) -> np.ndarray:
+    """All N points straight ahead at ranges in [2, 70) m: one pixel takes
+    every candidate (the atomics' worst case), with 1 cm range ties."""
+    pts = np.zeros((1, N, 4), np.float32)
+    pts[0, :, 0] = rng.uniform(2.0, 70.0, N)
+    pts[0, :, 3] = rng.uniform(0.0, 1.0, N)
+    return pts
+
+
+def phase_scatter_kernel(dev, rng, batch):
+    worst = 0
+    for name, pts, vld in scatter_cases(rng, batch):
+        p = torch.from_numpy(pts).to(dev)
+        v = torch.from_numpy(vld).to(dev)
+        x, y, z, rem = planes(p)
+        words = scatter_prologue(x, y, z, rem, v, H, W, FU, FD)
+        got = scatter_select(*words, H * W, RQ_BITS)
+        ref = scatter_select_reference(*words, H * W, RQ_BITS)
+        torch.cuda.synchronize()
+        for label, a, b in zip(("kmin", "xyo", "zro"), got, ref):
+            diff = int((a.long() - b.long()).abs().max())
+            worst = max(worst, diff)
+            check(diff == 0, f"{name}: scatter kernel {label} differs by "
+                  f"{diff}")
+        ik, mk = project_batch_scatter_planes(x, y, z, rem, v, H, W, FU, FD,
+                                              select=scatter_select)
+        ir, mr = project_batch_scatter_planes(
+            x, y, z, rem, v, H, W, FU, FD, select=scatter_select_reference)
+        check(torch.equal(mk, mr) and torch.equal(ik, ir),
+              f"{name}: scatter projector kernel path differs from plain "
+              f"path")
+        landed = int((got[0] != SENTINEL).sum())
+        print(f"scatter kernel vs plain [{name}]: B={pts.shape[0]} "
+              f"N={pts.shape[1]} landed={landed} bit-identical")
+        del p, v, x, y, z, rem, words, got, ref, ik, mk, ir, mr
+    return worst
+
+
+def _metrics(ms):
+    return {k: float(v) for k, v in ms.items()}
+
+
+def phase_train(dev, gpu, host):
+    """The training slice at full width in bfloat16: warm-up, then the
+    timed main-path run with its launch count."""
+    cfg = slice2_config()
+    model = build_model(cfg, device=dev, seed=0)
+    state = create_train_state(cfg, model)
+    train_step, _ = build_train_step(cfg)
+    t0 = time.perf_counter()
+    raw = batch_to_device(host, dev)
+    torch.cuda.synchronize()
+    h2d_ms = (time.perf_counter() - t0) * 1e3
+    for _ in range(WARMUP_STEPS):
+        state, m = train_step(state, raw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scatter_select.launches = 0
+    ring_select.launches = 0
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(TIMED_STEPS):
+        state, m = train_step(state, raw)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = scatter_select.launches
+    check(launches == TIMED_STEPS,
+          f"scatter kernel launched {launches} times in {TIMED_STEPS} steps")
+    check(ring_select.launches == 0, "the training slice ran the ring kernel")
+    ms = [_metrics(m) for m in metrics]
+    check(all(np.isfinite(list(m.values())).all() for m in ms),
+          "non-finite training metrics")
+    step_ms = wall * 1e3 / TIMED_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"train: {TIMED_STEPS} steps of {TRAIN_B} windows x {TRAIN_S} "
+          f"frames x {N} points at 64x1024 in bfloat16: {step_ms:.2f} "
+          f"ms/step, {TRAIN_PAIRS / step_ms * 1e3:.1f} pairs/s, scatter "
+          f"launches {launches} (one per step, {TRAIN_B * TRAIN_S} scans "
+          f"each), peak memory {peak_gb:.2f} GB; batch host-to-device "
+          f"{h2d_ms:.1f} ms, outside the step [{gpu}]")
+    print(f"train: first timed step loss {ms[0]['loss']:.5g} grad_norm "
+          f"{ms[0]['grad_norm']:.5g}; last loss {ms[-1]['loss']:.5g} "
+          f"grad_norm {ms[-1]['grad_norm']:.5g}")
+    return launches, step_ms, state, train_step, raw
+
+
+def phase_overfit(dev, raw):
+    """FIT_STEPS steps on one batch, augmentation and dropout off: the loss
+    must fall below its first value."""
+    cfg = slice2_config(augment_yaw=False, dropout=0.0)
+    state = create_train_state(cfg, build_model(cfg, device=dev, seed=0))
+    train_step, _ = build_train_step(cfg)
+    losses = []
+    for _ in range(FIT_STEPS):
+        state, m = train_step(state, raw)
+        losses.append(m["loss"])
+    losses = [float(v) for v in losses]
+    check(np.isfinite(losses).all(), "non-finite overfit loss")
+    check(losses[-1] < losses[0], f"overfit loss did not fall: "
+          f"{losses[0]:.5g} -> {losses[-1]:.5g}")
+    print(f"train: overfit {FIT_STEPS} steps on one batch (no augmentation, "
+          f"no dropout): loss {losses[0]:.5g} -> {losses[-1]:.5g}, min "
+          f"{min(losses):.5g}")
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def phase_train_vs_cpu(dev):
+    """One float32 step on the card against the same step on the CPU, at
+    16x128 with identical weights and batch."""
+    cfg = slice2_config(compute_dtype="float32", augment_yaw=False,
+                        dropout=0.0, image_height=16, image_width=128,
+                        max_points=2048, sequence_size=3, window_stride=2)
+    ds = WindowDataset(cfg.datasets, [SyntheticDrive(n_frames=5,
+                                                     max_points=2048)])
+    host = next(ds.iter_batches(2, shuffle=False))
+    cpu_model = build_model(cfg, device="cpu", seed=0)
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    old = _flat(to_flax_variables(cpu_model))
+    train_step, _ = build_train_step(cfg)
+    _, mc = train_step(create_train_state(cfg, cpu_model),
+                       batch_to_device(host, "cpu"))
+    _, mg = train_step(create_train_state(cfg, gpu_model),
+                       batch_to_device(host, dev))
+    mc, mg = _metrics(mc), _metrics(mg)
+    new_c = _flat(to_flax_variables(cpu_model))
+    new_g = _flat(to_flax_variables(gpu_model))
+    rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc}
+    params = sorted(k for k in old if k.startswith("params/"))
+    du_c = np.concatenate([(new_c[k] - old[k]).ravel() for k in params])
+    du_g = np.concatenate([(new_g[k] - old[k]).ravel() for k in params])
+    upd = float(np.linalg.norm(du_g - du_c) / np.linalg.norm(du_c))
+    stats = max(float(np.abs(new_g[k] - new_c[k]).max()
+                      / max(np.abs(new_c[k]).max(), 1e-3))
+                for k in old if k.startswith("batch_stats/"))
+    print(f"train: float32 step GPU vs CPU at 16x128: loss rel err "
+          f"{rel['loss']:.3g} (tolerance {STEP_LOSS_RTOL}), grad_norm "
+          f"{rel['grad_norm']:.3g} ({STEP_NORM_RTOL}), BatchNorm statistics "
+          f"{stats:.3g} ({STEP_STATS_RTOL}), update L2 {upd:.3g} "
+          f"({STEP_UPDATE_L2})")
+    check(rel["loss"] <= STEP_LOSS_RTOL, "float32 step loss GPU vs CPU")
+    check(rel["grad_norm"] <= STEP_NORM_RTOL, "float32 grad_norm GPU vs CPU")
+    check(stats <= STEP_STATS_RTOL, "float32 BatchNorm statistics GPU vs CPU")
+    check(upd <= STEP_UPDATE_L2, "float32 parameter update GPU vs CPU")
+
+
+def phase_train_profile(state, train_step, raw, gpu, step_ms: float):
+    """torch.profiler over PROFILE_STEPS training steps: device busy and
+    idle share, host time per train.* span, the scatter kernel's share and
+    the top kernels. The profiler slows the host, so the idle share is
+    also given against ``step_ms``, the step time measured without it."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            state, _ = train_step(state, raw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    spans = [e for e in events if e.key.startswith("train.")
+             and e.device_type.name == "CPU"]
+    kernels = device_kernels(events, "train.")
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 \
+        / PROFILE_STEPS
+    if busy_ms <= 0:
+        print("train profile: the profiler recorded no device time")
+        return
+    wall_ms = wall * 1e3 / PROFILE_STEPS
+    n_k = sum(e.count for e in kernels) / PROFILE_STEPS
+    print(f"train profile: {wall_ms:.3f} ms/step wall (profiler on), device "
+          f"busy {busy_ms:.3f} ms/step, idle share "
+          f"{max(0.0, 1 - busy_ms / wall_ms):.3f} (profiler on), "
+          f"{max(0.0, 1 - busy_ms / step_ms):.3f} against the "
+          f"{step_ms:.2f} ms step without it, {n_k:.0f} device kernels/step "
+          f"[{gpu}]")
+    # autograd launches the backward's kernels from its own thread, so the
+    # profiler puts them under no span: they are the busy time the other
+    # spans leave.
+    own = {e.key: e.device_time_total / 1e3 / PROFILE_STEPS for e in spans}
+    for e in spans:
+        dev_ms = own[e.key]
+        if e.key == "train.backward":
+            dev_ms = busy_ms - sum(v for k, v in own.items() if k != e.key)
+        print(f"train profile span {e.key}: host "
+              f"{e.cpu_time_total / 1e3 / PROFILE_STEPS:.3f} ms/step, its "
+              f"kernels {dev_ms:.3f} ms/step")
+    sc = [e for e in kernels if any(p in e.key for p in SCATTER_PASSES)]
+    sc_ms = sum(e.self_device_time_total for e in sc) / 1e3 / PROFILE_STEPS
+    print(f"train profile proj_scatter: {sc_ms:.4f} ms/step of device time "
+          f"({sc_ms / busy_ms:.4f} of busy) in "
+          f"{sum(e.count for e in sc) / PROFILE_STEPS:.0f} kernels (its "
+          f"passes, without the wrapper's memset) [{gpu}]")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"train profile kernel {e.key[:160]}: "
+              f"{e.self_device_time_total / 1e3 / PROFILE_STEPS:.3f} ms/step,"
+              f" {e.count / PROFILE_STEPS:.1f} launches/step")
+
+
+def phase_scatter_timings(dev, rng, batch, gpu):
+    out = {}
+    un = np.stack([batch[k] for k in ("points_x", "points_y", "points_z",
+                                      "points_rem")], -1)
+    cases = [(1, un[:1], batch["points_valid"][:1]),
+             (len(un), un, batch["points_valid"]),
+             ("1 hot pixel", hot_pixel_scan(rng), np.ones((1, N), bool))]
+    for b, pts, vld in cases:
+        p = torch.from_numpy(pts).to(dev)
+        x, y, z, rem = planes(p)
+        v = torch.from_numpy(vld).to(dev)
+        words = scatter_prologue(x, y, z, rem, v, H, W, FU, FD)
+
+        def kernel():
+            return scatter_select(*words, H * W, RQ_BITS)
+
+        def plain():
+            return scatter_select_reference(*words, H * W, RQ_BITS)
+
+        k_call, p_call = cuda_ms(kernel), cuda_ms(plain)
+        k_ms, p_ms = graph_ms(kernel), graph_ms(plain)
+        nb = pts.shape[0]
+        landed = int((kernel()[0] != SENTINEL).sum())
+        # each point's key read once; the xy/zr words only of each landed
+        # pixel's winner; the three output planes written once
+        nbytes = 4 * nb * N + 8 * landed + 12 * nb * H * W
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[b] = (k_ms, p_ms, bound_ms)
+        print(f"timing proj_scatter B={b}: device (graph replay) kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; per Python call kernel "
+              f"{k_call:.4f} ms, plain {p_call:.4f} ms; bound "
+              f"{bound_ms * 1e3:.3f} us ({nbytes} B at 3.35 TB/s: 4 B per "
+              f"point, 8 B per landed pixel, {landed} landed, 12 B per "
+              f"pixel written) [{gpu}]")
+        del p, x, y, z, rem, v, words
+    return out
 
 
 def main() -> int:
@@ -341,14 +716,36 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     rng = np.random.default_rng(0)
+    # slice 1: streaming odometry, ring kernel
     worst = phase_kernel(dev, rng)
     launches, fps, so = phase_slice(dev, gpu)
     phase_profile(so, gpu)
     times = phase_timings(dev, rng, gpu)
     print(f"slice rate: {fps:.1f} frames/s [{gpu}]")
+    del so
+    torch.cuda.empty_cache()
 
-    print(f"kernels: ring_project (ported, launches={launches}, bit-exact)")
+    # slice 2: the training step, scatter kernel
+    t0 = time.perf_counter()
+    host = training_batch()
+    print(f"train data: {TRAIN_B} windows x {TRAIN_S} unordered frames of "
+          f"{N} points ({int(host['points_valid'].sum())} valid) built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    s_worst = phase_scatter_kernel(dev, rng, host)
+    s_launches, step_ms, state, train_step, raw = phase_train(dev, gpu, host)
+    phase_train_profile(state, train_step, raw, gpu, step_ms)
+    del state
+    torch.cuda.empty_cache()
+    phase_overfit(dev, raw)
+    phase_train_vs_cpu(dev)
+    s_times = phase_scatter_timings(dev, rng, host, gpu)
+    print(f"train rate: {step_ms:.2f} ms/step, "
+          f"{TRAIN_PAIRS / step_ms * 1e3:.1f} pairs/s [{gpu}]")
+
+    print(f"kernels: ring_project (ported, launches={launches}, bit-exact), "
+          f"proj_scatter (ported, launches={s_launches}, bit-exact)")
     k_ms, p_ms, bound_ms = times[1]
+    sk_ms, sp_ms, s_bound_ms = s_times[TRAIN_B * TRAIN_S]
     print(json.dumps({"kernels": [{
         "name": "ring_project",
         "route": "cuda",
@@ -359,6 +756,18 @@ def main() -> int:
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "proj_scatter",
+        "route": "cuda",
+        "source": "deeplio_tpu_torch/csrc/proj_scatter.cu",
+        "replaces": "deeplio_tpu/ops/projection_pallas.py:48",
+        "launches": s_launches,
+        "max_abs_err": float(s_worst),
+        "ms": sk_ms,
+        "plain_ms": sp_ms,
+        "bound_ms": s_bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
     }]}))

@@ -6,7 +6,10 @@ from deeplio_tpu_torch.config.schema import (
     FusionConfig,
     ImuFeatConfig,
     LidarFeatConfig,
+    LossConfig,
     ModelConfig,
     OdomFeatConfig,
+    OptimConfig,
     ProjectionConfig,
+    TrainConfig,
 )

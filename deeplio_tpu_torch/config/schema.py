@@ -1,16 +1,19 @@
-"""Typed configuration for the streaming-odometry slice of the port.
+"""Typed configuration for the port (counterpart of
+``deeplio_tpu/config/schema.py``).
 
-Reads the same YAML keys as ``deeplio_tpu/config/schema.py`` (hyphenated
-or underscored), for the settings the serving path consumes: the
-projection, the channel stack and its normalization, the IMU window and
-the DeepLIO model. Blocks that only training or data loading read
-(``losses``, ``optimizer``, ``train``, the KITTI split lists, window
-striding, augmentation) are accepted and ignored.
+Reads the same YAML keys as the JAX package (hyphenated or underscored)
+for the settings the port computes: the projection, the channel stack and
+its normalization, the window (``sequence-size``, ``combinations``,
+``window-stride``), yaw augmentation, the DeepLIO model with its dropout,
+the pose loss, the optimizer and the fields of ``train`` that the training
+step reads. Blocks the port does not read yet (the KITTI split lists, the
+trainer's epochs, logging and checkpoint cadence) are accepted and ignored:
+they change no result of what the port computes.
 
-A setting that would change what the streaming path computes, and that
-this slice cannot compute yet, raises ``ConfigError`` (a ``ValueError``)
-naming the later slice that adds it, instead of silently serving a
-different model.
+A setting that would change what the port computes, and that the port
+cannot compute yet, raises ``ConfigError`` (a ``ValueError``) naming the
+ROADMAP.md queue item that adds it, instead of silently serving or
+training a different model.
 """
 
 from __future__ import annotations
@@ -22,9 +25,12 @@ from typing import Any, Dict, Optional, Tuple
 CHANNEL_ORDER = ("x", "y", "z", "remission", "depth", "normals")
 
 # Later slices, as ROADMAP.md orders them.
-_LATER_PROJECTION = "a later projection slice (ROADMAP.md Queue 1)"
-_LATER_VARIANTS = "the model-variants slice (ROADMAP.md Queue 1)"
-_LATER_DATA = "the KITTI data slice (ROADMAP.md Queue 1)"
+_LATER_PROJECTION = "a later projection slice (ROADMAP.md Queue 1 item 5)"
+_LATER_VARIANTS = "the model-variants slice (ROADMAP.md Queue 1 item 5)"
+_LATER_DATA = "the KITTI data slice (ROADMAP.md Queue 1 item 3)"
+_LATER_LOOP = "the training-loop slice (ROADMAP.md Queue 1 item 2)"
+_LATER_DP = "the data-parallel slice (ROADMAP.md Queue 1 item 6)"
+BACKENDS = ("pallas-ring", "pallas")
 
 
 class ConfigError(ValueError):
@@ -46,9 +52,16 @@ def _require(d: Dict[str, Any], key: str, ctx: str):
     return v
 
 
+def _rate(v, what: str) -> float:
+    r = float(v)
+    if not 0.0 <= r < 1.0:
+        raise ConfigError(f"{what} must be in [0, 1), got {r}")
+    return r
+
+
 def _unsupported(what: str, later: str) -> ConfigError:
-    return ConfigError(f"{what} is not supported by the streaming slice of "
-                       f"the port; {later} adds it")
+    return ConfigError(f"{what} is not supported by the PyTorch port yet; "
+                       f"{later} adds it")
 
 
 @dataclass(frozen=True)
@@ -59,9 +72,12 @@ class ProjectionConfig:
     fov_up_deg: float = 3.0
     fov_down_deg: float = -25.0
     max_points: int = 131072
-    # The ring route always carries packed-f16 payloads, so ``packed`` does
-    # not change its result (as in the JAX package's pallas-ring backend).
+    # Both kernel routes always carry packed-f16 payloads, so ``packed``
+    # does not change their result (as in the JAX package's pallas and
+    # pallas-ring backends).
     packed: bool = False
+    # pallas-ring: ring-ordered scans (ops/projection_ring.py);
+    # pallas: scans in any order (ops/projection_scatter.py).
     backend: str = "pallas-ring"
     # ``kernel-spb`` and ``kernel-packed`` only choose how the TPU kernel
     # schedules and encodes its work; its results are bit-identical either
@@ -79,10 +95,28 @@ class DatasetConfig:
     mean: Tuple[float, ...] = ()
     std: Tuple[float, ...] = ()
     max_imu_per_pair: int = 16
+    # temporal window: S frames, the P (i, j) frame pairs (default: the
+    # consecutive ones) and the stride between window starts in a drive
+    sequence_size: int = 2
+    combinations: Tuple[Tuple[int, int], ...] = ()
+    window_stride: int = 1
+    # training only: one random global yaw per window, applied inside the
+    # step before the projection (ops/augment.py)
+    augment_yaw: bool = False
 
     @property
     def num_image_channels(self) -> int:
         return len(self.channels)
+
+    @property
+    def effective_combinations(self) -> Tuple[Tuple[int, int], ...]:
+        if self.combinations:
+            return self.combinations
+        return tuple((i, i + 1) for i in range(self.sequence_size - 1))
+
+    @property
+    def num_pairs(self) -> int:
+        return len(self.effective_combinations)
 
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "DatasetConfig":
@@ -109,7 +143,7 @@ class DatasetConfig:
             raise ConfigError(
                 f"kernel-aligned must be auto|on|off|trust|halves, got "
                 f"{proj.kernel_aligned!r}")
-        if proj.backend != "pallas-ring":
+        if proj.backend not in BACKENDS:
             raise _unsupported(f"projection backend {proj.backend!r}",
                                _LATER_PROJECTION)
         if proj.kernel_aligned != "off":
@@ -135,12 +169,24 @@ class DatasetConfig:
                                   f"entries for {len(channels)} channels")
         if any(v == 0 for v in std):
             raise ConfigError("normalization std contains a zero")
+        seq = int(_get(d, "sequence-size", 2))
+        combos = tuple(tuple(int(i) for i in c)
+                       for c in (_get(d, "combinations", None) or ()))
+        for c in combos:
+            if len(c) != 2 or not all(0 <= i < seq for i in c):
+                raise ConfigError(
+                    f"combination {c} out of range for sequence-size {seq} "
+                    f"(frame indices are 0..{seq - 1})")
         return DatasetConfig(
             channels=channels,
             projection=proj,
             mean=mean,
             std=std,
             max_imu_per_pair=int(_get(d, "max-imu-per-pair", 16)),
+            sequence_size=seq,
+            combinations=combos,
+            window_stride=int(_get(d, "window-stride", 1)),
+            augment_yaw=bool(_get(d, "augment-yaw", False)),
         )
 
 
@@ -156,6 +202,7 @@ class LidarFeatConfig:
     stem: str = "classic"
     fire: str = "classic"
     pool: str = "stride"
+    dropout: float = 0.0       # after the tower's Dense, training only
 
     @staticmethod
     def from_dict(name: str, d: Dict[str, Any]) -> "LidarFeatConfig":
@@ -184,6 +231,7 @@ class LidarFeatConfig:
             stem=stem,
             fire=fire,
             pool=pool,
+            dropout=_rate(_get(d, "dropout", 0.0), "lidar dropout"),
         )
 
 
@@ -253,6 +301,102 @@ class ModelConfig:
     fusion: Optional[FusionConfig] = None
     odom: OdomFeatConfig = field(default_factory=OdomFeatConfig)
     compute_dtype: str = "bfloat16"
+    dropout: float = 0.25      # before the pose heads, training only
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    """Pose loss: ``hws`` (fixed beta) or ``lws`` (learned sx, sq)."""
+    active: str = "lws"
+    x_norm: str = "l2"         # l1 | l2
+    q_norm: str = "l2"         # l1 | l2 | geodesic
+    beta: float = 1120.0
+    sx: float = 0.0
+    sq: float = -2.5
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "LossConfig":
+        hws = _get(d, "hws", {}) or {}
+        lws = _get(d, "lws", {}) or {}
+        cfg = LossConfig(
+            active=str(_get(d, "active", _get(d, "type", "lws"))).lower(),
+            x_norm=str(_get(d, "x-norm", "l2")),
+            q_norm=str(_get(d, "q-norm", "l2")),
+            beta=float(_get(hws, "beta", _get(d, "beta", 1120.0))),
+            sx=float(_get(lws, "sx", _get(d, "sx", 0.0))),
+            sq=float(_get(lws, "sq", _get(d, "sq", -2.5))),
+        )
+        for what, got, allowed in (("loss", cfg.active, ("hws", "lws")),
+                                   ("x-norm", cfg.x_norm, ("l1", "l2")),
+                                   ("q-norm", cfg.q_norm,
+                                    ("l1", "l2", "geodesic"))):
+            if got not in allowed:
+                raise ConfigError(f"{what} must be {'|'.join(allowed)}, "
+                                  f"got {got!r}")
+        return cfg
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    """Adam, a step-indexed learning-rate schedule and optax's global-norm
+    gradient clip."""
+    name: str = "adam"
+    lr: float = 1e-4
+    scheduler: str = "none"    # none | step | cosine
+    step_size: int = 20        # epochs per decay (step) or decay length
+    gamma: float = 0.5
+    warmup_steps: int = 0
+    grad_clip: float = 0.0     # 0 = off
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "OptimConfig":
+        sched = _get(d, "scheduler", {}) or {}
+        if isinstance(sched, str):
+            sched = {"name": sched}
+        cfg = OptimConfig(
+            name=str(_get(d, "name", _get(d, "type", "adam"))).lower(),
+            lr=float(_get(d, "lr", 1e-4)),
+            scheduler=str(_get(sched, "name", "none")).lower(),
+            step_size=int(_get(sched, "step-size", 20)),
+            gamma=float(_get(sched, "gamma", 0.5)),
+            warmup_steps=int(_get(sched, "warmup-steps", 0)),
+            grad_clip=float(_get(d, "grad-clip", 0.0)),
+        )
+        if cfg.name == "sgd":
+            raise _unsupported("optimizer sgd", _LATER_VARIANTS)
+        if cfg.name != "adam":
+            raise ConfigError(f"optimizer must be adam|sgd, got {cfg.name!r}")
+        if float(_get(d, "weight-decay", 0.0)) > 0:
+            raise _unsupported("weight-decay (AdamW)", _LATER_VARIANTS)
+        if cfg.scheduler == "plateau":
+            raise _unsupported("scheduler plateau (it reads validation "
+                               "loss)", _LATER_LOOP)
+        if cfg.scheduler not in ("none", "step", "cosine"):
+            raise ConfigError(f"scheduler must be none|step|cosine|plateau, "
+                              f"got {cfg.scheduler!r}")
+        if bool(_get(d, "flat-update", False)):
+            raise _unsupported("optimizer flat-update", _LATER_LOOP)
+        return cfg
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The fields of the ``train`` block the training step reads."""
+    batch_size: int = 8
+    seed: int = 42
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "TrainConfig":
+        if int(_get(d, "steps-per-call", 1)) > 1:
+            raise _unsupported("train steps-per-call > 1", _LATER_LOOP)
+        if bool(_get(d, "cache-projections", False)):
+            raise _unsupported("train cache-projections", _LATER_DATA)
+        if bool(_get(d, "device-dataset", False)):
+            raise _unsupported("train device-dataset", _LATER_DATA)
+        if int(_get(d, "data-parallel", -1)) > 1:
+            raise _unsupported("train data-parallel > 1", _LATER_DP)
+        return TrainConfig(batch_size=int(_get(d, "batch-size", 8)),
+                           seed=int(_get(d, "seed", 42)))
 
 
 def _net_name(block: Dict[str, Any], key: str, default: str) -> str:
@@ -266,6 +410,9 @@ def _net_name(block: Dict[str, Any], key: str, default: str) -> str:
 class Config:
     datasets: DatasetConfig
     model: ModelConfig
+    loss: LossConfig = field(default_factory=LossConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "Config":
@@ -291,6 +438,8 @@ class Config:
         param = str(_get(d, "param-dtype", "float32"))
         if param != "float32":
             raise _unsupported(f"param-dtype={param!r}", _LATER_VARIANTS)
+        if bool(_get(block, "pretrained", False)):
+            raise _unsupported("a pretrained lidar backbone", _LATER_LOOP)
         model = ModelConfig(
             arch=arch,
             lidar=LidarFeatConfig.from_dict(lname, _get(d, lname, {}) or {}),
@@ -298,8 +447,13 @@ class Config:
             fusion=FusionConfig.from_dict(_get(block, "fusion-net", {}) or {}),
             odom=OdomFeatConfig.from_dict(oname, _get(d, oname, {}) or {}),
             compute_dtype=compute,
+            dropout=_rate(_get(block, "dropout", 0.25), "model dropout"),
         )
-        return Config(datasets=datasets, model=model)
+        return Config(
+            datasets=datasets, model=model,
+            loss=LossConfig.from_dict(_get(d, "losses", {}) or {}),
+            optim=OptimConfig.from_dict(_get(d, "optimizer", {}) or {}),
+            train=TrainConfig.from_dict(_get(d, "train", {}) or {}))
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -17,8 +17,9 @@
 //
 // What bounds it on the card: memory traffic and atomics. The work is a
 // handful of integer operations per point, so the least time is the bytes
-// (four int32 inputs read, three int32 outputs written) over the memory
-// rate, about 0.86 us for one 131072-point scan into 64x1024 pixels. This
+// (each point's pixel and key, the two payload words of each pixel's
+// winner, three int32 outputs written) over the memory rate, at most about
+// 0.70 us for one 131072-point scan into 64x1024 pixels. This
 // first design is simple and right rather than fast:
 //   * traffic: four passes (tile max, carry scan, cummax + atomicMin,
 //     payload), so pix is read twice and the running pixel goes through a

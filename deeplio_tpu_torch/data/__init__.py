@@ -1,2 +1,2 @@
 """Host-side data: the Drive interface, SyntheticDrive and its numpy
-fixtures."""
+fixtures, and the window dataset that batches raw scans for training."""

@@ -30,6 +30,12 @@ class Drive:
         """Padded scan i: ([max_points, 4] f32, [max_points] bool)."""
         raise NotImplementedError
 
+    def points_planes(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Scan i as channel planes: ([4, max_points] f32 contiguous,
+        [max_points] bool), the layout the training step's batch takes."""
+        pts, valid = self.points(i)
+        return np.ascontiguousarray(pts[:, :4].T), valid
+
     def frame_time(self, i: int) -> float:
         raise NotImplementedError
 
@@ -80,6 +86,10 @@ class SyntheticDrive(Drive):
     def points(self, i: int):
         return syn.synthetic_scan(self._world, self._Ts[i], self.max_points,
                                   seed=self.seed * 1000 + i, rings=self.rings)
+
+    @lru_cache(maxsize=None)
+    def points_planes(self, i: int):
+        return super().points_planes(i)
 
     def frame_time(self, i: int) -> float:
         return float(self._times[i])

@@ -1,2 +1,2 @@
 """Model zoo: PointSeg blocks, DeepLIO feature nets, the flax weight
-bridge."""
+bridge (both ways)."""

@@ -56,18 +56,44 @@ class SameConv2d(nn.Conv2d):
                         self.dilation)
 
 
-class ConvBN(nn.Module):
-    """SAME conv without bias -> eval BatchNorm -> ReLU.
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's training semantics.
 
-    BatchNorm uses flax's epsilon 1e-5 and its running statistics (this
-    slice serves; the training slice owns the statistics update)."""
+    In training mode it normalises with the batch mean and the BIASED batch
+    variance, as stock BatchNorm does, but updates the running statistics
+    with the biased variance too, as flax does (stock BatchNorm updates
+    them with the unbiased one): ``ra = (1 - m) * ra + m * stat`` with
+    ``m = 0.01`` (flax ``momentum=0.99``). The statistics are taken in
+    float32 whatever the activation dtype. Eval mode is stock BatchNorm.
+    """
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-5, momentum=0.01)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        return y
+
+
+class ConvBN(nn.Module):
+    """SAME conv without bias -> BatchNorm (flax semantics) -> ReLU,
+    with flax's epsilon 1e-5."""
 
     def __init__(self, in_channels: int, features: int, kernel=(3, 3),
                  strides=(1, 1)):
         super().__init__()
         self.Conv_0 = SameConv2d(in_channels, features, kernel, strides,
                                  bias=False)
-        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-5, momentum=0.01)
+        self.BatchNorm_0 = FlaxBatchNorm2d(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.BatchNorm_0(self.Conv_0(x)))

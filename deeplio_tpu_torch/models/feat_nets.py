@@ -2,13 +2,15 @@
 ``LidarPointSegFeat``, ``ImuFeatRnn``, ``FusionLayer``, ``OdomFeatRNN``,
 ``PoseHeads``).
 
-This slice builds the serving (eval) graph. Dropout is the identity there,
-so the modules hold none; the training slice adds it.
+Dropout (``LidarPointSegFeat`` after its Dense, ``PoseHeads`` before its
+layers) acts in training mode only, draws its masks from the generator
+the caller passes, and scales what it keeps by 1 / (1 - rate), as flax's
+``nn.Dropout`` does.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,14 +21,31 @@ from deeplio_tpu_torch.models.pointseg import PointSegNet
 from deeplio_tpu_torch.ops.rnn import MaskedRNN
 
 
+def inverted_dropout(x: torch.Tensor, rate: float, training: bool,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+    """Inverted dropout with flax's arithmetic: kept values are divided by
+    the keep probability, dropped ones are zero. The identity unless
+    training with a positive rate."""
+    if not training or rate <= 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.bernoulli(
+        torch.full(x.shape, keep_prob, device=x.device),
+        generator=generator).bool()
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
 class LidarPointSegFeat(nn.Module):
     """PointSeg encoder over pair-stacked images [B, 2C, H, W] -> two
-    strided 3x3 ConvBNs -> spatial mean -> Dense -> ReLU -> [B, F]."""
+    strided 3x3 ConvBNs -> spatial mean -> Dense -> ReLU -> dropout ->
+    [B, F]."""
 
     def __init__(self, in_channels: int, feature_size: int = 512,
                  h_stride: int = 1, w_stride: int = 2, se: bool = True,
-                 el_squeeze: int = 0):
+                 el_squeeze: int = 0, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.pointseg = PointSegNet(in_channels, h_stride=h_stride,
                                     w_stride=w_stride, with_se=se,
                                     el_squeeze=el_squeeze)
@@ -34,9 +53,11 @@ class LidarPointSegFeat(nn.Module):
         self.ConvBN_1 = ConvBN(256, 256, (3, 3), (2, 2))
         self.Dense_0 = nn.Linear(256, feature_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         feat = self.ConvBN_1(self.ConvBN_0(self.pointseg(x)))
-        return F.relu(self.Dense_0(feat.mean(dim=(-2, -1))))
+        feat = F.relu(self.Dense_0(feat.mean(dim=(-2, -1))))
+        return inverted_dropout(feat, self.dropout, self.training, generator)
 
 
 class ImuFeatRnn(nn.Module):
@@ -87,21 +108,25 @@ class OdomFeatRNN(nn.Module):
 
 
 class PoseHeads(nn.Module):
-    """Twin heads: translation R^3 and a unit quaternion R^4.
+    """Dropout, then twin heads: translation R^3 and a unit quaternion R^4.
 
     The hidden layers run in the compute dtype; the output layers run in
     float32 outside any autocast region, as in the JAX package. The
     ``q_out`` bias starts at [1, 0, 0, 0] (identity rotation)."""
 
-    def __init__(self, in_features: int):
+    def __init__(self, in_features: int, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         hidden = 128
         self.x_fc = nn.Linear(in_features, hidden)
         self.q_fc = nn.Linear(in_features, hidden)
         self.x_out = nn.Linear(hidden, 3)
         self.q_out = nn.Linear(hidden, 4)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = inverted_dropout(x, self.dropout, self.training, generator)
         hx = F.relu(self.x_fc(x))
         hq = F.relu(self.q_fc(x))
         with torch.autocast(x.device.type, enabled=False):

@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's flax variables -> the port's modules.
+"""Weight bridge between the JAX package's flax variables and the port's
+modules, both ways.
 
 ``load_flax_variables(model, variables)`` takes a ``{"params",
 "batch_stats"}`` tree (arrays convertible with ``numpy.asarray``) and
@@ -15,6 +16,11 @@ The bridge is strict on both sides, as ``deeplio_tpu/models/
 import_torch.py`` is: a flax entry with no matching module or tensor, a
 shape mismatch, or a port tensor left unset is an error, and nothing is
 written unless everything matches.
+
+``to_flax_variables(model)`` is the inverse: the module's parameters and
+statistics as a ``{"params", "batch_stats"}`` tree of numpy arrays in the
+flax layouts, so a trained port model and a trained flax model compare in
+one layout.
 """
 
 from __future__ import annotations
@@ -101,3 +107,46 @@ def load_flax_variables(model: nn.Module,
     with torch.no_grad():
         for key, value in staged.items():
             own[key].copy_(torch.from_numpy(np.array(value, np.float32)))
+
+
+def _source(mod: nn.Module, name: str, value: np.ndarray
+            ) -> Tuple[str, str, np.ndarray]:
+    """(flax collection, flax leaf, value in the flax layout) of the port
+    tensor ``name`` of ``mod``: the inverse of :func:`_target`."""
+    if isinstance(mod, nn.Conv2d):
+        if name == "weight":
+            return "params", "kernel", value.transpose(2, 3, 1, 0)
+        if name == "bias":
+            return "params", "bias", value
+    elif isinstance(mod, nn.Linear):
+        if name == "weight":
+            return "params", "kernel", value.T
+        if name == "bias":
+            return "params", "bias", value
+    elif isinstance(mod, nn.BatchNorm2d):
+        flax = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                "running_mean": ("batch_stats", "mean"),
+                "running_var": ("batch_stats", "var")}
+        if name in flax:
+            return flax[name] + (value,)
+    elif isinstance(mod, LstmCellScan) and name in ("w_ih", "w_hh", "b"):
+        return "params", name, value
+    raise KeyError(f"no flax leaf for {type(mod).__name__} tensor {name!r}")
+
+
+def to_flax_variables(model: nn.Module) -> Dict[str, Dict[str, Any]]:
+    """The module's tensors as a flax ``{"params", "batch_stats"}`` tree of
+    float32 numpy arrays (copies, on the host)."""
+    out: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for key, t in model.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        *path, name = key.split(".")
+        mod = model.get_submodule(".".join(path))
+        collection, leaf, value = _source(
+            mod, name, t.detach().cpu().float().numpy())
+        node = out[collection]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(value)
+    return {k: v for k, v in out.items() if v}

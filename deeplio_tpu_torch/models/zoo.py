@@ -13,6 +13,11 @@ Layout: the images stay NHWC in memory. The tower sees them through a
 permuted view, NCHW by shape and channels-last by strides, so cuDNN runs
 its NHWC convolutions on the card with no copy.
 
+Modes: ``build_model`` returns the model in eval mode (running BatchNorm
+statistics, no dropout); ``model.train()`` switches BatchNorm to batch
+statistics with the flax update of the running ones and turns dropout on,
+with masks drawn from the generator passed to ``forward``.
+
 Precision: ``compute_dtype`` bfloat16 (or float16) runs the body under
 ``torch.autocast`` with float32 parameters, as flax's ``dtype`` does; the
 pose output layers stay float32. The reduced-precision path is meant for
@@ -39,7 +44,7 @@ from deeplio_tpu_torch.models.feat_nets import (
 )
 from deeplio_tpu_torch.ops.rnn import LstmCellScan
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
 
@@ -49,19 +54,20 @@ class DeepLIO(nn.Module):
     def __init__(self, cfg: ModelConfig, image_channels: int):
         super().__init__()
         lc, ic, oc = cfg.lidar, cfg.imu, cfg.odom
-        self.compute_dtype = _DTYPES[cfg.compute_dtype]
+        self.compute_dtype = DTYPES[cfg.compute_dtype]
         self.lidar_feat = LidarPointSegFeat(
             2 * image_channels, lc.feature_size, lc.h_stride, lc.w_stride,
-            lc.se, lc.el_squeeze)
+            lc.se, lc.el_squeeze, lc.dropout)
         self.imu_feat = ImuFeatRnn(ic.input_size, ic.hidden_size,
                                    ic.num_layers)
         self.fusion = FusionLayer(lc.feature_size, ic.hidden_size,
                                   cfg.fusion.kind)
         self.odom_feat = OdomFeatRNN(lc.feature_size + ic.hidden_size,
                                      oc.hidden_size, oc.num_layers)
-        self.heads = PoseHeads(oc.hidden_size)
+        self.heads = PoseHeads(oc.hidden_size, cfg.dropout)
 
-    def forward(self, batch: Dict[str, torch.Tensor]
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         imgs = batch["images"]
         b, p = imgs.shape[0], imgs.shape[1]
@@ -71,11 +77,11 @@ class DeepLIO(nn.Module):
         low = self.compute_dtype != torch.float32
         with torch.autocast(x.device.type, dtype=self.compute_dtype,
                             enabled=low):
-            lidar = self.lidar_feat(x)
+            lidar = self.lidar_feat(x, generator)
             imu_f = self.imu_feat(imu, mask)
             fused = self.fusion(lidar, imu_f).reshape(b, p, -1)
             feat = self.odom_feat(fused)
-            x_out, q_out = self.heads(feat.flatten(0, 1))
+            x_out, q_out = self.heads(feat.flatten(0, 1), generator)
         return x_out.reshape(b, p, 3), q_out.reshape(b, p, 4)
 
 

@@ -1,1 +1,2 @@
-"""Device ops: ring projection (CUDA kernel + plain version), masked LSTM."""
+"""Device ops: ring and point-scatter projection (each a CUDA kernel and
+its plain version), yaw augmentation, masked LSTM."""

@@ -1,6 +1,6 @@
 """Device-side spherical ("range-image") projection of LiDAR scans
 (counterpart of ``deeplio_tpu/ops/projection.py``, restricted to what the
-``pallas-ring`` backend with ``kernel-aligned: off`` runs).
+``pallas-ring`` and ``pallas`` backends with ``kernel-aligned: off`` run).
 
 Projection convention (SqueezeSeg), as in the JAX package:
 
@@ -21,7 +21,7 @@ as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +75,24 @@ def rq_to_depth(rq: torch.Tensor, rq_scale: float) -> torch.Tensor:
     return rq.to(torch.float32) * inv
 
 
+def rq_bits_for(n_pix: int) -> int:
+    """Largest range-quantization width so ``(n_pix << bits) | mask`` fits
+    in int31: the bits of the pixel-major keys ``pix << rq_bits | rq``."""
+    bits = DEFAULT_RQ_BITS
+    while bits > 8 and (n_pix + 1) << bits >= 2**31:
+        bits -= 1
+    if (n_pix + 1) << bits >= 2**31:
+        raise ValueError(
+            f"image with {n_pix} pixels too large for int32 sort key")
+    return bits
+
+
+def rq_scale_for(rq_bits: int) -> float:
+    """Quantization steps per metre: 1 cm unless the key budget forces
+    coarser."""
+    return 100.0 if rq_bits >= DEFAULT_RQ_BITS else (1 << rq_bits) / 164.0
+
+
 def idx_key_layout(n: int, n_pix: int) -> Tuple[int, int, float]:
     """(idx_bits, rq_bits, rq_scale) for keys ``rq << idx_bits | idx``.
 
@@ -86,8 +104,7 @@ def idx_key_layout(n: int, n_pix: int) -> Tuple[int, int, float]:
     if rq_bits < 8:
         raise ValueError(
             f"scan capacity {n} too large for int32 (range, idx) keys")
-    rq_scale = 100.0 if rq_bits >= DEFAULT_RQ_BITS else (1 << rq_bits) / 164.0
-    return idx_bits, rq_bits, rq_scale
+    return idx_bits, rq_bits, rq_scale_for(rq_bits)
 
 
 def assemble_channels(img5: torch.Tensor,
@@ -103,19 +120,33 @@ def normalize_channels(img: torch.Tensor, mask: torch.Tensor,
 
 
 def make_projector(cfg_proj: ProjectionConfig, channels: Sequence[str],
-                   mean: Sequence[float] = (), std: Sequence[float] = ()):
+                   mean: Sequence[float] = (), std: Sequence[float] = (),
+                   out_dtype: Optional[torch.dtype] = None,
+                   layout: str = "aos"):
     """Build the batched scan -> image function for a config.
 
-    Returns ``fn(points [..., N, 4], valid [..., N]) -> (img [..., H, W, C],
-    mask [..., H, W])`` on the points' device. The ring selection runs the
-    CUDA kernel on the card (``projection_ring.ring_select``) and its plain
-    PyTorch version on the CPU.
-    """
-    from deeplio_tpu_torch.ops import projection_ring
+    Returns ``fn(points, valid [..., N]) -> (img [..., H, W, C], mask
+    [..., H, W])`` on the points' device. ``layout="aos"`` takes points
+    [..., N, 4]; ``layout="planes"`` takes the 4-tuple of planes (x, y, z,
+    rem), each [..., N], the training step's contract. All leading dims go
+    through the kernel as one batch. ``out_dtype`` casts the image (the
+    training step emits its compute dtype); the mask stays float32.
 
-    if cfg_proj.backend != "pallas-ring" or cfg_proj.kernel_aligned != "off":
-        raise ValueError("the port projects with backend=pallas-ring and "
-                         "kernel-aligned=off only")
+    ``backend: pallas-ring`` selects with ``projection_ring.ring_select``
+    (ring-ordered scans), ``backend: pallas`` with
+    ``projection_scatter.scatter_select`` (scans in any order). Each runs
+    its CUDA kernel on the card and its plain PyTorch version on the CPU.
+    """
+    from deeplio_tpu_torch.ops import projection_ring, projection_scatter
+
+    planes_fn = {"pallas-ring": projection_ring.project_batch_ring_planes,
+                 "pallas": projection_scatter.project_batch_scatter_planes,
+                 }.get(cfg_proj.backend)
+    if planes_fn is None or cfg_proj.kernel_aligned != "off":
+        raise ValueError("the port projects with backend=pallas-ring or "
+                         "pallas and kernel-aligned=off only")
+    if layout not in ("aos", "planes"):
+        raise ValueError(f"layout must be aos|planes, got {layout!r}")
     if bool(mean) != bool(std):
         raise ValueError(
             "normalization requires both mean and std (or neither)")
@@ -126,14 +157,17 @@ def make_projector(cfg_proj: ProjectionConfig, channels: Sequence[str],
             if mean else None)
     consts: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
-    def project(points: torch.Tensor, valid: torch.Tensor):
-        lead = tuple(points.shape[:-2])
-        n = points.shape[-2]
-        pts = points.reshape(-1, n, 4)
-        vld = valid.reshape(-1, n)
-        img5, mask = projection_ring.project_batch_ring_planes(
-            pts[..., 0], pts[..., 1], pts[..., 2], pts[..., 3], vld,
-            H, W, fu, fd)
+    def project(points, valid: torch.Tensor):
+        if layout == "planes":
+            lead = tuple(points[0].shape[:-1])
+            n = points[0].shape[-1]
+            planes = [p.reshape(-1, n) for p in points]
+        else:
+            lead = tuple(points.shape[:-2])
+            n = points.shape[-2]
+            pts = points.reshape(-1, n, 4)
+            planes = [pts[..., k] for k in range(4)]
+        img5, mask = planes_fn(*planes, valid.reshape(-1, n), H, W, fu, fd)
         img = assemble_channels(img5, channels)
         if norm is None:
             img = img * mask[..., None]
@@ -143,6 +177,8 @@ def make_projector(cfg_proj: ProjectionConfig, channels: Sequence[str],
                 consts[dev] = (torch.from_numpy(norm[0]).to(dev),
                                torch.from_numpy(norm[1]).to(dev))
             img = normalize_channels(img, mask, *consts[dev])
+        if out_dtype is not None:
+            img = img.to(out_dtype)
         return img.reshape(lead + (H, W, c)), mask.reshape(lead + (H, W))
 
     return project

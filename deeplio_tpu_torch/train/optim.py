@@ -1,0 +1,96 @@
+"""Optimizer and learning-rate schedule from config (counterpart of
+``deeplio_tpu/train/optim.py::make_schedule, make_optimizer``).
+
+The JAX package chains ``optax.clip_by_global_norm`` in front of
+``optax.adam`` driven by a step-indexed schedule. Here ``torch.optim.Adam``
+computes the same update; :class:`Optimizer` sets its learning rate from
+the step count before each update and clips the gradients the way optax
+does: by ``c / |g|`` when the global norm ``|g| >= c``, with no epsilon
+(``clip_grad_norm_`` adds 1e-6 to the norm, so it is not used). The schedules follow optax's
+``exponential_decay(staircase=True)``, ``cosine_decay_schedule`` and the
+``linear_schedule`` warm-up joined in front of them, in float32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Iterable, List
+
+import numpy as np
+import torch
+
+from deeplio_tpu_torch.config.schema import OptimConfig
+
+
+def make_schedule(cfg: OptimConfig, steps_per_epoch: int = 1000
+                  ) -> Callable[[int], float]:
+    """Learning rate as a function of the optimizer step (0 = first)."""
+    base = np.float32(cfg.lr)
+    decay_steps = cfg.step_size * steps_per_epoch
+
+    def main(count: int) -> np.float32:
+        if cfg.scheduler == "none":
+            return base
+        if cfg.scheduler == "step":
+            if decay_steps <= 0:
+                return base
+            return base * np.float32(cfg.gamma) ** np.float32(
+                count // decay_steps)
+        if cfg.scheduler == "cosine":
+            total = max(decay_steps, 1)
+            frac = np.float32(min(count, total)) / np.float32(total)
+            return base * np.float32(0.5) * (
+                np.float32(1.0) + np.cos(np.float32(math.pi) * frac))
+        raise ValueError(f"unknown scheduler '{cfg.scheduler}'")
+
+    def schedule(count: int) -> float:
+        w = cfg.warmup_steps
+        if w <= 0:
+            return float(main(count))
+        if count < w:
+            return float(base * (np.float32(count) / np.float32(w)))
+        return float(main(count - w))
+
+    return schedule
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         norm: torch.Tensor) -> None:
+    """optax's ``clip_by_global_norm`` in place: unchanged when ``norm <
+    max_norm``, else scaled by ``max_norm / norm``."""
+    scale = torch.where(norm < max_norm, torch.ones_like(norm),
+                        max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+
+
+class Optimizer:
+    """Adam with optax's gradient clip and a step-indexed learning rate, over one list of parameters (the
+    model's and the loss's alike: one update, one norm)."""
+
+    def __init__(self, cfg: OptimConfig, params: Iterable[torch.Tensor],
+                 steps_per_epoch: int = 1000):
+        self.params = list(params)
+        self.schedule = make_schedule(cfg, steps_per_epoch)
+        self.grad_clip = cfg.grad_clip
+        self.inner = torch.optim.Adam(self.params, lr=self.schedule(0),
+                                      betas=(0.9, 0.999), eps=1e-8)
+
+    def zero_grad(self) -> None:
+        self.inner.zero_grad(set_to_none=True)
+
+    def step(self, count: int) -> torch.Tensor:
+        """Clip, set the learning rate of step ``count`` and update.
+        Returns the global gradient norm before clipping. A parameter
+        without a gradient is updated with a zero one, as optax does."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        norm = torch.nn.utils.get_total_norm(grads)   # no host sync
+        if self.grad_clip > 0:
+            clip_by_global_norm_(grads, self.grad_clip, norm)
+        lr = self.schedule(count)
+        for group in self.inner.param_groups:
+            group["lr"] = lr
+        self.inner.step()
+        return norm

@@ -1,0 +1,117 @@
+"""The training and eval steps (counterpart of
+``deeplio_tpu/train/step.py``: ``make_model_batch`` on the classic
+pair-concat path and ``build_train_step`` on one device).
+
+Raw batch contract (``data/dataset.py`` output, on the device):
+
+    points_x/points_y/points_z/points_rem: [B*S, N] float32 planes
+    points_valid: [B*S, N] bool
+    imu [B, P, T, 6], imu_mask [B, P, T]
+    x_gt [B, P, 3], q_gt [B, P, 4], valid [B, P]
+
+One training step, in order: yaw augmentation (when configured), one
+projection of all B*S frames (a single kernel launch), the P pair images
+per window, the forward pass in training mode (BatchNorm batch statistics
+and their running update, dropout), the pose loss, backward, optax's
+global-norm clip and the Adam update. The phases run under the profiler
+spans ``train.augment``, ``train.project``, ``train.forward``,
+``train.backward`` and ``train.update`` (a few microseconds each when no
+profiler runs).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from deeplio_tpu_torch.config.schema import Config
+from deeplio_tpu_torch.device import DeviceLike, resolve_device
+from deeplio_tpu_torch.losses.pose import pose_loss
+from deeplio_tpu_torch.models.zoo import DTYPES
+from deeplio_tpu_torch.ops.augment import yaw_augment
+from deeplio_tpu_torch.ops.projection import make_projector
+from deeplio_tpu_torch.train.state import TrainState
+
+Batch = Dict[str, torch.Tensor]
+
+
+def batch_to_device(host: Dict[str, np.ndarray],
+                    device: DeviceLike = None) -> Batch:
+    """A host batch of numpy arrays -> tensors on ``device`` (CUDA by
+    default), through pinned memory on the card. ``meta`` stays behind."""
+    dev = resolve_device(device)
+    out = {}
+    for k, v in host.items():
+        if k == "meta":
+            continue
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if dev.type == "cuda":
+            t = t.pin_memory().to(dev, non_blocking=True)
+        out[k] = t
+    return out
+
+
+def make_model_batch(cfg: Config, projector: Callable, raw: Batch) -> Batch:
+    """Raw planes and IMU -> the model's batch: ``images`` [B, P, H, W,
+    2C], the channel concat of frames i and j of each configured pair, and
+    the IMU windows."""
+    imgs, _ = projector((raw["points_x"], raw["points_y"], raw["points_z"],
+                         raw["points_rem"]), raw["points_valid"])
+    b = raw["x_gt"].shape[0]
+    imgs = imgs.reshape((b, -1) + tuple(imgs.shape[1:]))   # [B, S, H, W, C]
+    combos = cfg.datasets.effective_combinations
+    first = imgs[:, [i for i, _ in combos]]
+    second = imgs[:, [j for _, j in combos]]
+    return {"images": torch.cat([first, second], -1),
+            "imu": raw["imu"], "imu_mask": raw["imu_mask"]}
+
+
+def build_train_step(cfg: Config) -> Tuple[Callable, Callable]:
+    """Returns ``(train_step, eval_step)``:
+
+    ``train_step(state, raw) -> (state, metrics)`` updates ``state`` in
+    place; ``eval_step(state, raw) -> (x_pred, q_pred, metrics)`` runs the
+    model in eval mode. The metrics are detached scalar tensors on the
+    device (``loss``, ``loss_x``, ``loss_q``, ``sx``/``sq`` for LWS as they
+    were before the update, and ``grad_norm``, the norm before clipping).
+    """
+    ds = cfg.datasets
+    projector = make_projector(ds.projection, ds.channels, ds.mean, ds.std,
+                               out_dtype=DTYPES[cfg.model.compute_dtype],
+                               layout="planes")
+
+    def train_step(state: TrainState, raw: Batch):
+        model = state.model.train()
+        if ds.augment_yaw:
+            with record_function("train.augment"):
+                raw = yaw_augment(raw, state.generator)
+        with record_function("train.project"), torch.no_grad():
+            mb = make_model_batch(cfg, projector, raw)
+        with record_function("train.forward"):
+            x_pred, q_pred = model(mb, state.generator)
+            total, metrics = pose_loss(cfg.loss, state.loss_params, x_pred,
+                                       q_pred, raw["x_gt"], raw["q_gt"],
+                                       raw.get("valid"))
+            metrics = {k: v.detach().clone() for k, v in metrics.items()}
+        with record_function("train.backward"):
+            state.optimizer.zero_grad()
+            total.backward()
+        with record_function("train.update"):
+            metrics["grad_norm"] = state.optimizer.step(state.step)
+        state.step += 1
+        return state, metrics
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, raw: Batch):
+        model = state.model.eval()
+        mb = make_model_batch(cfg, projector, raw)
+        x_pred, q_pred = model(mb)
+        _, metrics = pose_loss(cfg.loss, state.loss_params, x_pred, q_pred,
+                               raw["x_gt"], raw["q_gt"], raw.get("valid"))
+        return x_pred, q_pred, {k: v.detach().clone()
+                                for k, v in metrics.items()}
+
+    return train_step, eval_step

@@ -1,1 +1,2 @@
-"""Utilities: float32 quaternion/SE(3) math (``spatial``)."""
+"""Utilities: float32 quaternion/SE(3) math (``spatial``), shared by
+streaming, the pose loss and augmentation."""

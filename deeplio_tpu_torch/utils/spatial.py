@@ -1,5 +1,6 @@
 """Quaternion and SE(3) math in float32 (counterpart of the subset of
-``deeplio_tpu/utils/spatial.py`` that streaming odometry uses).
+``deeplio_tpu/utils/spatial.py`` that streaming odometry, the pose loss
+and yaw augmentation use).
 
 Conventions as in the JAX package: quaternions are [w, x, y, z], rotation
 matrices are world-from-body, everything broadcasts over leading dims.
@@ -19,6 +20,31 @@ def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """Return q / ||q||, guarding the zero quaternion."""
     n = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
     return q / torch.clamp_min(n, eps)
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+
+
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a * b."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
+def quat_geodesic_angle(qa: torch.Tensor, qb: torch.Tensor,
+                        eps: float = 1e-7) -> torch.Tensor:
+    """Geodesic angle (radians) between two unit quaternions, sign-invariant:
+    ``2 acos(|<qa, qb>|)``, clamped below 1 - eps so the gradient of acos
+    stays finite at zero error."""
+    dot = (quat_normalize(qa) * quat_normalize(qb)).sum(-1).abs()
+    return 2.0 * torch.acos(dot.clamp(0.0, 1.0 - eps))
 
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:

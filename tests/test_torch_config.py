@@ -102,3 +102,46 @@ def test_schedule_only_keys_are_accepted(kitti, key, value):
     d["datasets"][key] = value
     cfg = load_config_dict(d)
     assert getattr(cfg.datasets.projection, key.replace("-", "_")) == value
+
+
+def test_training_blocks_match_jax_parse(kitti):
+    """The slice configuration (pallas backend, yaw augmentation) and the
+    loss, optimizer and train fields the training step reads."""
+    from deeplio_tpu.config import load_config_dict as jax_load_dict
+    d = copy.deepcopy(kitti)
+    d["datasets"].update({"backend": "pallas", "augment-yaw": True,
+                          "combinations": [[0, 1], [0, 8]]})
+    d["lidar-feat-pointseg"]["dropout"] = 0.1
+    d["optimizer"]["scheduler"]["warmup-steps"] = 7
+    port, ref = load_config_dict(d), jax_load_dict(d)
+    assert port.datasets.projection.backend == "pallas"
+    for f in ("sequence_size", "combinations", "window_stride", "augment_yaw",
+              "effective_combinations", "num_pairs"):
+        assert getattr(port.datasets, f) == getattr(ref.datasets, f), f
+    assert port.model.dropout == ref.model.dropout == 0.25
+    assert port.model.lidar.dropout == ref.model.lidar.dropout == 0.1
+    for f in ("active", "x_norm", "q_norm", "beta", "sx", "sq"):
+        assert getattr(port.loss, f) == getattr(ref.loss, f), f
+    for f in ("name", "lr", "scheduler", "step_size", "gamma",
+              "warmup_steps", "grad_clip"):
+        assert getattr(port.optim, f) == getattr(ref.optim, f), f
+    for f in ("batch_size", "seed"):
+        assert getattr(port.train, f) == getattr(ref.train, f), f
+
+
+@pytest.mark.parametrize("path,value", [
+    (("optimizer", "name"), "sgd"),
+    (("optimizer", "weight-decay"), 0.1),
+    (("optimizer", "scheduler"), {"name": "plateau"}),
+    (("optimizer", "flat-update"), True),
+    (("train", "steps-per-call"), 4),
+    (("train", "cache-projections"), True),
+    (("train", "device-dataset"), True),
+    (("train", "data-parallel"), 4),
+    (("deeplio", "pretrained"), True),
+])
+def test_untrained_settings_raise_naming_their_queue(kitti, path, value):
+    d = copy.deepcopy(kitti)
+    _set(d, path, value)
+    with pytest.raises(ConfigError, match=r"PyTorch port yet; .*Queue 1"):
+        load_config_dict(d)

@@ -4,6 +4,7 @@ points run on CUDA unless asked for the CPU."""
 import ast
 import pathlib
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -12,6 +13,7 @@ from deeplio_tpu_torch.config import load_config  # noqa: E402
 from deeplio_tpu_torch.device import resolve_device  # noqa: E402
 from deeplio_tpu_torch.eval.streaming import StreamingOdometry  # noqa: E402
 from deeplio_tpu_torch.models.zoo import build_model  # noqa: E402
+from deeplio_tpu_torch.train.step import batch_to_device  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "deeplio_tpu")
@@ -59,9 +61,12 @@ def test_port_has_its_modules():
                  "models/feat_nets.py", "models/zoo.py",
                  "models/from_flax.py", "data/synthetic.py",
                  "data/np_spatial.py", "data/drives.py",
-                 "eval/streaming.py"):
+                 "eval/streaming.py", "ops/projection_scatter.py",
+                 "ops/augment.py", "losses/pose.py", "data/dataset.py",
+                 "train/optim.py", "train/state.py", "train/step.py"):
         assert want in mods, want
-    assert (ROOT / "deeplio_tpu_torch" / "csrc" / "ring_project.cu").exists()
+    for src in ("ring_project.cu", "proj_scatter.cu"):
+        assert (ROOT / "deeplio_tpu_torch" / "csrc" / src).exists()
 
 
 @pytest.fixture
@@ -89,6 +94,10 @@ def test_entry_points_default_to_cuda(no_cuda):
     with pytest.raises(RuntimeError):
         StreamingOdometry(cfg, model)
     StreamingOdometry(cfg, model, device="cpu")
+    host = {"x_gt": np.zeros((1, 1, 3), np.float32)}
+    with pytest.raises(RuntimeError):
+        batch_to_device(host)
+    assert batch_to_device(host, "cpu")["x_gt"].device.type == "cpu"
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -30,15 +30,17 @@ slice configuration being the file above with ``backend: pallas`` and
 ``augment-yaw: true``:
 
 6. the scatter kernel against its plain version at full width, B = 1 and
-   144, on unordered, ring and yaw-rotated ring scans and edge cases: the
-   selected words and the whole projector must be bit-identical;
+   144, on unordered, ring and yaw-rotated ring scans and edge cases, and
+   on the u64-slot route (N = 2^18 + 3) and a multi-tile image (256x4096):
+   the selected words and the whole projector must be bit-identical;
 7. ``train_step`` in bfloat16 from seeded weights on 16 windows of 9
    unordered synthetic frames: 3 warm-up and 10 timed steps, exactly one
    scatter launch per step, finite losses; 20 steps on one batch without
    augmentation or dropout must lower the loss; one float32 step on the
    card against the same step on the CPU at 16x128;
 8. a torch.profiler trace of training steps;
-9. the scatter kernel's timings, as in 5.
+9. the scatter kernel's timings, as in 5, and at B = 144 on the same
+   scans with every key invalid (no atomics, no gathers).
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails. The last line is the JSON object
@@ -77,6 +79,7 @@ from deeplio_tpu_torch.ops.projection_ring import (
 from deeplio_tpu_torch.ops.projection_scatter import (
     SENTINEL,
     project_batch_scatter_planes,
+    scatter_plan,
     scatter_prologue,
     scatter_select,
     scatter_select_reference,
@@ -101,8 +104,8 @@ REPS = 30
 # the __global__ functions of csrc/ring_project.cu, as the profiler names them
 RING_PASSES = ("tile_max_kernel", "tile_carry_kernel", "ring_min_kernel",
                "ring_payload_kernel")
-# ... and of csrc/proj_scatter.cu
-SCATTER_PASSES = ("scatter_min_kernel", "scatter_payload_kernel")
+# ... and the one of csrc/proj_scatter.cu
+SCATTER_KERNELS = ("scatter_select_kernel",)
 RQ_BITS = rq_bits_for(H * W)
 # the training slice: windows per batch, frames per window, steps
 TRAIN_B, TRAIN_S = 16, 9
@@ -421,7 +424,7 @@ def rotate_yaw(pts: np.ndarray, rng) -> np.ndarray:
 
 
 def scatter_cases(rng, batch):
-    """(name, points [B, N, 4], valid [B, N]) at full width."""
+    """(name, points [B, N, 4], valid [B, N], H, W) at full width."""
     un = np.stack([batch[k] for k in ("points_x", "points_y", "points_z",
                                       "points_rem")], -1)     # [144, N, 4]
     un_valid = batch["points_valid"]
@@ -444,6 +447,14 @@ def scatter_cases(rng, batch):
     dup[0, dst] = one[0, src]                     # exact duplicates
     cases.append(("duplicated points", dup, ones))
     cases.append(("one hot pixel", hot_pixel_scan(rng), ones))
+    # u64 slots: rq_bits 14 + 19 index bits; two scans and 3 points in one
+    big = 2**18 + 3
+    cases.append((f"u64 slots, N = {big}",
+                  un[:3].reshape(1, -1, 4)[:, :big].copy(),
+                  un_valid[:3].reshape(1, -1)[:, :big].copy()))
+    cases = [c + (H, W) for c in cases]
+    cases.append(("multi-tile 256x4096 B=16", un[:16], un_valid[:16], 256,
+                  4096))
     return cases
 
 
@@ -457,31 +468,37 @@ def hot_pixel_scan(rng) -> np.ndarray:
 
 
 def phase_scatter_kernel(dev, rng, batch):
-    worst = 0
-    for name, pts, vld in scatter_cases(rng, batch):
+    worst, plans = 0, []
+    for name, pts, vld, h, w in scatter_cases(rng, batch):
         p = torch.from_numpy(pts).to(dev)
         v = torch.from_numpy(vld).to(dev)
         x, y, z, rem = planes(p)
-        words = scatter_prologue(x, y, z, rem, v, H, W, FU, FD)
-        got = scatter_select(*words, H * W, RQ_BITS)
-        ref = scatter_select_reference(*words, H * W, RQ_BITS)
+        rq_bits = rq_bits_for(h * w)
+        words = scatter_prologue(x, y, z, rem, v, h, w, FU, FD)
+        got = scatter_select(*words, h * w, rq_bits)
+        ref = scatter_select_reference(*words, h * w, rq_bits)
         torch.cuda.synchronize()
         for label, a, b in zip(("kmin", "xyo", "zro"), got, ref):
             diff = int((a.long() - b.long()).abs().max())
             worst = max(worst, diff)
             check(diff == 0, f"{name}: scatter kernel {label} differs by "
                   f"{diff}")
-        ik, mk = project_batch_scatter_planes(x, y, z, rem, v, H, W, FU, FD,
+        ik, mk = project_batch_scatter_planes(x, y, z, rem, v, h, w, FU, FD,
                                               select=scatter_select)
         ir, mr = project_batch_scatter_planes(
-            x, y, z, rem, v, H, W, FU, FD, select=scatter_select_reference)
+            x, y, z, rem, v, h, w, FU, FD, select=scatter_select_reference)
         check(torch.equal(mk, mr) and torch.equal(ik, ir),
               f"{name}: scatter projector kernel path differs from plain "
               f"path")
         landed = int((got[0] != SENTINEL).sum())
+        plans.append(scatter_plan(pts.shape[1], h * w, rq_bits))
         print(f"scatter kernel vs plain [{name}]: B={pts.shape[0]} "
-              f"N={pts.shape[1]} landed={landed} bit-identical")
+              f"N={pts.shape[1]} {h}x{w} landed={landed} {plans[-1]} "
+              f"bit-identical")
         del p, v, x, y, z, rem, words, got, ref, ik, mk, ir, mr
+    check(any(p.slot_bytes == 8 for p in plans)
+          and any(p.tiles > 1 for p in plans),
+          "the scatter cases missed the u64-slot or the multi-tile route")
     return worst
 
 
@@ -644,12 +661,11 @@ def phase_train_profile(state, train_step, raw, gpu, step_ms: float):
         print(f"train profile span {e.key}: host "
               f"{e.cpu_time_total / 1e3 / PROFILE_STEPS:.3f} ms/step, its "
               f"kernels {dev_ms:.3f} ms/step")
-    sc = [e for e in kernels if any(p in e.key for p in SCATTER_PASSES)]
+    sc = [e for e in kernels if any(p in e.key for p in SCATTER_KERNELS)]
     sc_ms = sum(e.self_device_time_total for e in sc) / 1e3 / PROFILE_STEPS
     print(f"train profile proj_scatter: {sc_ms:.4f} ms/step of device time "
           f"({sc_ms / busy_ms:.4f} of busy) in "
-          f"{sum(e.count for e in sc) / PROFILE_STEPS:.0f} kernels (its "
-          f"passes, without the wrapper's memset) [{gpu}]")
+          f"{sum(e.count for e in sc) / PROFILE_STEPS:.0f} kernels [{gpu}]")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"train profile kernel {e.key[:160]}: "
               f"{e.self_device_time_total / 1e3 / PROFILE_STEPS:.3f} ms/step,"
@@ -690,6 +706,15 @@ def phase_scatter_timings(dev, rng, batch, gpu):
               f"{bound_ms * 1e3:.3f} us ({nbytes} B at 3.35 TB/s: 4 B per "
               f"point, 8 B per landed pixel, {landed} landed, 12 B per "
               f"pixel written) [{gpu}]")
+        if nb > 1:
+            # the same launch with every key invalid: the key stream and
+            # the output writes without the atomics and the payload gathers
+            none = (torch.full_like(words[0], SENTINEL),) + tuple(words[1:])
+            e_ms = graph_ms(lambda: scatter_select(*none, H * W, RQ_BITS))
+            print(f"timing proj_scatter B={b} with no point landing: "
+                  f"{e_ms:.4f} ms (keys read by every CTA, outputs written); "
+                  f"the atomics and gathers of the {landed} landed pixels "
+                  f"take the other {k_ms - e_ms:.4f} ms [{gpu}]")
         del p, x, y, z, rem, v, words
     return out
 

@@ -10,8 +10,10 @@ The work splits in three, as in the JAX package:
 2. the selection (``scatter_select``): for each scan, per pixel the point
    with the smallest key, ties to the smaller index, and its payload
    words. On a CUDA tensor this launches the hand-written kernel
-   ``csrc/proj_scatter.cu``; on a CPU tensor it runs the plain PyTorch
-   version ``scatter_select_reference``;
+   ``csrc/proj_scatter.cu`` once, laid out by ``scatter_plan`` (per-pixel
+   minima in the shared memory of a cluster of CTAs, no global scratch);
+   on a CPU tensor it runs the plain PyTorch version
+   ``scatter_select_reference``;
 3. a PyTorch epilogue (``scatter_epilogue``): unpack the payloads, depth
    from the quantized range, mask.
 
@@ -25,7 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,6 +43,8 @@ from deeplio_tpu_torch.ops.projection import (
 
 SENTINEL = 2**31 - 1     # key of an invalid point and of an empty pixel
 _EMPTY = 2**63 - 1       # the plain version's empty (index, range) slot
+CTA_SLOT_BYTES = 64 * 1024   # slots per CTA: 64x1024 pixels in four CTAs
+MAX_CLUSTER = 8              # the portable limit of CTAs in a cluster
 
 
 def scatter_prologue(x, y, z, rem, valid, H: int, W: int,
@@ -125,14 +129,49 @@ def _check_inputs(key, xy, zr, n_pix: int, rq_bits: int) -> None:
                          f"in int32 keys")
 
 
+class ScatterPlan(NamedTuple):
+    """How ``csrc/proj_scatter.cu`` lays one launch out."""
+    slot_bytes: int   # 4: composite rq << idx_bits | index in u32; 8: u64
+    idx_bits: int     # the index's bits in the composite (32 for u64)
+    cluster: int      # CTAs in a cluster, each owning cta_slots pixels
+    cta_slots: int    # pixel slots in one CTA's shared memory
+    tiles: int        # pixel tiles, one cluster each per scan
+
+
+def scatter_plan(n: int, n_pix: int, rq_bits: int) -> ScatterPlan:
+    """The launch plan of the scatter kernel for scans of ``n`` points
+    into ``n_pix`` pixels.
+
+    u32 slots where ``rq_bits + idx_bits <= 31`` (so no composite is all
+    ones, the empty slot), else u64. C is the fewest CTAs of at most
+    ``CTA_SLOT_BYTES`` of slots each that hold the whole image, at most
+    ``MAX_CLUSTER``; a larger image is cut into tiles of ``MAX_CLUSTER``
+    CTAs. The grid is ``(cluster * tiles, B)``.
+    """
+    idx_bits = max((max(n, 2) - 1).bit_length(), 1)
+    if rq_bits + idx_bits <= 31:
+        slot_bytes = 4
+    else:
+        slot_bytes, idx_bits = 8, 32
+    cap = CTA_SLOT_BYTES // slot_bytes
+    need = -(-n_pix // cap)
+    cluster = min(need, MAX_CLUSTER)
+    tiles = -(-n_pix // (cluster * cap))
+    tile_pix = -(-n_pix // tiles)
+    return ScatterPlan(slot_bytes, idx_bits, cluster, -(-tile_pix // cluster),
+                       tiles)
+
+
 def scatter_select(key, xy, zr, n_pix: int, rq_bits: int):
     """Scatter selection: [B, N] int32 x3 -> kmin, xyo, zro [B, n_pix]
     int32.
 
     On a CPU tensor this is :func:`scatter_select_reference`. On a CUDA
-    tensor it launches ``csrc/proj_scatter.cu`` on the current stream,
-    adds one to ``scatter_select.launches``, and raises if the build or the
-    launch fails; it never falls back to the plain version there.
+    tensor it launches ``csrc/proj_scatter.cu`` once on the current stream
+    as :func:`scatter_plan` lays it out, adds one to
+    ``scatter_select.launches``, and raises if the build or the launch
+    fails (also when no cluster of the plan fits on the device); it never
+    falls back to the plain version there.
     """
     _check_inputs(key, xy, zr, n_pix, rq_bits)
     if key.device.type == "cpu":
@@ -145,16 +184,16 @@ def scatter_select(key, xy, zr, n_pix: int, rq_bits: int):
         raise ValueError(f"scatter_select takes at most 65535 scans per "
                          f"launch, got {b}")
     lib = _library()
+    plan = scatter_plan(n, n_pix, rq_bits)
     kmin = torch.empty((b, n_pix), dtype=torch.int32, device=key.device)
     xyo = torch.empty_like(kmin)
     zro = torch.empty_like(kmin)
-    best = torch.empty((b, n_pix), dtype=torch.int64, device=key.device)
     with torch.cuda.device(key.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.dlt_proj_scatter(
             key.data_ptr(), xy.data_ptr(), zr.data_ptr(), kmin.data_ptr(),
-            xyo.data_ptr(), zro.data_ptr(), best.data_ptr(), b, n, n_pix,
-            rq_bits, stream)
+            xyo.data_ptr(), zro.data_ptr(), b, n, n_pix, rq_bits, *plan,
+            stream)
     if err:
         raise RuntimeError(f"proj_scatter launch failed: "
                            f"{_kernels.error_string(lib, err)}")
@@ -189,6 +228,6 @@ def project_batch_scatter_planes(
 def _library() -> ctypes.CDLL:
     lib = _kernels.library("proj_scatter")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dlt_proj_scatter.argtypes = [p] * 7 + [i, i, i, i, p]
+    lib.dlt_proj_scatter.argtypes = [p] * 6 + [i] * 9 + [p]
     lib.dlt_proj_scatter.restype = i
     return lib

@@ -146,17 +146,23 @@ def test_scatter_kernel_all_invalid(cuda):
     assert not bool(xyo.any()) and not bool(zro.any())
 
 
-def test_scatter_kernel_hot_pixel_and_ties(cuda):
-    """Every point on one pixel (the atomics' worst case), with duplicated
-    points: the closest wins and, among equal ranges, the smaller index."""
-    n = 20000
-    rng = np.random.default_rng(5)
+def _hot_pixel(rng, n):
+    """[1, n, 4]: every point straight ahead, and a copy of the closest
+    point j at the end (a tie at the minimum) -> (points, j)."""
     pts = np.zeros((1, n, 4), np.float32)
     pts[0, :, 0] = rng.uniform(2.0, 70.0, n)          # straight ahead
     pts[0, :, 3] = rng.uniform(0, 1, n)
     j = int(np.argmin(pts[0, :, 0]))
     pts[0, n - 1] = pts[0, j]                         # a tie at the minimum
     pts[0, n - 1, 3] = 0.5
+    return pts, j
+
+
+def test_scatter_kernel_hot_pixel_and_ties(cuda):
+    """Every point on one pixel (the atomics' worst case), with duplicated
+    points: the closest wins and, among equal ranges, the smaller index."""
+    n = 20000
+    pts, j = _hot_pixel(np.random.default_rng(5), n)
     words = _scatter_words(pts, np.ones((1, n), bool), cuda)
     kmin, _, zro = _assert_scatter_bit_exact(words)
     landed = torch.nonzero(kmin[0] != tsc.SENTINEL).flatten().tolist()
@@ -165,6 +171,38 @@ def test_scatter_kernel_hot_pixel_and_ties(cuda):
     first = int(np.flatnonzero(key == key.min())[0])
     assert first <= j < n - 1                  # the copy at n - 1 ties
     assert int(zro[0, landed[0]]) == int(words[2][0, first])
+
+
+# name: (B, N, H, W, expected (slot_bytes, cluster, tiles) of scatter_plan)
+PLAN_CASES = {
+    "u64 slots, N = 2^18 + 3": (1, 2**18 + 3, 64, 1024, (8, 8, 1)),
+    "u64 slots, 61x1021 pixels": (2, 2**18 + 3, 61, 1021, (8, 8, 1)),
+    "multi-tile 256x4096": (2, 131072, 256, 4096, (4, 8, 8)),
+    "multi-tile 250x4093, N % 4 = 3": (1, 131071, 250, 4093, (4, 8, 8)),
+    "two CTAs, 129x131 pixels, N % 4 = 3": (3, 4099, 129, 131, (4, 2, 1)),
+    "main shape, N = 126979": (2, 126979, 64, 1024, (4, 4, 1)),
+    "hot pixel at 64x1024": (1, 131072, 64, 1024, (4, 4, 1)),
+}
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_scatter_kernel_launch_plans(cuda, case):
+    """Each route of scatter_plan bit-exact against the plain version: u64
+    slots, several pixel tiles, clusters of 2 to 8 CTAs, pixel counts that
+    divide by neither C nor 32, N not a multiple of 4, local atomics on
+    one hot pixel with a tie."""
+    b, n, h, w, want = PLAN_CASES[case]
+    plan = tsc.scatter_plan(n, h * w, tsc.rq_bits_for(h * w))
+    assert (plan.slot_bytes, plan.cluster, plan.tiles) == want
+    rng = np.random.default_rng(len(case))
+    if case.startswith("hot"):
+        pts, valid = _hot_pixel(rng, n)[0], np.ones((1, n), bool)
+    else:
+        pts = _unordered(rng, b, n)
+        valid = rng.uniform(size=(b, n)) >= 0.1
+    kmin, _, _ = _assert_scatter_bit_exact(
+        _scatter_words(pts, valid, cuda, h, w), h * w)
+    assert int((kmin != tsc.SENTINEL).sum()) > 0
 
 
 def test_scatter_kernel_on_a_side_stream_and_counts_launches(cuda):

@@ -14,16 +14,20 @@ plain PyTorch version:
 Slice 1, streaming odometry on raw ring-ordered scans (ring kernel):
 
 2. the ring-projection kernel against its plain version at full width
-   (B = 1 and 9, N = 131072, 64x1024) on ring scans and edge cases: the
-   selected words and the whole projector must be bit-identical;
+   (B = 1 and 9, N = 131072, 64x1024) on ring scans and edge cases (one
+   over an allocator poisoned with 0x5A5A5A5A, an invalid prefix before
+   points on pixel 0): the selected words and the whole projector must be
+   bit-identical;
 3. a full-width SyntheticDrive streamed through ``StreamingOdometry`` in
    bfloat16 with seeded weights; the kernel must launch once per frame;
    poses finite, first tick the identity; bfloat16 within a stated
    tolerance of the port's own float32 run; the float32 model on the card
    against the same model on the CPU on one frame;
-4. a torch.profiler trace of a short stream (device busy and idle share);
+4. a torch.profiler trace of a short stream (device busy and idle share;
+   exactly one ring kernel per frame);
 5. timings with CUDA events (median of 30 runs after warm-up), per Python
-   call and as device time from CUDA-graph replays.
+   call and as device time from CUDA-graph replays, and at B = 1 with
+   every point invalid.
 
 Slice 2, the training step on unordered scans (point-scatter kernel), the
 slice configuration being the file above with ``backend: pallas`` and
@@ -101,9 +105,9 @@ BF16_RTOL = 0.05
 F32_RTOL = 1e-3
 MAX_FLIP_FRACTION = 1e-3        # CPU vs GPU projector: trig ulps
 REPS = 30
-# the __global__ functions of csrc/ring_project.cu, as the profiler names them
-RING_PASSES = ("tile_max_kernel", "tile_carry_kernel", "ring_min_kernel",
-               "ring_payload_kernel")
+POISONED = "ring B=1 over a poisoned allocator"
+# the __global__ function of csrc/ring_project.cu, as the profiler names it
+RING_KERNELS = ("ring_select_kernel",)
 # ... and the one of csrc/proj_scatter.cu
 SCATTER_KERNELS = ("scatter_select_kernel",)
 RQ_BITS = rq_bits_for(H * W)
@@ -179,13 +183,24 @@ def device_kernels(events, span_prefix: str):
             and not e.key.startswith((span_prefix, "Optimizer."))]
 
 
-def kernel_cases(rng):
+def kernel_cases(rng, dev):
     """(name, points [B, N, 4], valid [B, N]) at full width."""
     ring1 = synthetic_ring_batch(rng, 1, N)
     ring9 = synthetic_ring_batch(rng, 9, N)
     ones = np.ones((1, N), bool)
     cases = [("ring B=1", ring1, ones), ("ring B=9", ring9,
-                                        np.ones((9, N), bool))]
+                                        np.ones((9, N), bool)),
+             (POISONED, ring1, ones)]
+    # the clamp trap: an invalid prefix, then points on pixel 0, one run
+    pix = ring_prologue(*planes(torch.from_numpy(ring1).to(dev)),
+                        torch.from_numpy(ones).to(dev), H, W, FU, FD)[0]
+    on0 = torch.nonzero(pix[0] == 0).flatten().tolist()
+    check(len(on0) > 0, "no point of the ring scan lands on pixel 0")
+    zero = ring1.copy()
+    zero[0, 5000:5003] = ring1[0, on0[0]]
+    lead0 = ones.copy()
+    lead0[:, :5000] = False
+    cases.append(("invalid prefix then pixel 0", zero, lead0))
     cases.append(("30% interleaved invalid", ring1,
                   rng.uniform(size=(1, N)) >= 0.3))
     tail = ones.copy()
@@ -211,13 +226,23 @@ def planes(points: torch.Tensor):
     return [points[..., c].contiguous() for c in range(4)]
 
 
+def poison_allocator(dev, b: int) -> None:
+    """Fill and free blocks of the outputs' size, so that the kernel's
+    torch.empty outputs start as 0x5A5A5A5A where it skips a word."""
+    bufs = [torch.full((b, H * W), 0x5A5A5A5A, dtype=torch.int32, device=dev)
+            for _ in range(16)]
+    del bufs
+
+
 def phase_kernel(dev, rng):
     worst = 0
-    for name, pts, vld in kernel_cases(rng):
+    for name, pts, vld in kernel_cases(rng, dev):
         p = torch.from_numpy(pts).to(dev)
         v = torch.from_numpy(vld).to(dev)
         x, y, z, rem = planes(p)
         pix, key, p1, p2 = ring_prologue(x, y, z, rem, v, H, W, FU, FD)
+        if name == POISONED:
+            poison_allocator(dev, pts.shape[0])
         got = ring_select(pix, key, p1, p2, H * W)
         ref = ring_select_reference(pix, key, p1, p2, H * W)
         torch.cuda.synchronize()
@@ -264,6 +289,13 @@ def phase_timings(dev, rng, gpu):
               f"{bound_ms * 1e3:.3f} us ({nbytes} B at 3.35 TB/s: 8 B per "
               f"point, 8 B per landed pixel, {landed} landed, 12 B per "
               f"pixel written) [{gpu}]")
+    # every point invalid: one run off the image and one gap of every pixel
+    pts = torch.from_numpy(synthetic_ring_batch(rng, 1, N)).to(dev)
+    none = ring_prologue(*planes(pts), torch.zeros((1, N), dtype=torch.bool,
+                                                   device=dev), H, W, FU, FD)
+    e_ms = graph_ms(lambda: ring_select(*none, H * W))
+    print(f"timing ring_project B=1 all invalid: device (graph replay) "
+          f"kernel {e_ms:.4f} ms (every pixel an empty gap) [{gpu}]")
     return out
 
 
@@ -373,11 +405,12 @@ def phase_profile(so, gpu, frames: int = 8):
                   f"{e.cpu_time_total / 1e3 / frames:.3f} ms/frame, its "
                   f"kernels {e.device_time_total / 1e3 / frames:.3f} "
                   f"ms/frame")
-    ring = [e for e in kernels if any(p in e.key for p in RING_PASSES)]
+    ring = [e for e in kernels if any(p in e.key for p in RING_KERNELS)]
     ring_us = sum(e.self_device_time_total for e in ring) / frames
-    print(f"profile ring_project: {ring_us:.1f} us/frame of device time in "
-          f"{sum(e.count for e in ring) / frames:.0f} kernels (its passes "
-          f"alone, without the wrapper's fills) [{gpu}]")
+    n_ring = sum(e.count for e in ring)
+    print(f"profile ring_project: {ring_us:.2f} us/frame of device time in "
+          f"{n_ring / frames:.0f} kernel per frame [{gpu}]")
+    check(n_ring == frames, f"{n_ring} ring kernels in {frames} frames")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"profile kernel {e.key[:160]}: "
               f"{e.self_device_time_total / frames:.1f} us/frame, "

@@ -140,21 +140,16 @@ def ring_select(pix, key, p1, p2, n_pix: int):
         raise ValueError(f"ring_select runs on cuda or cpu, got {pix.device}")
     b, n = pix.shape
     lib = _library()
-    ntiles = int(lib.dlt_ring_num_tiles(n))
-    okey = torch.full((b, n_pix), SENTINEL, dtype=torch.int32,
-                      device=pix.device)
-    op1 = torch.zeros((b, n_pix), dtype=torch.int32, device=pix.device)
-    op2 = torch.zeros_like(op1)
-    tile_max = torch.empty((b, ntiles), dtype=torch.int32, device=pix.device)
-    carry = torch.empty_like(tile_max)
-    cpix = torch.empty_like(pix)
+    # the kernel writes every word of the outputs: no fill, no scratch
+    okey = torch.empty((b, n_pix), dtype=torch.int32, device=pix.device)
+    op1 = torch.empty_like(okey)
+    op2 = torch.empty_like(okey)
     with torch.cuda.device(pix.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.dlt_ring_project(
             pix.data_ptr(), key.data_ptr(), p1.data_ptr(), p2.data_ptr(),
-            okey.data_ptr(), op1.data_ptr(), op2.data_ptr(),
-            tile_max.data_ptr(), carry.data_ptr(), cpix.data_ptr(),
-            b, n, n_pix, stream)
+            okey.data_ptr(), op1.data_ptr(), op2.data_ptr(), b, n, n_pix,
+            stream)
     if err:
         raise RuntimeError(f"ring_project launch failed: "
                            f"{_kernels.error_string(lib, err)}")
@@ -185,12 +180,16 @@ def project_batch_ring_planes(
     return ring_epilogue(okey, op1, op2, n, H, W)
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of ``csrc/ring_project.cu`` on ``lib``."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dlt_ring_project.argtypes = [p] * 7 + [i, i, i, p]
+    lib.dlt_ring_project.restype = i
+    lib.dlt_error_string.argtypes = [i]
+    lib.dlt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = _kernels.library("ring_project")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dlt_ring_project.argtypes = [p] * 10 + [i, i, i, p]
-    lib.dlt_ring_project.restype = i
-    lib.dlt_ring_num_tiles.argtypes = [i]
-    lib.dlt_ring_num_tiles.restype = i
-    return lib
+    return _bind(_kernels.library("ring_project"))

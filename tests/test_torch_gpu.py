@@ -60,8 +60,8 @@ def test_kernel_matches_plain_version(cuda, n, b):
 
 
 def test_kernel_long_single_pixel_run(cuda):
-    """Every point on one pixel: one run across all tiles (the atomics'
-    worst case) and the carry chain through every tile."""
+    """Every point on one pixel: one run across every CTA of the cluster,
+    whose minimum reaches the last point through the carries."""
     n = 20000
     rng = np.random.default_rng(1)
     pts = np.zeros((2, n, 4), np.float32)
@@ -93,6 +93,102 @@ def test_kernel_on_a_side_stream_and_counts_launches(cuda):
     assert tring.ring_select.launches == before + 1
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+
+
+def _hand_words(pix, dev, seed=0):
+    """Words from given pixels [B, N]: unique keys, random payload words."""
+    rng = np.random.default_rng(seed)
+    pix = np.asarray(pix, np.int32)
+    b, n = pix.shape
+    key = np.stack([rng.permutation(n) * 3 + 1 for _ in range(b)])
+    p1, p2 = (rng.integers(-2**31, 2**31, (b, n)) for _ in range(2))
+    return [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+            for a in (pix, key, p1, p2)]
+
+
+def _full_width_words(dev, b, n, valid, h=64, w=1024, seed=0):
+    rng = np.random.default_rng(seed)
+    pts = synthetic_ring_batch(rng, b, -(-n // h) * h, rings=h)[:, :n]
+    p = torch.from_numpy(np.ascontiguousarray(pts)).to(dev)
+    t = [p[..., c].contiguous() for c in range(4)]
+    return tring.ring_prologue(*t, torch.from_numpy(valid).to(dev), h, w,
+                               FU, FD)
+
+
+POISON = 0x5A5A5A5A
+
+
+def test_kernel_writes_every_pixel_over_poisoned_memory(cuda):
+    """The outputs come from torch.empty: blocks of their size filled with
+    0x5A5A5A5A and freed first, so a pixel the kernel skips shows up."""
+    n_pix = 64 * 1024
+    words = _full_width_words(cuda, 1, 131072, np.ones((1, 131072), bool))
+    bufs = [torch.full((1, n_pix), POISON, dtype=torch.int32, device=cuda)
+            for _ in range(16)]
+    del bufs
+    got = tring.ring_select(*words, n_pix)
+    ref = tring.ring_select_reference(*words, n_pix)
+    torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)
+
+
+def test_kernel_leading_prefix_merges_with_pixel_0(cuda):
+    """Invalid points (-1) before points on pixel 0 form one run on pixel 0
+    with them (the clamp comes before the run split), in the first CTA and
+    across a CTA boundary."""
+    n = 40000
+    pix = np.full((2, n), 7, np.int32)
+    pix[0, :1000] = -1
+    pix[0, 1000:1003] = 0
+    pix[1, :30000] = -1                   # past the first CTAs' slices
+    pix[1, 30000:30010] = 0
+    _assert_bit_exact(_hand_words(pix, cuda), H * W)
+
+
+def test_kernel_all_invalid_full_width(cuda):
+    n = 131072
+    words = _full_width_words(cuda, 1, n, np.zeros((1, n), bool))
+    _assert_bit_exact(words, 64 * 1024)
+
+
+def test_kernel_sparse_scan(cuda):
+    """4096 points into 64x2048 pixels: long gaps between runs."""
+    n = 4096
+    rng = np.random.default_rng(11)
+    valid = rng.uniform(size=(2, n)) >= 0.1
+    words = _full_width_words(cuda, 2, n, valid, h=64, w=2048)
+    _assert_bit_exact(words, 64 * 2048)
+
+
+def test_kernel_several_chunks_per_cta(cuda):
+    """N = 2^20 + 3: each CTA walks several passes of its slice."""
+    n = 2**20 + 3
+    rng = np.random.default_rng(12)
+    valid = rng.uniform(size=(1, n)) >= 0.05
+    words = _full_width_words(cuda, 1, n, valid)
+    _assert_bit_exact(words, 64 * 1024)
+
+
+def test_kernel_batch_of_nine(cuda):
+    n = 131072
+    words = _full_width_words(cuda, 9, n, np.ones((9, n), bool))
+    _assert_bit_exact(words, 64 * 1024)
+
+
+def test_kernel_empty_scans_fill_the_image(cuda):
+    """N = 0: one launch, every pixel empty, as the plain version."""
+    words = _hand_words(np.zeros((2, 0), np.int32), cuda)
+    before = tring.ring_select.launches
+    bufs = [torch.full((2, H * W), POISON, dtype=torch.int32, device=cuda)
+            for _ in range(4)]
+    del bufs
+    okey, op1, op2 = tring.ring_select(*words, H * W)
+    torch.cuda.synchronize()
+    assert tring.ring_select.launches == before + 1
+    assert bool((okey == tring.SENTINEL).all())
+    assert not bool(op1.any()) and not bool(op2.any())
+    _assert_bit_exact(words)
 
 
 # ------------------------------------------------ point-scatter projection

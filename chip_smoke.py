@@ -46,6 +46,22 @@ slice configuration being the file above with ``backend: pallas`` and
 9. the scatter kernel's timings, as in 5, and at B = 144 on the same
    scans with every key invalid (no atomics, no gathers).
 
+Slice 3, the training loop (``Trainer``: prefetcher, validation,
+checkpoints, resume), the slice-2 configuration with ``synthetic: true``:
+
+10. ``Trainer.fit(epochs=2)`` on 16 synthetic drives of 25 frames (48
+    windows of 9 frames, 3 steps of 16 windows an epoch) with 16
+    validation drives of 9 frames (one batch), ``log-every: 1``,
+    ``checkpoint-every-steps: 4``; then ``close()``, a second Trainer with
+    ``resume=True`` and ``fit(epochs=1)``. Checks: steps 6 then 9, the
+    checkpoint labels of the JAX package's rules, the restored state
+    bit-equal to the saved one, finite losses, one validation per epoch,
+    one scatter launch per train step and per validation batch, and the
+    prefetcher's full-width batches equal to ``batch_to_device``'s. Prints
+    ms/step inside ``fit``, the host's batch build, the copy and the
+    loop's wait for data, checkpoint save and restore ms and size, and the
+    peak device memory.
+
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails. The last line is the JSON object
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -67,6 +83,7 @@ import yaml
 
 from deeplio_tpu_torch.config import load_config, load_config_dict
 from deeplio_tpu_torch.data.dataset import WindowDataset
+from deeplio_tpu_torch.data.pipeline import DevicePrefetcher, PinnedRing
 from deeplio_tpu_torch.data.drives import SyntheticDrive
 from deeplio_tpu_torch.data.synthetic import synthetic_ring_batch
 from deeplio_tpu_torch.eval.streaming import StreamingOdometry
@@ -88,11 +105,12 @@ from deeplio_tpu_torch.ops.projection_scatter import (
     scatter_select,
     scatter_select_reference,
 )
+from deeplio_tpu_torch.train import Trainer
 from deeplio_tpu_torch.train.state import create_train_state
 from deeplio_tpu_torch.train.step import batch_to_device, build_train_step
 
-CONFIG = pathlib.Path(__file__).resolve().parent / "configs" / \
-    "deeplio_kitti_tpu.yaml"
+ROOT = pathlib.Path(__file__).resolve().parent
+CONFIG = ROOT / "configs" / "deeplio_kitti_tpu.yaml"
 H, W, N = 64, 1024, 131072
 FU, FD = 3.0, -25.0
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM memory rate (NVIDIA data sheet)
@@ -126,6 +144,17 @@ WARMUP_STEPS, TIMED_STEPS, FIT_STEPS, PROFILE_STEPS = 3, 10, 20, 2
 # rounding level).
 STEP_LOSS_RTOL, STEP_NORM_RTOL, STEP_STATS_RTOL, STEP_UPDATE_L2 = (
     1e-4, 1e-2, 1e-4, 0.2)
+# the training loop: 16 drives of 25 frames (windows of 9 at stride 8: 3
+# a drive, 48 in all, 3 steps of 16 an epoch), 16 validation drives of 9
+# frames (16 windows, one batch), a periodic checkpoint every 4 steps
+FIT_DRIVES, FIT_FRAMES, FIT_EVAL_FRAMES, FIT_EVERY = 16, 25, 9, 4
+FIT_EPOCHS, FIT_RESUME_EPOCHS = 2, 1
+# The labels the JAX package's rules give. Run 1 (steps 1-6): the first
+# validation (step 3) is the best so far, a forced save with metrics; the
+# periodic save at step 4; step 6 (validation and the final save): {3, 4,
+# 6}. Run 2, resumed at 6 (steps 7-9): the periodic save at 8 (8 // 4 >
+# 6 // 4), step 9; the newest three: {6, 8, 9}.
+FIT_LABELS, RESUME_LABELS = [3, 4, 6], [6, 8, 9]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -752,6 +781,207 @@ def phase_scatter_timings(dev, rng, batch, gpu):
     return out
 
 
+# ------------------------------------------------------------- slice 3
+
+def fit_config(**over):
+    """The slice-2 configuration on synthetic drives, with the loop's
+    cadence; ``over`` replaces ``datasets`` keys (the CPU rehearsal)."""
+    with open(CONFIG) as f:
+        d = yaml.safe_load(f)
+    d["datasets"].update({
+        "backend": "pallas", "augment-yaw": True, "synthetic": True,
+        "synthetic-frames": FIT_FRAMES,
+        "synthetic-eval-frames": FIT_EVAL_FRAMES,
+        "synthetic-train-drives": FIT_DRIVES,
+        "synthetic-eval-drives": FIT_DRIVES})
+    d["datasets"].update({k.replace("_", "-"): v for k, v in over.items()})
+    d["train"].update({"log-every": 1, "checkpoint-every-steps": FIT_EVERY})
+    return load_config_dict(d)
+
+
+def _records(workdir):
+    with open(pathlib.Path(workdir) / "metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def _cpu_copy(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    if isinstance(tree, dict):
+        return {k: _cpu_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu_copy(v) for v in tree)
+    return copy.deepcopy(tree)
+
+
+def _same(a, b) -> bool:
+    """``a`` (a host copy) equals ``b`` bit for bit, tensors and all."""
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b.detach().cpu())
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _step_gaps(records, steps, spe: int):
+    """ms between the records of consecutive train steps in ``steps``
+    (log-every 1: a record is written once its step's metrics reached the
+    host), leaving out the gaps that hold a validation (after an epoch's
+    last step) or a periodic checkpoint save (after a multiple of
+    FIT_EVERY)."""
+    t = {r["step"]: r["time"] for r in records if r["split"] == "train"}
+    return [(t[s + 1] - t[s]) * 1e3 for s in steps
+            if s + 1 in t and s in t and s % spe and s % FIT_EVERY]
+
+
+def _offsets(records, steps, t0: float) -> str:
+    """When each train step's record was written, ms after ``t0``."""
+    t = {r["step"]: r["time"] for r in records if r["split"] == "train"}
+    return ", ".join(f"{s}: {(t[s] - t0) * 1e3:.0f}" for s in steps)
+
+
+def _prebuild(trainer) -> float:
+    """Synthesise every scan of the trainer's drives (the drives cache
+    them), so that the loop's batch build is assembly only; seconds."""
+    t0 = time.perf_counter()
+    for d in trainer.train_ds.drives + trainer.val_ds.drives:
+        for k in range(len(d)):
+            d.points_planes(k)
+    return time.perf_counter() - t0
+
+
+def _data_line(trainer, steps_per_epoch: int, gpu: str, label: str):
+    for e, t in enumerate(trainer.data_timings):
+        print(f"fit {label} epoch {e + 1}: {t['batches']} batches; host "
+              f"batch build {t['build_ms'] / t['batches']:.1f} ms/batch "
+              f"(producer thread), host-to-device copy "
+              f"{t['copy_ms'] / t['batches']:.2f} ms/batch (side stream, "
+              f"device time), loop waited {t['wait_ms'] / steps_per_epoch:.2f}"
+              f" ms/step for data ({t['first_wait_ms']:.1f} ms of it for "
+              f"the epoch's first batch) [{gpu}]")
+
+
+def phase_fit(dev, gpu, workdir: pathlib.Path, cfg=None):
+    """The training loop at full width: fit, checkpoints, resume. Returns
+    the scatter launches of both fits and ms/step."""
+    import shutil
+    cfg = cfg or fit_config()
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, workdir=str(workdir), device=dev)
+    spe = trainer.train_ds.steps_per_epoch(cfg.train.batch_size)
+    n_val = len(trainer.val_ds) // cfg.train.batch_size
+    synth_s = _prebuild(trainer)
+    print(f"fit: Trainer built in {time.perf_counter() - t0:.1f} s "
+          f"({synth_s:.1f} s of it synthesising the scans of run 1): "
+          f"{len(trainer.train_ds)} train windows ({spe} steps an epoch), "
+          f"{len(trainer.val_ds)} validation windows ({n_val} batches), "
+          f"{cfg.datasets.sequence_size} frames of "
+          f"{cfg.datasets.projection.max_points} points; "
+          f"{int(trainer.train_ds.drives[0].points(1)[1].sum())} valid in "
+          f"drive 0 frame 1 [{gpu}]")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scatter_select.launches = 0
+    t0, start = time.perf_counter(), time.time()
+    trainer.fit(epochs=FIT_EPOCHS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = scatter_select.launches
+    want = FIT_EPOCHS * (spe + n_val)
+    check(launches == want, f"fit: {launches} scatter launches, want {want} "
+          f"(one per train step and per validation batch)")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(trainer.step == FIT_EPOCHS * spe, f"fit ended at step "
+          f"{trainer.step}")
+    labels = trainer.ckpt.all_steps()
+    check(labels == FIT_LABELS, f"checkpoint labels {labels}, want "
+          f"{FIT_LABELS}")
+    saved = _cpu_copy(trainer.state.state_dict())
+    save_ms = trainer.ckpt.save_ms
+    size_mb = trainer.ckpt.nbytes(labels[-1]) / 1e6
+    gaps = _step_gaps(_records(workdir), range(1, trainer.step), spe)
+    med = float(np.median(gaps))
+    _data_line(trainer, spe, gpu, "run 1 (scans built before fit)")
+    trainer.close()
+    print(f"fit run 1: {trainer.step} steps and {FIT_EPOCHS} validations in "
+          f"{wall:.2f} s; {med:.2f} ms/step, median of the step-to-step gaps "
+          f"{', '.join(f'{g:.2f}' for g in gaps)} ms (those with no "
+          f"validation or checkpoint save), {TRAIN_PAIRS / med * 1e3:.1f} "
+          f"pairs/s; scatter launches {launches}; peak device memory "
+          f"{peak_gb:.2f} GB; checkpoints {labels}, save "
+          f"{', '.join(f'{m:.1f}' for m in save_ms)} ms "
+          f"({size_mb:.1f} MB each) [{gpu}]")
+    print(f"fit run 1: step records at ms after the start of fit "
+          f"{_offsets(_records(workdir), range(1, trainer.step + 1), start)}"
+          f" [{gpu}]")
+
+    resumed = Trainer(cfg, workdir=str(workdir), resume=True, device=dev)
+    restore_ms = resumed.ckpt.restore_ms[-1]
+    check(resumed.step == FIT_EPOCHS * spe, f"resumed at step {resumed.step}")
+    check(_same(saved, resumed.state.state_dict()),
+          "the restored state differs from the saved one")
+    print(f"fit: resumed at step {resumed.step}, state bit-equal to the "
+          f"saved one (parameters, BatchNorm buffers, sx/sq, Adam moments "
+          f"and step, CUDA generator); restore {restore_ms:.1f} ms [{gpu}]")
+    scatter_select.launches = 0
+    start = time.time()
+    resumed.fit(epochs=FIT_RESUME_EPOCHS)
+    torch.cuda.synchronize()
+    r_launches = scatter_select.launches
+    want = FIT_RESUME_EPOCHS * (spe + n_val)
+    check(r_launches == want, f"resumed fit: {r_launches} scatter launches, "
+          f"want {want}")
+    end = (FIT_EPOCHS + FIT_RESUME_EPOCHS) * spe
+    check(resumed.step == end, f"resumed fit ended at step {resumed.step}")
+    labels = resumed.ckpt.all_steps()
+    check(labels == RESUME_LABELS, f"checkpoint labels after the resume "
+          f"{labels}, want {RESUME_LABELS}")
+    records = _records(workdir)
+    train = [r for r in records if r["split"] == "train"]
+    val = [r for r in records if r["split"] == "val"]
+    check([r["step"] for r in train] == list(range(1, end + 1)),
+          "a train step is missing from metrics.jsonl")
+    check([r["step"] for r in val] == [spe * (e + 1) for e in range(
+        FIT_EPOCHS + FIT_RESUME_EPOCHS)], "not one validation per epoch")
+    check(all(np.isfinite(r[k]) for r in records
+              for k in ("loss", "loss_x", "loss_q")), "non-finite fit loss")
+    r_gaps = _step_gaps(records, range(FIT_EPOCHS * spe + 1, end), spe)
+    print(f"fit run 2: step records at ms after the start of fit "
+          f"{_offsets(records, range(FIT_EPOCHS * spe + 1, end + 1), start)}"
+          f" [{gpu}]")
+    _data_line(resumed, spe, gpu, "run 2 (scans synthesised in the loop)")
+    print(f"fit run 2 (resumed, scans synthesised by the producer thread "
+          f"as the epoch reads them): step-to-step gaps "
+          f"{', '.join(f'{g:.2f}' for g in r_gaps)} ms (no validation or "
+          f"save in them); scatter launches {r_launches}; checkpoints "
+          f"{labels}; losses: step 1 {train[0]['loss']:.5g}, step {end} "
+          f"{train[-1]['loss']:.5g}; validation "
+          f"{', '.join(f'{r["loss"]:.5g}' for r in val)} [{gpu}]")
+
+    # the prefetcher's full-width batches against batch_to_device, through
+    # a ring of two staging buffers (reused from the third batch on)
+    ring = PinnedRing(2)
+    ds = resumed.train_ds
+    want_it = ds.iter_batches(cfg.train.batch_size, shuffle=True, seed=99)
+    it = DevicePrefetcher(ds.iter_batches(cfg.train.batch_size, shuffle=True,
+                                          seed=99, alloc=ring.take),
+                          dev, depth=1, ring=ring)
+    for k, (got, host) in enumerate(zip(it, want_it)):
+        ref = batch_to_device(host, dev)
+        check(all(torch.equal(got[key], ref[key]) for key in ref),
+              f"prefetched batch {k} differs from batch_to_device")
+    check(k + 1 == spe, f"prefetched {k + 1} batches")
+    it.close()
+    print(f"fit: {spe} prefetched full-width batches through 2 staging "
+          f"buffers equal batch_to_device's")
+    resumed.close()
+    shutil.rmtree(workdir, ignore_errors=True)
+    return launches + r_launches, med
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one GPU",
@@ -799,9 +1029,19 @@ def main() -> int:
     s_times = phase_scatter_timings(dev, rng, host, gpu)
     print(f"train rate: {step_ms:.2f} ms/step, "
           f"{TRAIN_PAIRS / step_ms * 1e3:.1f} pairs/s [{gpu}]")
+    del raw
+    torch.cuda.empty_cache()
 
+    # slice 3: the training loop (Trainer), scatter kernel
+    f_launches, fit_ms = phase_fit(dev, gpu, ROOT / "build" / "fit_run")
+    print(f"fit rate: {fit_ms:.2f} ms/step, "
+          f"{TRAIN_PAIRS / fit_ms * 1e3:.1f} pairs/s inside fit, against "
+          f"{step_ms:.2f} ms/step for the bare step above [{gpu}]")
+
+    s_launches += f_launches
     print(f"kernels: ring_project (ported, launches={launches}, bit-exact), "
-          f"proj_scatter (ported, launches={s_launches}, bit-exact)")
+          f"proj_scatter (ported, launches={s_launches}: the training "
+          f"step's and the fit's, bit-exact)")
     k_ms, p_ms, bound_ms = times[1]
     sk_ms, sp_ms, s_bound_ms = s_times[TRAIN_B * TRAIN_S]
     print(json.dumps({"kernels": [{

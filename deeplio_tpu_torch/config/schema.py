@@ -4,11 +4,11 @@
 Reads the same YAML keys as the JAX package (hyphenated or underscored)
 for the settings the port computes: the projection, the channel stack and
 its normalization, the window (``sequence-size``, ``combinations``,
-``window-stride``), yaw augmentation, the DeepLIO model with its dropout,
-the pose loss, the optimizer and the fields of ``train`` that the training
-step reads. Blocks the port does not read yet (the KITTI split lists, the
-trainer's epochs, logging and checkpoint cadence) are accepted and ignored:
-they change no result of what the port computes.
+``window-stride``), yaw augmentation, the synthetic drives, the DeepLIO
+model with its dropout and warm starts, the pose loss, the optimizer with
+its plateau schedule, and the ``train`` block of the training loop. Blocks
+the port does not read yet (the KITTI split lists) are accepted and
+ignored: they change no result of what the port computes.
 
 A setting that would change what the port computes, and that the port
 cannot compute yet, raises ``ConfigError`` (a ``ValueError``) naming the
@@ -28,7 +28,6 @@ CHANNEL_ORDER = ("x", "y", "z", "remission", "depth", "normals")
 _LATER_PROJECTION = "a later projection slice (ROADMAP.md Queue 1 item 5)"
 _LATER_VARIANTS = "the model-variants slice (ROADMAP.md Queue 1 item 5)"
 _LATER_DATA = "the KITTI data slice (ROADMAP.md Queue 1 item 3)"
-_LATER_LOOP = "the training-loop slice (ROADMAP.md Queue 1 item 2)"
 _LATER_DP = "the data-parallel slice (ROADMAP.md Queue 1 item 6)"
 BACKENDS = ("pallas-ring", "pallas")
 
@@ -103,6 +102,15 @@ class DatasetConfig:
     # training only: one random global yaw per window, applied inside the
     # step before the projection (ops/augment.py)
     augment_yaw: bool = False
+    # synthetic drives instead of KITTI (data/dataset.py::build_drives):
+    # frames per drive (eval drives: synthetic_eval_frames, 0 = the same)
+    # and drives per split (train seeds 0.., validation 100.., test 200..)
+    synthetic: bool = False
+    synthetic_frames: int = 64
+    synthetic_eval_frames: int = 0
+    synthetic_train_drives: int = 2
+    synthetic_eval_drives: int = 1
+    synthetic_world: str = "origin"
 
     @property
     def num_image_channels(self) -> int:
@@ -151,6 +159,12 @@ class DatasetConfig:
                                _LATER_PROJECTION)
         if bool(_get(d, "slot-bin", False)):
             raise _unsupported("slot-bin", _LATER_DATA)
+        world = str(_get(d, "synthetic-world", "origin"))
+        if world == "corridor":
+            raise _unsupported("synthetic-world corridor", _LATER_VARIANTS)
+        if world != "origin":
+            raise ConfigError(f"synthetic-world must be origin|corridor, "
+                              f"got {world!r}")
         channels = tuple(_get(d, "channels",
                               ["x", "y", "z", "remission", "depth"]))
         for c in channels:
@@ -187,6 +201,12 @@ class DatasetConfig:
             combinations=combos,
             window_stride=int(_get(d, "window-stride", 1)),
             augment_yaw=bool(_get(d, "augment-yaw", False)),
+            synthetic=bool(_get(d, "synthetic", False)),
+            synthetic_frames=int(_get(d, "synthetic-frames", 64)),
+            synthetic_eval_frames=int(_get(d, "synthetic-eval-frames", 0)),
+            synthetic_train_drives=int(_get(d, "synthetic-train-drives", 2)),
+            synthetic_eval_drives=int(_get(d, "synthetic-eval-drives", 1)),
+            synthetic_world=world,
         )
 
 
@@ -203,6 +223,10 @@ class LidarFeatConfig:
     fire: str = "classic"
     pool: str = "stride"
     dropout: float = 0.0       # after the tower's Dense, training only
+    # warm start of the PointSeg encoder from a snapshot
+    # (train/checkpoint.py::load_pointseg_backbone)
+    pretrained: bool = False
+    model_path: str = ""
 
     @staticmethod
     def from_dict(name: str, d: Dict[str, Any]) -> "LidarFeatConfig":
@@ -232,6 +256,8 @@ class LidarFeatConfig:
             fire=fire,
             pool=pool,
             dropout=_rate(_get(d, "dropout", 0.0), "lidar dropout"),
+            pretrained=bool(_get(d, "pretrained", False)),
+            model_path=str(_get(d, "model-path", "")),
         )
 
 
@@ -302,6 +328,10 @@ class ModelConfig:
     odom: OdomFeatConfig = field(default_factory=OdomFeatConfig)
     compute_dtype: str = "bfloat16"
     dropout: float = 0.25      # before the pose heads, training only
+    # whole-model warm start from a parameter snapshot
+    # (train/checkpoint.py::load_params)
+    pretrained: bool = False
+    model_path: str = ""
 
 
 @dataclass(frozen=True)
@@ -338,15 +368,25 @@ class LossConfig:
 
 @dataclass(frozen=True)
 class OptimConfig:
-    """Adam, a step-indexed learning-rate schedule and optax's global-norm
-    gradient clip."""
+    """Adam, a learning-rate schedule and optax's global-norm gradient
+    clip."""
     name: str = "adam"
     lr: float = 1e-4
-    scheduler: str = "none"    # none | step | cosine
+    scheduler: str = "none"    # none | step | cosine | plateau
     step_size: int = 20        # epochs per decay (step) or decay length
     gamma: float = 0.5
     warmup_steps: int = 0
     grad_clip: float = 0.0     # 0 = off
+    # the clip's global norm over one flattened gradient vector instead of
+    # per-tensor partial sums (the JAX package's raveled update; Adam is
+    # elementwise, so only the norm's rounding order differs)
+    flat_update: bool = False
+    # plateau (torch ReduceLROnPlateau semantics, applied by the trainer
+    # after each validation): lr *= gamma after ``patience`` validations
+    # without an improvement of more than ``threshold``, never below min_lr
+    patience: int = 3
+    min_lr: float = 0.0
+    threshold: float = 1e-4
 
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "OptimConfig":
@@ -361,6 +401,10 @@ class OptimConfig:
             gamma=float(_get(sched, "gamma", 0.5)),
             warmup_steps=int(_get(sched, "warmup-steps", 0)),
             grad_clip=float(_get(d, "grad-clip", 0.0)),
+            flat_update=bool(_get(d, "flat-update", False)),
+            patience=int(_get(sched, "patience", 3)),
+            min_lr=float(_get(sched, "min-lr", 0.0)),
+            threshold=float(_get(sched, "threshold", 1e-4)),
         )
         if cfg.name == "sgd":
             raise _unsupported("optimizer sgd", _LATER_VARIANTS)
@@ -368,35 +412,56 @@ class OptimConfig:
             raise ConfigError(f"optimizer must be adam|sgd, got {cfg.name!r}")
         if float(_get(d, "weight-decay", 0.0)) > 0:
             raise _unsupported("weight-decay (AdamW)", _LATER_VARIANTS)
-        if cfg.scheduler == "plateau":
-            raise _unsupported("scheduler plateau (it reads validation "
-                               "loss)", _LATER_LOOP)
-        if cfg.scheduler not in ("none", "step", "cosine"):
+        if cfg.scheduler not in ("none", "step", "cosine", "plateau"):
             raise ConfigError(f"scheduler must be none|step|cosine|plateau, "
                               f"got {cfg.scheduler!r}")
-        if bool(_get(d, "flat-update", False)):
-            raise _unsupported("optimizer flat-update", _LATER_LOOP)
+        if cfg.scheduler == "plateau" and cfg.warmup_steps > 0:
+            # the controller rewrites a constant learning rate, which a
+            # step-indexed warm-up cannot share
+            raise ConfigError(
+                "scheduler=plateau is incompatible with warmup-steps (the "
+                "plateau controller rewrites a constant lr)")
         return cfg
 
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The fields of the ``train`` block the training step reads."""
+    """The ``train`` block: the batch, the loop's cadence and its
+    checkpoints."""
     batch_size: int = 8
+    epochs: int = 50
     seed: int = 42
+    log_every: int = 25
+    eval_every_epochs: int = 1
+    checkpoint_dir: str = "checkpoints"
+    checkpoint_every_steps: int = 500
+    keep_checkpoints: int = 3
+    prefetch: int = 2
+    # optimizer steps per group: k sequential steps, saves only at group
+    # ends, the epoch tail shorter than k dropped (as in the JAX package,
+    # whose k-step program is bit-identical to k steps)
+    steps_per_call: int = 1
 
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "TrainConfig":
-        if int(_get(d, "steps-per-call", 1)) > 1:
-            raise _unsupported("train steps-per-call > 1", _LATER_LOOP)
         if bool(_get(d, "cache-projections", False)):
             raise _unsupported("train cache-projections", _LATER_DATA)
         if bool(_get(d, "device-dataset", False)):
             raise _unsupported("train device-dataset", _LATER_DATA)
         if int(_get(d, "data-parallel", -1)) > 1:
             raise _unsupported("train data-parallel > 1", _LATER_DP)
-        return TrainConfig(batch_size=int(_get(d, "batch-size", 8)),
-                           seed=int(_get(d, "seed", 42)))
+        return TrainConfig(
+            batch_size=int(_get(d, "batch-size", 8)),
+            epochs=int(_get(d, "epochs", 50)),
+            seed=int(_get(d, "seed", 42)),
+            log_every=int(_get(d, "log-every", 25)),
+            eval_every_epochs=int(_get(d, "eval-every-epochs", 1)),
+            checkpoint_dir=str(_get(d, "checkpoint-dir", "checkpoints")),
+            checkpoint_every_steps=int(_get(d, "checkpoint-every-steps",
+                                            500)),
+            keep_checkpoints=int(_get(d, "keep-checkpoints", 3)),
+            prefetch=int(_get(d, "prefetch", 2)),
+            steps_per_call=int(_get(d, "steps-per-call", 1)))
 
 
 def _net_name(block: Dict[str, Any], key: str, default: str) -> str:
@@ -438,8 +503,6 @@ class Config:
         param = str(_get(d, "param-dtype", "float32"))
         if param != "float32":
             raise _unsupported(f"param-dtype={param!r}", _LATER_VARIANTS)
-        if bool(_get(block, "pretrained", False)):
-            raise _unsupported("a pretrained lidar backbone", _LATER_LOOP)
         model = ModelConfig(
             arch=arch,
             lidar=LidarFeatConfig.from_dict(lname, _get(d, lname, {}) or {}),
@@ -448,6 +511,8 @@ class Config:
             odom=OdomFeatConfig.from_dict(oname, _get(d, oname, {}) or {}),
             compute_dtype=compute,
             dropout=_rate(_get(block, "dropout", 0.25), "model dropout"),
+            pretrained=bool(_get(block, "pretrained", False)),
+            model_path=str(_get(block, "model-path", "")),
         )
         return Config(
             datasets=datasets, model=model,

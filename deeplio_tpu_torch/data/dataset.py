@@ -1,6 +1,7 @@
 """Window dataset and batch assembly (counterpart of
 ``deeplio_tpu/data/dataset.py``: ``WindowDataset`` on the raw-points path,
-single process, assembling each batch in place).
+single process, assembling each batch in place with a thread pool, and
+``build_drives``/``build_dataset`` for synthetic drives).
 
 Each item is a window of ``sequence-size`` frames from one drive; the
 configured ``combinations`` define its P frame pairs. Per pair it carries
@@ -14,17 +15,27 @@ bit.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Sequence, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from deeplio_tpu_torch.config.schema import DatasetConfig
+from deeplio_tpu_torch.config.schema import Config, ConfigError, DatasetConfig
 from deeplio_tpu_torch.data import np_spatial as nsp
-from deeplio_tpu_torch.data.drives import Drive
+from deeplio_tpu_torch.data.drives import Drive, SyntheticDrive
 
 # channel planes of the raw scans, flat [B*S, N]: the step projects per
 # frame
 PLANE_KEYS = ("points_x", "points_y", "points_z", "points_rem")
+
+# {key: (shape, numpy dtype)} of one batch, and a function that returns
+# arrays of that layout to assemble a batch into
+BatchSpec = Dict[str, Tuple[Tuple[int, ...], type]]
+Alloc = Callable[[BatchSpec], Dict[str, np.ndarray]]
+
+
+def empty_batch(spec: BatchSpec) -> Dict[str, np.ndarray]:
+    return {k: np.empty(shape, dtype) for k, (shape, dtype) in spec.items()}
 
 
 class WindowDataset:
@@ -69,7 +80,7 @@ class WindowDataset:
 
     def get_into(self, idx: int, row: int, out: Dict[str, np.ndarray]):
         """Assemble window ``idx`` directly into row ``row`` of a batch
-        from :meth:`alloc_batch`."""
+        laid out as :meth:`batch_spec` says."""
         di, s = self.index[idx]
         d = self.drives[di]
         S = self.cfg.sequence_size
@@ -83,37 +94,83 @@ class WindowDataset:
          out["q_gt"][row], out["valid"][row]) = self._pair_meta(d, s)
         out["meta"][row] = (di, s)
 
-    def alloc_batch(self, rows: int) -> Dict[str, np.ndarray]:
+    def batch_spec(self, rows: int) -> BatchSpec:
+        """The layout of a batch of ``rows`` windows."""
         S = self.cfg.sequence_size
         P = self.cfg.num_pairs
         T = self.cfg.max_imu_per_pair
         N = self.cfg.projection.max_points
-        batch = {key: np.empty((rows * S, N), np.float32)
-                 for key in PLANE_KEYS}
-        batch.update(
-            points_valid=np.empty((rows * S, N), bool),
-            imu=np.empty((rows, P, T, 6), np.float32),
-            imu_mask=np.empty((rows, P, T), np.float32),
-            x_gt=np.empty((rows, P, 3), np.float32),
-            q_gt=np.empty((rows, P, 4), np.float32),
-            valid=np.empty((rows, P), np.float32),
-            meta=np.empty((rows, 2), np.int32))
-        return batch
+        spec: BatchSpec = {key: ((rows * S, N), np.float32)
+                           for key in PLANE_KEYS}
+        spec.update(points_valid=((rows * S, N), np.bool_),
+                    imu=((rows, P, T, 6), np.float32),
+                    imu_mask=((rows, P, T), np.float32),
+                    x_gt=((rows, P, 3), np.float32),
+                    q_gt=((rows, P, 4), np.float32),
+                    valid=((rows, P), np.float32),
+                    meta=((rows, 2), np.int32))
+        return spec
 
     def iter_batches(self, batch_size: int, shuffle: bool = True,
-                     seed: int = 0, drop_last: bool = True
+                     seed: int = 0, drop_last: bool = True,
+                     workers: int = 8, alloc: Optional[Alloc] = None
                      ) -> Iterator[Dict[str, np.ndarray]]:
         """Host batches in one process, in the JAX package's order: the
-        same seed shuffles the windows the same way."""
+        same seed shuffles the windows the same way.
+
+        ``workers`` threads assemble the windows of a batch (numpy copies
+        that release the GIL), as the JAX package's pool does. ``alloc``
+        returns the arrays each batch is assembled into (fresh ones by
+        default; ``data/pipeline.py`` passes page-locked staging buffers).
+        """
+        alloc = alloc or empty_batch
         order = np.arange(len(self))
         if shuffle:
             np.random.default_rng(seed).shuffle(order)
         n = len(order)
         end = (n // batch_size) * batch_size if drop_last else n
-        for b0 in range(0, end, batch_size):
-            sel = order[b0:b0 + batch_size]
-            out = self.alloc_batch(len(sel))
-            for row, i in enumerate(sel):
-                self.get_into(int(i), row, out)
-            yield out
+        pool = ThreadPoolExecutor(workers) if workers > 1 else None
+        try:
+            for b0 in range(0, end, batch_size):
+                sel = order[b0:b0 + batch_size]
+                out = alloc(self.batch_spec(len(sel)))
+                jobs = [(int(i), row, out) for row, i in enumerate(sel)]
+                if pool is None:
+                    for job in jobs:
+                        self.get_into(*job)
+                else:
+                    list(pool.map(lambda job: self.get_into(*job), jobs))
+                yield out
+        finally:
+            if pool is not None:
+                pool.shutdown()
+
+    def steps_per_epoch(self, batch_size: int) -> int:
+        return len(self) // batch_size
+
+
+def build_drives(cfg: Config, split: str) -> List[Drive]:
+    """The drives of a split (``train``, ``validation`` or ``test``): with
+    ``datasets.synthetic``, deterministic synthetic drives with the JAX
+    package's seeds and lengths (train seeds 0.., validation 100.., test
+    200..)."""
+    ds = cfg.datasets
+    if not ds.synthetic:
+        raise ConfigError(
+            "KITTI drives are not supported by the PyTorch port yet; the "
+            "KITTI data slice (ROADMAP.md Queue 1 item 3) adds them: set "
+            "datasets.synthetic")
+    seeds = {"train": range(ds.synthetic_train_drives),
+             "validation": range(100, 100 + ds.synthetic_eval_drives),
+             "test": range(200, 200 + ds.synthetic_eval_drives)}[split]
+    n_frames = ds.synthetic_frames
+    if split != "train" and ds.synthetic_eval_frames:
+        n_frames = ds.synthetic_eval_frames
+    return [SyntheticDrive(n_frames=n_frames,
+                           max_points=ds.projection.max_points, seed=sd)
+            for sd in seeds]
+
+
+def build_dataset(cfg: Config, split: str) -> WindowDataset:
+    return WindowDataset(cfg.datasets, build_drives(cfg, split))
 

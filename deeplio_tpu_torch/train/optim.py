@@ -1,5 +1,5 @@
-"""Optimizer and learning-rate schedule from config (counterpart of
-``deeplio_tpu/train/optim.py::make_schedule, make_optimizer``).
+"""Optimizer, learning-rate schedule and plateau controller from config
+(counterpart of ``deeplio_tpu/train/optim.py``).
 
 The JAX package chains ``optax.clip_by_global_norm`` in front of
 ``optax.adam`` driven by a step-indexed schedule. Here ``torch.optim.Adam``
@@ -8,7 +8,10 @@ the step count before each update and clips the gradients the way optax
 does: by ``c / |g|`` when the global norm ``|g| >= c``, with no epsilon
 (``clip_grad_norm_`` adds 1e-6 to the norm, so it is not used). The schedules follow optax's
 ``exponential_decay(staircase=True)``, ``cosine_decay_schedule`` and the
-``linear_schedule`` warm-up joined in front of them, in float32.
+``linear_schedule`` warm-up joined in front of them, in float32. With
+``scheduler: plateau`` the learning rate is a float32 constant that only
+:class:`PlateauController` rewrites, after a validation (optax's
+``inject_hyperparams`` in the JAX package).
 """
 
 from __future__ import annotations
@@ -64,16 +67,31 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
 
 
 class Optimizer:
-    """Adam with optax's gradient clip and a step-indexed learning rate, over one list of parameters (the
-    model's and the loss's alike: one update, one norm)."""
+    """Adam with optax's gradient clip and a step-indexed (or plateau)
+    learning rate, over one list of parameters (the model's and the loss's
+    alike: one update, one norm)."""
 
     def __init__(self, cfg: OptimConfig, params: Iterable[torch.Tensor],
                  steps_per_epoch: int = 1000):
         self.params = list(params)
-        self.schedule = make_schedule(cfg, steps_per_epoch)
+        # plateau: the constant learning rate the controller rewrites
+        self.lr = float(np.float32(cfg.lr))
+        self.schedule = (None if cfg.scheduler == "plateau"
+                         else make_schedule(cfg, steps_per_epoch))
         self.grad_clip = cfg.grad_clip
-        self.inner = torch.optim.Adam(self.params, lr=self.schedule(0),
+        self.flat_update = cfg.flat_update
+        self.inner = torch.optim.Adam(self.params, lr=self.learning_rate(0),
                                       betas=(0.9, 0.999), eps=1e-8)
+
+    def learning_rate(self, count: int) -> float:
+        return self.lr if self.schedule is None else self.schedule(count)
+
+    def state_dict(self) -> dict:
+        return {"adam": self.inner.state_dict(), "lr": self.lr}
+
+    def load_state_dict(self, d: dict) -> None:
+        self.inner.load_state_dict(d["adam"])
+        self.lr = float(d["lr"])
 
     def zero_grad(self) -> None:
         self.inner.zero_grad(set_to_none=True)
@@ -88,9 +106,65 @@ class Optimizer:
         grads = [p.grad for p in self.params]
         norm = torch.nn.utils.get_total_norm(grads)   # no host sync
         if self.grad_clip > 0:
-            clip_by_global_norm_(grads, self.grad_clip, norm)
-        lr = self.schedule(count)
+            clip_norm = norm
+            if self.flat_update:
+                # one vector, as the JAX package's raveled update sees it
+                clip_norm = torch.linalg.vector_norm(
+                    torch.cat([g.flatten() for g in grads]))
+            clip_by_global_norm_(grads, self.grad_clip, clip_norm)
+        lr = self.learning_rate(count)
         for group in self.inner.param_groups:
             group["lr"] = lr
         self.inner.step()
         return norm
+
+
+class PlateauController:
+    """Host-side ReduceLROnPlateau over the optimizer's constant learning
+    rate (torch's scheduler contract, as the JAX package's controller).
+
+    The trainer calls :meth:`observe` after every validation: when the
+    validation loss has not improved by more than ``threshold`` for
+    ``patience`` observations, the learning rate is scaled by ``gamma``,
+    floored at ``min_lr``.
+    """
+
+    def __init__(self, cfg: OptimConfig):
+        self.enabled = cfg.scheduler == "plateau"
+        self.gamma = cfg.gamma
+        self.patience = cfg.patience
+        self.min_lr = cfg.min_lr
+        self.threshold = cfg.threshold
+        self.best = float("inf")
+        self.bad = 0
+        self.lr = cfg.lr
+
+    def state_dict(self) -> dict:
+        return {"lr": self.lr, "best": self.best, "bad": self.bad}
+
+    def restore_state(self, d) -> None:
+        if not d:
+            return
+        self.lr = float(d.get("lr", self.lr))
+        self.best = float(d.get("best", self.best))
+        self.bad = int(d.get("bad", self.bad))
+
+    def observe(self, val_loss: float, optimizer: Optimizer) -> None:
+        """Count one validation; on a plateau, lower ``optimizer``'s
+        learning rate (stored in float32, as the JAX package's injected
+        hyperparameter is)."""
+        if not self.enabled:
+            return
+        if val_loss < self.best - self.threshold:
+            self.best = val_loss
+            self.bad = 0
+            return
+        self.bad += 1
+        if self.bad < self.patience:
+            return
+        self.bad = 0
+        new_lr = max(self.lr * self.gamma, self.min_lr)
+        if new_lr == self.lr:
+            return
+        self.lr = new_lr
+        optimizer.lr = float(np.float32(new_lr))

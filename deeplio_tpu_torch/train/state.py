@@ -5,12 +5,17 @@ parameters and BatchNorm statistics), the loss's trainable parameters
 (LWS ``sx``, ``sq``), the optimizer over both, the step counter and the
 ``torch.Generator`` that draws the augmentation angles and dropout masks
 on the model's device. PyTorch updates them in place.
+
+``state_dict()`` / ``load_state_dict()`` cover all of it, so a checkpoint
+(``train/checkpoint.py``) restores a run bit for bit: the model's
+parameters and BatchNorm buffers, ``sx``/``sq``, Adam's moments and step
+(and the plateau learning rate), ``step`` and the generator's state.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -26,6 +31,30 @@ class TrainState:
     optimizer: Optimizer
     generator: torch.Generator
     step: int = 0
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Tensors as they are (on the model's device, except the
+        generator's state, a CPU byte tensor)."""
+        return {"step": self.step,
+                "model": self.model.state_dict(),
+                "loss_params": {k: v.detach()
+                                for k, v in self.loss_params.items()},
+                "optimizer": self.optimizer.state_dict(),
+                "generator": self.generator.get_state()}
+
+    def load_state_dict(self, d: Dict[str, Any]) -> None:
+        """Copy ``d`` into this state, in place (tensors may be on any
+        device)."""
+        self.model.load_state_dict(d["model"])
+        if d["loss_params"].keys() != self.loss_params.keys():
+            raise KeyError(f"loss parameters {sorted(d['loss_params'])} do "
+                           f"not match {sorted(self.loss_params)}")
+        with torch.no_grad():
+            for k, v in d["loss_params"].items():
+                self.loss_params[k].copy_(v)
+        self.optimizer.load_state_dict(d["optimizer"])
+        self.generator.set_state(d["generator"].cpu())
+        self.step = int(d["step"])
 
 
 def create_train_state(cfg: Config, model: torch.nn.Module,

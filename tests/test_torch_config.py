@@ -2,6 +2,7 @@
 settings this slice cannot compute, naming the slice that adds them."""
 
 import copy
+import dataclasses
 import pathlib
 
 import pytest
@@ -132,16 +133,79 @@ def test_training_blocks_match_jax_parse(kitti):
 @pytest.mark.parametrize("path,value", [
     (("optimizer", "name"), "sgd"),
     (("optimizer", "weight-decay"), 0.1),
-    (("optimizer", "scheduler"), {"name": "plateau"}),
-    (("optimizer", "flat-update"), True),
-    (("train", "steps-per-call"), 4),
+    (("datasets", "synthetic-world"), "corridor"),
+    (("param-dtype",), "bfloat16"),
+    (("train", "data-parallel"), 2),
     (("train", "cache-projections"), True),
     (("train", "device-dataset"), True),
     (("train", "data-parallel"), 4),
-    (("deeplio", "pretrained"), True),
+    (("datasets", "slot-bin"), True),
 ])
 def test_untrained_settings_raise_naming_their_queue(kitti, path, value):
     d = copy.deepcopy(kitti)
     _set(d, path, value)
     with pytest.raises(ConfigError, match=r"PyTorch port yet; .*Queue 1"):
         load_config_dict(d)
+
+
+def test_loop_keys_match_jax_parse(kitti):
+    """The keys the training loop reads (the plateau schedule, flat-update,
+    the train block's cadence and checkpoints, the synthetic drives and the
+    warm starts) parse to the JAX package's values."""
+    from deeplio_tpu.config import load_config_dict as jax_load_dict
+    d = copy.deepcopy(kitti)
+    d["optimizer"].update({"flat-update": True, "scheduler": {
+        "name": "plateau", "gamma": 0.3, "patience": 5, "min-lr": 1e-6,
+        "threshold": 0.01}})
+    d["train"].update({"epochs": 7, "log-every": 3, "eval-every-epochs": 2,
+                       "checkpoint-dir": "ck", "checkpoint-every-steps": 11,
+                       "keep-checkpoints": 4, "prefetch": 3,
+                       "steps-per-call": 4, "seed": 9, "data-parallel": 1})
+    d["datasets"].update({"synthetic": True, "synthetic-frames": 25,
+                          "synthetic-eval-frames": 9,
+                          "synthetic-train-drives": 16,
+                          "synthetic-eval-drives": 3,
+                          "synthetic-world": "origin"})
+    d["deeplio"].update({"pretrained": True, "model-path": "/m"})
+    d["lidar-feat-pointseg"].update({"pretrained": True, "model-path": "/s"})
+    port, ref = load_config_dict(d), jax_load_dict(d)
+    for f in ("scheduler", "gamma", "patience", "min_lr", "threshold",
+              "flat_update"):
+        assert getattr(port.optim, f) == getattr(ref.optim, f), f
+    for f in ("epochs", "log_every", "eval_every_epochs", "checkpoint_dir",
+              "checkpoint_every_steps", "keep_checkpoints", "prefetch",
+              "steps_per_call", "seed", "batch_size"):
+        assert getattr(port.train, f) == getattr(ref.train, f), f
+    for f in ("synthetic", "synthetic_frames", "synthetic_eval_frames",
+              "synthetic_train_drives", "synthetic_eval_drives",
+              "synthetic_world"):
+        assert getattr(port.datasets, f) == getattr(ref.datasets, f), f
+    for f in ("pretrained", "model_path"):
+        assert getattr(port.model, f) == getattr(ref.model, f), f
+        assert getattr(port.model.lidar, f) == getattr(ref.model.lidar, f), f
+    # and the defaults
+    port, ref = load_config(KITTI_TPU), jax_load(str(KITTI_TPU))
+    for block in ("optim", "train"):
+        for f in (f.name for f in dataclasses.fields(getattr(port, block))):
+            assert getattr(getattr(port, block), f) == \
+                getattr(getattr(ref, block), f), (block, f)
+
+
+def test_plateau_with_warmup_raises(kitti):
+    d = copy.deepcopy(kitti)
+    d["optimizer"]["scheduler"] = {"name": "plateau", "warmup-steps": 10}
+    with pytest.raises(ConfigError, match="warmup"):
+        load_config_dict(d)
+
+
+def test_kitti_splits_raise_naming_item_3(kitti):
+    """Without ``synthetic`` the splits name KITTI drives, which the KITTI
+    data slice adds: building them (and so a Trainer) raises."""
+    from deeplio_tpu_torch.data.dataset import build_drives
+    from deeplio_tpu_torch.train import Trainer
+    cfg = load_config_dict(copy.deepcopy(kitti))
+    for split in ("train", "validation", "test"):
+        with pytest.raises(ConfigError, match="Queue 1 item 3"):
+            build_drives(cfg, split)
+    with pytest.raises(ConfigError, match="Queue 1 item 3"):
+        Trainer(cfg, device="cpu")

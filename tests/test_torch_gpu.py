@@ -1,5 +1,6 @@
 """The CUDA kernels (ring and point-scatter projection) against their plain
-PyTorch versions, on the card.
+PyTorch versions, and the training loop's prefetcher and resume, on the
+card.
 
 Every test here needs a CUDA device and skips without one (the kernel has
 no CPU mode). This file imports neither JAX nor the JAX package, so it runs
@@ -8,8 +9,14 @@ on a machine with only PyTorch:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 """
 
+import copy
+import json
+import pathlib
+import time
+
 import numpy as np
 import pytest
+import yaml
 
 torch = pytest.importorskip("torch")
 
@@ -327,3 +334,110 @@ def test_scatter_projector_kernel_path_equals_plain_path(cuda):
     ir, mr = tsc.project_batch_scatter_planes(
         *t, v, H, W, FU, FD, select=tsc.scatter_select_reference)
     assert torch.equal(mk, mr) and torch.equal(ik, ir)
+
+
+# ------------------------------------------------- the training loop's parts
+
+KITTI_TPU = pathlib.Path(__file__).resolve().parents[1] / "configs" / \
+    "deeplio_kitti_tpu.yaml"
+
+
+def _loop_cfg(**datasets):
+    from deeplio_tpu_torch.config import load_config_dict
+    with open(KITTI_TPU) as f:
+        d = yaml.safe_load(f)
+    d["datasets"].update({
+        "image-height": 16, "image-width": 128, "max-points": 2048,
+        "sequence-size": 3, "window-stride": 2, "backend": "pallas",
+        "synthetic": True, "synthetic-frames": 7,
+        "synthetic-train-drives": 2, "synthetic-eval-drives": 1,
+        **datasets})
+    d["train"].update({"batch-size": 2, "log-every": 1,
+                       "checkpoint-every-steps": 2})
+    return load_config_dict(d)
+
+
+@pytest.mark.parametrize("assembled_in_ring", [True, False])
+def test_prefetcher_on_cuda_matches_batch_to_device(cuda, assembled_in_ring):
+    """Eight batches through a ring of two staging buffers (depth 1), each
+    copy held back on the side stream by a sleep kernel: a slot reused
+    before its copy landed, or a batch read before it arrived, would show
+    as a wrong batch."""
+    from deeplio_tpu_torch.data.dataset import build_dataset
+    from deeplio_tpu_torch.data.pipeline import DevicePrefetcher, PinnedRing
+    from deeplio_tpu_torch.train.step import batch_to_device
+    ds = build_dataset(_loop_cfg(**{"synthetic-train-drives": 6}), "train")
+    want = [batch_to_device(b, cuda)
+            for b in ds.iter_batches(2, shuffle=True, seed=3)]
+    assert len(want) == 9
+    ring = PinnedRing(2)
+    held = {}
+
+    def slowed(batches):
+        for b in batches:
+            while "it" not in held:
+                time.sleep(0.001)
+            with torch.cuda.stream(held["it"]._stream):
+                torch.cuda._sleep(20_000_000)
+            yield b
+
+    host = ds.iter_batches(2, shuffle=True, seed=3,
+                           alloc=ring.take if assembled_in_ring else None)
+    held["it"] = it = DevicePrefetcher(slowed(host), cuda, depth=1,
+                                       ring=ring)
+    got = 0
+    for b, w in zip(it, want):
+        assert b.keys() == w.keys()
+        for k in w:
+            assert b[k].device.type == "cuda"
+            assert torch.equal(b[k], w[k]), (got, k)
+        got += 1
+    assert got == len(want) and next(it, None) is None
+    t = it.timings()
+    assert t["batches"] == len(want) and t["copy_ms"] > 0
+
+
+def test_fit_then_resume_on_the_card_equals_an_uninterrupted_run(
+        cuda, tmp_path):
+    """Two epochs straight against one, close, resume and one more, in
+    bfloat16 with dropout and yaw augmentation (the CUDA generator's state
+    is in the checkpoint). cuDNN is held to its deterministic algorithms,
+    as the two runs must give the same bits."""
+    from deeplio_tpu_torch.ops import projection_scatter as tsc
+    from deeplio_tpu_torch.train import Trainer
+    cfg = _loop_cfg(**{"augment-yaw": True})
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        straight = Trainer(cfg, workdir=str(tmp_path / "a"))
+        before = tsc.scatter_select.launches
+        straight.fit(epochs=2)
+        # one launch per train step (6) and per validation batch (2)
+        assert tsc.scatter_select.launches - before == 8
+        want = copy.deepcopy(straight.state.state_dict())
+        straight.close()
+        first = Trainer(cfg, workdir=str(tmp_path / "b"))
+        first.fit(epochs=1)
+        first.close()
+        resumed = Trainer(cfg, workdir=str(tmp_path / "b"), resume=True)
+        assert resumed.step == 3
+        resumed.fit(epochs=1)
+        got = copy.deepcopy(resumed.state.state_dict())
+        resumed.close()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert got["step"] == want["step"] == 6
+    for k, v in want["model"].items():
+        assert torch.equal(got["model"][k], v), k
+    for k, v in want["loss_params"].items():
+        assert torch.equal(got["loss_params"][k], v), k
+    for i, st in want["optimizer"]["adam"]["state"].items():
+        for k, v in st.items():
+            assert torch.equal(got["optimizer"]["adam"]["state"][i][k], v), \
+                (i, k)
+    assert torch.equal(got["generator"], want["generator"])
+    with open(tmp_path / "a" / "metrics.jsonl") as f:
+        a = [(r["step"], r["split"], r["loss"]) for r in map(json.loads, f)]
+    with open(tmp_path / "b" / "metrics.jsonl") as f:
+        b = [(r["step"], r["split"], r["loss"]) for r in map(json.loads, f)]
+    assert a == b and all(np.isfinite(r[2]) for r in a)

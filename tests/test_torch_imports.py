@@ -9,10 +9,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from deeplio_tpu_torch.config import load_config  # noqa: E402
+from deeplio_tpu_torch.config import load_config, load_config_dict  # noqa: E402
+from deeplio_tpu_torch.data.pipeline import DevicePrefetcher  # noqa: E402
 from deeplio_tpu_torch.device import resolve_device  # noqa: E402
 from deeplio_tpu_torch.eval.streaming import StreamingOdometry  # noqa: E402
 from deeplio_tpu_torch.models.zoo import build_model  # noqa: E402
+from deeplio_tpu_torch.train import Trainer  # noqa: E402
 from deeplio_tpu_torch.train.step import batch_to_device  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -63,7 +65,9 @@ def test_port_has_its_modules():
                  "data/np_spatial.py", "data/drives.py",
                  "eval/streaming.py", "ops/projection_scatter.py",
                  "ops/augment.py", "losses/pose.py", "data/dataset.py",
-                 "train/optim.py", "train/state.py", "train/step.py"):
+                 "train/optim.py", "train/state.py", "train/step.py",
+                 "train/loop.py", "train/checkpoint.py", "data/pipeline.py",
+                 "utils/meters.py", "utils/logger.py"):
         assert want in mods, want
     for src in ("ring_project.cu", "proj_scatter.cu"):
         assert (ROOT / "deeplio_tpu_torch" / "csrc" / src).exists()
@@ -84,7 +88,7 @@ def test_resolve_device(no_cuda):
         resolve_device("meta")
 
 
-def test_entry_points_default_to_cuda(no_cuda):
+def test_entry_points_default_to_cuda(no_cuda, tmp_path):
     """With no device argument and no GPU the entry points raise, not fall
     back to the CPU."""
     cfg = load_config(ROOT / "configs" / "deeplio_kitti_tpu.yaml")
@@ -98,6 +102,19 @@ def test_entry_points_default_to_cuda(no_cuda):
     with pytest.raises(RuntimeError):
         batch_to_device(host)
     assert batch_to_device(host, "cpu")["x_gt"].device.type == "cpu"
+    with pytest.raises(RuntimeError):
+        DevicePrefetcher(iter([host]))
+    assert next(DevicePrefetcher(iter([host]), "cpu"))["x_gt"].device.type \
+        == "cpu"
+    import yaml
+    with open(ROOT / "configs" / "deeplio_kitti_tpu.yaml") as f:
+        d = yaml.safe_load(f)
+    d["datasets"].update({"synthetic": True, "synthetic-frames": 3,
+                          "max-points": 64, "sequence-size": 2})
+    synth = load_config_dict(d)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(synth, workdir=str(tmp_path))
+    assert not any(tmp_path.iterdir())        # raised before any output
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

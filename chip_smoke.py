@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at the full width of
+Drives the port's paths at the full width of
 ``configs/deeplio_kitti_tpu.yaml`` and holds each CUDA kernel against its
 plain PyTorch version:
 
@@ -62,6 +62,29 @@ checkpoints, resume), the slice-2 configuration with ``synthetic: true``:
     loop's wait for data, checkpoint save and restore ms and size, and the
     peak device memory.
 
+Slice 4, training on KITTI raw drives (``KittiRawDrive``, the projection
+cache, the device-resident dataset), the configuration file as shipped
+but for its ``root-path`` and splits, so ``backend: pallas-ring``:
+
+11. a KITTI devkit tree in a temporary directory (drives 27 and 42 of
+    2011_10_03, 137 ring-ordered frames each, from
+    ``SyntheticDrive(world_points=300000, rings=64)``); train split ``{27,
+    {drive: 42, start: 0, end: 136}}``, validation ``{27}``: 17 windows a
+    drive, 2 steps of 16 an epoch and 1 validation batch, ``log-every:
+    1``, ``prefetch: 2``, no periodic checkpoint. Run A ``fit(epochs=2)``
+    with every batch read from disk; run B with ``device-dataset: true``;
+    run C with ``cache-projections: true``. Checks: one ring launch per
+    train step and per validation batch in A and B and none of the
+    scatter kernel, the gathered batch equal to the host-fed one, the
+    prefill's one ring launch per chunk of 16 frames of each distinct
+    drive span, no launch in C's ``fit``, a cached frame equal to the
+    projector's output cast to f16. Then the ring kernel on the tree's
+    scans at B = 144 and 16, bit-exact and timed beside its bound; one
+    profiled train step of run A (the ring kernel's share of its device
+    time); 16 frames of drive 27 streamed from disk (one launch a frame).
+    Prints ms/step in ``fit`` for A, B and C, the data waits and build
+    times, the bank's size and staging time, the prefill's time and size.
+
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails. The last line is the JSON object
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -72,6 +95,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -81,16 +105,18 @@ import numpy as np
 import torch
 import yaml
 
+from deeplio_tpu_torch.bench.kitti_tree import make_tree
 from deeplio_tpu_torch.config import load_config, load_config_dict
+from deeplio_tpu_torch.data import device_bank as dbank
 from deeplio_tpu_torch.data.dataset import WindowDataset
 from deeplio_tpu_torch.data.pipeline import DevicePrefetcher, PinnedRing
-from deeplio_tpu_torch.data.drives import SyntheticDrive
+from deeplio_tpu_torch.data.drives import KittiRawDrive, SyntheticDrive
 from deeplio_tpu_torch.data.synthetic import synthetic_ring_batch
 from deeplio_tpu_torch.eval.streaming import StreamingOdometry
 from deeplio_tpu_torch.models.from_flax import to_flax_variables
 from deeplio_tpu_torch.models.zoo import build_model
 from deeplio_tpu_torch.ops import _kernels
-from deeplio_tpu_torch.ops.projection import rq_bits_for
+from deeplio_tpu_torch.ops.projection import make_projector, rq_bits_for
 from deeplio_tpu_torch.ops.projection_ring import (
     project_batch_ring_planes,
     ring_prologue,
@@ -155,6 +181,13 @@ FIT_EPOCHS, FIT_RESUME_EPOCHS = 2, 1
 # 6}. Run 2, resumed at 6 (steps 7-9): the periodic save at 8 (8 // 4 >
 # 6 // 4), step 9; the newest three: {6, 8, 9}.
 FIT_LABELS, RESUME_LABELS = [3, 4, 6], [6, 8, 9]
+# the KITTI loop: a devkit tree of two drives of 137 frames (17 windows of
+# 9 at stride 8 a drive: 2 steps of 16 an epoch, 1 validation batch); the
+# prefill projects chunks of 16 frames; 16 frames streamed from disk
+KITTI_DATE, KITTI_DRIVES, KITTI_FRAMES = "2011_10_03", (27, 42), 137
+KITTI_TRAIN = {KITTI_DATE: [27, {"drive": 42, "start": 0, "end": 136}]}
+KITTI_VAL = {KITTI_DATE: [27]}
+KITTI_EPOCHS, PREFILL_CHUNK, STREAM_FRAMES = 2, 16, 16
 
 
 def check(cond: bool, msg: str) -> None:
@@ -681,17 +714,21 @@ def phase_train_vs_cpu(dev):
     check(upd <= STEP_UPDATE_L2, "float32 parameter update GPU vs CPU")
 
 
-def phase_train_profile(state, train_step, raw, gpu, step_ms: float):
-    """torch.profiler over PROFILE_STEPS training steps: device busy and
-    idle share, host time per train.* span, the scatter kernel's share and
-    the top kernels. The profiler slows the host, so the idle share is
-    also given against ``step_ms``, the step time measured without it."""
+def phase_train_profile(state, train_step, raw, gpu, step_ms: float,
+                        steps: int = PROFILE_STEPS,
+                        kernel=("proj_scatter", SCATTER_KERNELS)):
+    """torch.profiler over ``steps`` training steps: device busy and idle
+    share, host time per train.* span, the share of ``kernel`` (its name
+    and the profiler's names for it) and the top kernels. The profiler
+    slows the host, so the idle share is also given against ``step_ms``,
+    the step time measured without it. Returns the kernel's share of the
+    busy time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
+        for _ in range(steps):
             state, _ = train_step(state, raw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -700,12 +737,12 @@ def phase_train_profile(state, train_step, raw, gpu, step_ms: float):
              and e.device_type.name == "CPU"]
     kernels = device_kernels(events, "train.")
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 \
-        / PROFILE_STEPS
+        / steps
     if busy_ms <= 0:
         print("train profile: the profiler recorded no device time")
-        return
-    wall_ms = wall * 1e3 / PROFILE_STEPS
-    n_k = sum(e.count for e in kernels) / PROFILE_STEPS
+        return None
+    wall_ms = wall * 1e3 / steps
+    n_k = sum(e.count for e in kernels) / steps
     print(f"train profile: {wall_ms:.3f} ms/step wall (profiler on), device "
           f"busy {busy_ms:.3f} ms/step, idle share "
           f"{max(0.0, 1 - busy_ms / wall_ms):.3f} (profiler on), "
@@ -715,23 +752,25 @@ def phase_train_profile(state, train_step, raw, gpu, step_ms: float):
     # autograd launches the backward's kernels from its own thread, so the
     # profiler puts them under no span: they are the busy time the other
     # spans leave.
-    own = {e.key: e.device_time_total / 1e3 / PROFILE_STEPS for e in spans}
+    own = {e.key: e.device_time_total / 1e3 / steps for e in spans}
     for e in spans:
         dev_ms = own[e.key]
         if e.key == "train.backward":
             dev_ms = busy_ms - sum(v for k, v in own.items() if k != e.key)
         print(f"train profile span {e.key}: host "
-              f"{e.cpu_time_total / 1e3 / PROFILE_STEPS:.3f} ms/step, its "
+              f"{e.cpu_time_total / 1e3 / steps:.3f} ms/step, its "
               f"kernels {dev_ms:.3f} ms/step")
-    sc = [e for e in kernels if any(p in e.key for p in SCATTER_KERNELS)]
-    sc_ms = sum(e.self_device_time_total for e in sc) / 1e3 / PROFILE_STEPS
-    print(f"train profile proj_scatter: {sc_ms:.4f} ms/step of device time "
+    name, names = kernel
+    sc = [e for e in kernels if any(p in e.key for p in names)]
+    sc_ms = sum(e.self_device_time_total for e in sc) / 1e3 / steps
+    print(f"train profile {name}: {sc_ms:.4f} ms/step of device time "
           f"({sc_ms / busy_ms:.4f} of busy) in "
-          f"{sum(e.count for e in sc) / PROFILE_STEPS:.0f} kernels [{gpu}]")
+          f"{sum(e.count for e in sc) / steps:.0f} kernels [{gpu}]")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"train profile kernel {e.key[:160]}: "
-              f"{e.self_device_time_total / 1e3 / PROFILE_STEPS:.3f} ms/step,"
-              f" {e.count / PROFILE_STEPS:.1f} launches/step")
+              f"{e.self_device_time_total / 1e3 / steps:.3f} ms/step,"
+              f" {e.count / steps:.1f} launches/step")
+    return sc_ms / busy_ms
 
 
 def phase_scatter_timings(dev, rng, batch, gpu):
@@ -825,15 +864,15 @@ def _same(a, b) -> bool:
     return a == b
 
 
-def _step_gaps(records, steps, spe: int):
+def _step_gaps(records, steps, spe: int, every: int = FIT_EVERY):
     """ms between the records of consecutive train steps in ``steps``
     (log-every 1: a record is written once its step's metrics reached the
     host), leaving out the gaps that hold a validation (after an epoch's
     last step) or a periodic checkpoint save (after a multiple of
-    FIT_EVERY)."""
+    ``every``)."""
     t = {r["step"]: r["time"] for r in records if r["split"] == "train"}
     return [(t[s + 1] - t[s]) * 1e3 for s in steps
-            if s + 1 in t and s in t and s % spe and s % FIT_EVERY]
+            if s + 1 in t and s in t and s % spe and s % every]
 
 
 def _offsets(records, steps, t0: float) -> str:
@@ -982,6 +1021,292 @@ def phase_fit(dev, gpu, workdir: pathlib.Path, cfg=None):
     return launches + r_launches, med
 
 
+# ------------------------------------------------------------- slice 4
+
+def kitti_config(root, over=None, **train):
+    """``configs/deeplio_kitti_tpu.yaml`` as shipped, on the devkit tree at
+    ``root`` with the phase's splits, logging every step, prefetch 2 and a
+    checkpoint interval longer than the run; ``train`` adds ``train``
+    keys, ``over`` replaces ``datasets`` keys and ``compute_dtype`` (the
+    CPU rehearsal)."""
+    with open(CONFIG) as f:
+        d = yaml.safe_load(f)
+    over = dict(over or {})
+    if "compute_dtype" in over:
+        d["compute-dtype"] = over.pop("compute_dtype")
+    d["datasets"]["kitti"] = {"root-path": str(root), "train": KITTI_TRAIN,
+                              "validation": KITTI_VAL}
+    d["datasets"].update({k.replace("_", "-"): v for k, v in over.items()})
+    d["train"].update({"log-every": 1, "prefetch": 2,
+                       "checkpoint-every-steps": 1000})
+    d["train"].update({k.replace("_", "-"): v for k, v in train.items()})
+    return load_config_dict(d)
+
+
+def write_kitti_tree(root, gpu, frames: int = KITTI_FRAMES) -> None:
+    """Drives 27 and 42 of 2011_10_03 under ``root``, ``frames`` each, from
+    ``SyntheticDrive(world_points=300000, rings=64)`` at full width."""
+    t0 = time.perf_counter()
+    srcs = make_tree(str(root), KITTI_DRIVES, n_frames=frames, max_points=N,
+                     rings=H, world_points=300_000)
+    secs = time.perf_counter() - t0
+    base = pathlib.Path(root) / KITTI_DATE
+    files = sorted(base.rglob("*.bin"))
+    pts = [f.stat().st_size // 16 for f in files]
+    mb = sum(f.stat().st_size for f in base.rglob("*") if f.is_file()) / 1e6
+    check(len(files) == len(KITTI_DRIVES) * frames
+          and all(len(s) == frames for s in srcs), "KITTI tree incomplete")
+    print(f"kitti: devkit tree of drives {KITTI_DRIVES} x {frames} frames "
+          f"written in {secs:.1f} s, {mb:.0f} MB; points per scan min "
+          f"{min(pts)}, median {int(np.median(pts))}, max {max(pts)} (of "
+          f"{N}) [{gpu}]")
+
+
+def _kitti_fit(trainer, gpu, label: str):
+    """``fit(KITTI_EPOCHS)`` with the kernels' counts set to 0 just before
+    it; returns (ms/step, ring launches, scatter launches)."""
+    bs = trainer.cfg.train.batch_size
+    spe = trainer.train_ds.steps_per_epoch(bs)
+    torch.cuda.synchronize()
+    ring_select.launches = scatter_select.launches = 0
+    t0, start = time.perf_counter(), time.time()
+    trainer.fit(epochs=KITTI_EPOCHS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ring, scatter = ring_select.launches, scatter_select.launches
+    records = _records(trainer.workdir)
+    check(all(np.isfinite(r["loss"]) for r in records),
+          f"{label}: non-finite loss")
+    check(trainer.step == KITTI_EPOCHS * spe, f"{label}: ended at step "
+          f"{trainer.step}")
+    gaps = _step_gaps(records, range(1, trainer.step), spe, every=1000)
+    med = float(np.median(gaps))
+    pairs = bs * trainer.cfg.datasets.num_pairs
+    print(f"kitti {label}: {trainer.step} steps of {bs} windows x "
+          f"{trainer.cfg.datasets.sequence_size} frames and {KITTI_EPOCHS} "
+          f"validations in {wall:.2f} s; {med:.2f} ms/step in fit, median "
+          f"of the step-to-step gaps {', '.join(f'{g:.2f}' for g in gaps)} "
+          f"ms, {pairs / med * 1e3:.1f} pairs/s; step records at ms after "
+          f"the start of fit {_offsets(records, range(1, trainer.step + 1), start)}"
+          f"; ring launches {ring}, scatter launches {scatter} [{gpu}]")
+    return med, ring, scatter
+
+
+def phase_kitti_runs(dev, gpu, root, over=None):
+    """Runs A (host-fed from disk), B (``device-dataset``) and C
+    (``cache-projections``) of ``fit`` on the tree. Returns (the ring
+    launches of each run's path, ms/step of each run, a host batch of run
+    A, run A's trainer)."""
+    launches, ms = {}, {}
+    cfg = kitti_config(root, over)
+
+    # run A: every batch read from disk by the producer thread
+    trainer = Trainer(cfg, workdir=str(root / "run_a"), device=dev)
+    bs = cfg.train.batch_size
+    spe = trainer.train_ds.steps_per_epoch(bs)
+    n_val = len(trainer.val_ds) // bs
+    want = KITTI_EPOCHS * (spe + n_val)
+    print(f"kitti: {len(trainer.train_ds)} train windows ({spe} steps an "
+          f"epoch), {len(trainer.val_ds)} validation windows ({n_val} "
+          f"batch), drives {[d.name for d in trainer.train_ds.drives]}")
+    ms["A"], ring, scatter = _kitti_fit(trainer, gpu, "run A (host-fed "
+                                        "from disk)")
+    check(ring == want, f"run A: {ring} ring launches, want {want} (one per "
+          f"train step and per validation batch)")
+    check(scatter == 0, "run A launched the scatter kernel")
+    launches["A"] = ring
+    _data_line(trainer, spe, gpu, "kitti run A")
+    host = next(trainer.train_ds.iter_batches(bs, shuffle=False))
+
+    # run B: the scans staged on the card once, each batch gathered there
+    t0 = time.perf_counter()
+    bank_t = Trainer(kitti_config(root, over, device_dataset=True),
+                     workdir=str(root / "run_b"), device=dev)
+    build_s = time.perf_counter() - t0
+    bm = bank_t.bank_ms
+    print(f"kitti run B: device-resident banks {bm['mb']:.0f} MB (train and "
+          f"validation), built on the host in {bm['build']:.0f} ms (every "
+          f"scan read from disk), staged in {bm['put']:.0f} ms; Trainer "
+          f"built in {build_s:.1f} s [{gpu}]")
+    ms["B"], ring, scatter = _kitti_fit(bank_t, gpu, "run B (device bank)")
+    check(ring == want and scatter == 0, f"run B: {ring} ring and {scatter} "
+          f"scatter launches, want {want} and 0")
+    launches["B"] = ring
+    widx = dbank.epoch_indices(len(bank_t.train_ds), bs, shuffle=True,
+                               seed=cfg.train.seed)[0]
+    got = dbank.gather_batch(bank_t._train_bank,
+                             torch.from_numpy(widx).to(dev))
+    fed = next(bank_t.train_ds.iter_batches(bs, shuffle=True,
+                                            seed=cfg.train.seed))
+    ref = batch_to_device(fed, dev)
+    check(all(torch.equal(got[k], ref[k]) for k in ref)
+          and np.array_equal(got["meta"].cpu().numpy(), fed["meta"]),
+          "run B: the gathered batch differs from the host-fed batch")
+    print(f"kitti run B: gather_batch of the first batch's windows "
+          f"{widx.tolist()} equals the host-fed batch bit for bit on the "
+          f"card ({len(ref)} keys)")
+    bank_t.close()
+    del bank_t, got, ref
+    torch.cuda.empty_cache()
+
+    # run C: every frame projected once into the cache, fit on the images
+    ring_select.launches = 0
+    t0 = time.perf_counter()
+    cache_t = Trainer(kitti_config(root, over, cache_projections=True),
+                      workdir=str(root / "run_c"), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cache = cache_t.image_cache
+    prefill = ring_select.launches
+    spans = {cache._path(d): d for d in cache_t.train_ds.drives
+             + cache_t.val_ds.drives}
+    chunks = sum(-(-len(d) // PREFILL_CHUNK) for d in spans.values())
+    check(prefill == chunks, f"run C: prefill launched the ring kernel "
+          f"{prefill} times, want {chunks} (one per chunk of "
+          f"{PREFILL_CHUNK} frames of each distinct drive span)")
+    mb = sum(os.path.getsize(p) for p in spans) / 1e6
+    print(f"kitti run C: projection cache prefill {cache.fill_ms:.0f} ms, "
+          f"{prefill} ring launches (B = {PREFILL_CHUNK} each) for "
+          f"{len(spans)} drive spans, {mb:.0f} MB of f16 images; Trainer "
+          f"built in {build_s:.1f} s [{gpu}]")
+    ms["C"], ring, scatter = _kitti_fit(cache_t, gpu, "run C (cached "
+                                        "projections)")
+    check(ring == 0 and scatter == 0, f"run C: fit launched {ring} ring and "
+          f"{scatter} scatter kernels, want 0")
+    _data_line(cache_t, spe, gpu, "kitti run C")
+    drive = cache_t.train_ds.drives[-1]
+    frame = len(drive) - 1
+    ds = cfg.datasets
+    proj = make_projector(ds.projection, ds.channels, ds.mean, ds.std)
+    pts, vld = drive.points(frame)
+    img, _ = proj(torch.from_numpy(pts)[None].to(dev),
+                  torch.from_numpy(vld)[None].to(dev))
+    want_f16 = img[0].to(torch.float16).cpu().numpy()
+    cached = np.asarray(cache.images(drive, frame, frame + 1))[0]
+    check(cached.view(np.uint16).tobytes()
+          == want_f16.view(np.uint16).tobytes(),
+          "run C: the cached frame differs from the projector's output")
+    print(f"kitti run C: cached frame {frame} of {drive.name} equals "
+          f"make_projector's output on the card cast to f16, bit for bit")
+    launches["C prefill"] = prefill
+    cache_t.close()
+    del cache_t
+    torch.cuda.empty_cache()
+    return launches, ms, host, trainer
+
+
+def phase_ring_training(dev, gpu, host):
+    """The ring kernel on the tree's scans at training's B = 144 (a batch
+    of run A) and the prefill's B = 16: bit-exact against its plain
+    version, kernel and projector path, and timed. Returns {B: (kernel
+    ms, plain ms, bound ms, worst difference)}."""
+    out = {}
+    nb = host["points_x"].shape[0]
+    for b in (nb, PREFILL_CHUNK):
+        x, y, z, rem = (torch.from_numpy(host[k][:b]).to(dev)
+                        for k in ("points_x", "points_y", "points_z",
+                                  "points_rem"))
+        v = torch.from_numpy(host["points_valid"][:b]).to(dev)
+        args = ring_prologue(x, y, z, rem, v, H, W, FU, FD)
+        got = ring_select(*args, H * W)
+        ref = ring_select_reference(*args, H * W)
+        torch.cuda.synchronize()
+        worst = max(int((a.long() - r.long()).abs().max())
+                    for a, r in zip(got, ref))
+        check(worst == 0, f"ring kernel B={b} on KITTI scans differs by "
+              f"{worst}")
+        ik, mk = project_batch_ring_planes(x, y, z, rem, v, H, W, FU, FD,
+                                           select=ring_select)
+        ir, mr = project_batch_ring_planes(x, y, z, rem, v, H, W, FU, FD,
+                                           select=ring_select_reference)
+        check(torch.equal(ik, ir) and torch.equal(mk, mr),
+              f"ring projector B={b}: kernel path differs from plain path")
+
+        def kernel():
+            return ring_select(*args, H * W)
+
+        def plain():
+            return ring_select_reference(*args, H * W)
+
+        k_ms, p_ms = graph_ms(kernel), graph_ms(plain)
+        landed = int((got[0] != SENTINEL).sum())
+        n_pts = x.shape[1]
+        # as for B = 1: 8 B per point, 8 B per landed pixel, 12 B written
+        # per pixel
+        nbytes = 8 * b * n_pts + 8 * landed + 12 * b * H * W
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[b] = (k_ms, p_ms, bound_ms, worst)
+        print(f"timing ring_project B={b} (KITTI scans, "
+              f"{int(v.sum())} valid points): device (graph replay) kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
+              f"{bound_ms * 1e3:.3f} us ({nbytes} B at 3.35 TB/s, {landed} "
+              f"pixels landed); bit-identical [{gpu}]")
+        del x, y, z, rem, v, args, got, ref, ik, mk, ir, mr
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_kitti_stream(dev, gpu, root, cfg):
+    """STREAM_FRAMES frames of drive 27 streamed from disk through
+    ``StreamingOdometry.run``: one ring launch per frame."""
+    drive = KittiRawDrive(str(root), KITTI_DATE, KITTI_DRIVES[0],
+                          max_points=cfg.datasets.projection.max_points,
+                          end=STREAM_FRAMES - 1)
+    so = StreamingOdometry(cfg, build_model(cfg, device=dev, seed=0),
+                           chunk=16, device=dev)
+    so.run(drive)                                    # warm-up
+    torch.cuda.synchronize()
+    ring_select.launches = 0
+    t0 = time.perf_counter()
+    poses, dx, dq = so.run(drive)
+    wall = time.perf_counter() - t0
+    launches = ring_select.launches
+    check(launches == STREAM_FRAMES, f"streamed {STREAM_FRAMES} KITTI "
+          f"frames with {launches} ring launches")
+    check(all(np.isfinite(a).all() for a in (poses, dx, dq))
+          and np.array_equal(poses[0], np.eye(4, dtype=np.float32)),
+          "KITTI stream: non-finite poses or a first tick not the identity")
+    print(f"kitti stream: {STREAM_FRAMES} frames of {drive.name} read from "
+          f"disk through StreamingOdometry.run in {wall:.3f} s "
+          f"({STREAM_FRAMES / wall:.1f} frames/s), ring launches {launches}"
+          f" [{gpu}]")
+    return launches
+
+
+def phase_kitti(dev, gpu, over=None, frames: int = KITTI_FRAMES):
+    """Phase 11: a KITTI devkit tree in a temporary directory, runs A, B
+    and C, the ring kernel at B = 144 and 16, a profiled train step of run
+    A and a stream from disk. Returns (ring launches of the phase's paths,
+    the B = 144 and B = 16 timings, ms/step of the runs)."""
+    import shutil
+    import tempfile
+    root = pathlib.Path(tempfile.mkdtemp(prefix="kitti_smoke_"))
+    try:
+        write_kitti_tree(root, gpu, frames)
+        launches, ms, host, trainer = phase_kitti_runs(dev, gpu, root, over)
+        times = phase_ring_training(dev, gpu, host)
+        raw = batch_to_device(host, dev)
+        trainer.state, _ = trainer.train_step(trainer.state, raw)  # warm-up
+        share = phase_train_profile(trainer.state, trainer.train_step, raw,
+                                    gpu, ms["A"], steps=1,
+                                    kernel=("ring_project", RING_KERNELS))
+        if share is not None:
+            print(f"kitti: the ring kernel is {share:.4f} of a run-A train "
+                  f"step's device time (the scatter kernel's share in "
+                  f"slice 2 was 0.0044) [{gpu}]")
+        cfg = trainer.cfg
+        trainer.close()
+        del trainer, raw
+        torch.cuda.empty_cache()
+        launches["stream"] = phase_kitti_stream(dev, gpu, root, cfg)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"kitti rate: run A {ms['A']:.2f}, run B {ms['B']:.2f}, run C "
+          f"{ms['C']:.2f} ms/step in fit; ring launches "
+          f"{', '.join(f'{k} {v}' for k, v in launches.items())} [{gpu}]")
+    return sum(launches.values()), times, ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one GPU",
@@ -1008,7 +1333,7 @@ def main() -> int:
     worst = phase_kernel(dev, rng)
     launches, fps, so = phase_slice(dev, gpu)
     phase_profile(so, gpu)
-    times = phase_timings(dev, rng, gpu)
+    phase_timings(dev, rng, gpu)
     print(f"slice rate: {fps:.1f} frames/s [{gpu}]")
     del so
     torch.cuda.empty_cache()
@@ -1039,17 +1364,24 @@ def main() -> int:
           f"{step_ms:.2f} ms/step for the bare step above [{gpu}]")
 
     s_launches += f_launches
-    print(f"kernels: ring_project (ported, launches={launches}, bit-exact), "
+    del host
+    torch.cuda.empty_cache()
+
+    # slice 4: training on KITTI raw drives, ring kernel at B = 144
+    k_launches, k_times, _ = phase_kitti(dev, gpu)
+    print(f"kernels: ring_project (ported, launches={k_launches} on the "
+          f"KITTI paths, {launches} in the slice-1 stream, bit-exact), "
           f"proj_scatter (ported, launches={s_launches}: the training "
           f"step's and the fit's, bit-exact)")
-    k_ms, p_ms, bound_ms = times[1]
+    k_ms, p_ms, bound_ms, k_worst = k_times[TRAIN_B * TRAIN_S]
+    worst = max(worst, k_worst, k_times[PREFILL_CHUNK][3])
     sk_ms, sp_ms, s_bound_ms = s_times[TRAIN_B * TRAIN_S]
     print(json.dumps({"kernels": [{
         "name": "ring_project",
         "route": "cuda",
         "source": "deeplio_tpu_torch/csrc/ring_project.cu",
         "replaces": "deeplio_tpu/ops/projection_pallas_ring.py:62",
-        "launches": launches,
+        "launches": k_launches,
         "max_abs_err": float(worst),
         "ms": k_ms,
         "plain_ms": p_ms,

@@ -4,11 +4,12 @@
 Reads the same YAML keys as the JAX package (hyphenated or underscored)
 for the settings the port computes: the projection, the channel stack and
 its normalization, the window (``sequence-size``, ``combinations``,
-``window-stride``), yaw augmentation, the synthetic drives, the DeepLIO
-model with its dropout and warm starts, the pose loss, the optimizer with
-its plateau schedule, and the ``train`` block of the training loop. Blocks
-the port does not read yet (the KITTI split lists) are accepted and
-ignored: they change no result of what the port computes.
+``window-stride``), yaw augmentation, the KITTI ``root-path`` and split
+lists (``{date: [drive | {drive, start, end}, ...]}`` or ``{sequences:
+["00", ...]}``), the synthetic drives, the DeepLIO model with its dropout
+and warm starts, the pose loss, the optimizer with its plateau schedule,
+and the ``train`` block of the training loop with its projection cache and
+device-resident dataset.
 
 A setting that would change what the port computes, and that the port
 cannot compute yet, raises ``ConfigError`` (a ``ValueError``) naming the
@@ -20,14 +21,27 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 CHANNEL_ORDER = ("x", "y", "z", "remission", "depth", "normals")
+
+# KITTI odometry sequence -> (date, raw drive, first frame, last frame)
+ODOMETRY_SEQUENCES: Dict[str, Tuple[str, int, int, int]] = {
+    "00": ("2011_10_03", 27, 0, 4540),
+    "01": ("2011_10_03", 42, 0, 1100),
+    "02": ("2011_10_03", 34, 0, 4660),
+    "04": ("2011_09_30", 16, 0, 270),
+    "05": ("2011_09_30", 18, 0, 2760),
+    "06": ("2011_09_30", 20, 0, 1100),
+    "07": ("2011_09_30", 27, 0, 1100),
+    "08": ("2011_09_30", 28, 1100, 5170),
+    "09": ("2011_09_30", 33, 0, 1590),
+    "10": ("2011_09_30", 34, 0, 1200),
+}
 
 # Later slices, as ROADMAP.md orders them.
 _LATER_PROJECTION = "a later projection slice (ROADMAP.md Queue 1 item 5)"
 _LATER_VARIANTS = "the model-variants slice (ROADMAP.md Queue 1 item 5)"
-_LATER_DATA = "the KITTI data slice (ROADMAP.md Queue 1 item 3)"
 _LATER_DP = "the data-parallel slice (ROADMAP.md Queue 1 item 6)"
 BACKENDS = ("pallas-ring", "pallas")
 
@@ -87,8 +101,32 @@ class ProjectionConfig:
     kernel_aligned: str = "off"
 
 
+def _split(block) -> Dict[str, List]:
+    """A split: ``{date: [drive | {drive, start, end}, ...]}``, or
+    ``{sequences: ["00", ...]}`` through ``ODOMETRY_SEQUENCES``."""
+    block = block or {}
+    seqs = _get(block, "sequences", None)
+    if seqs is None:
+        return {str(k): list(v) for k, v in block.items()}
+    out: Dict[str, List] = {}
+    for s in seqs:
+        s = f"{int(s):02d}" if str(s).isdigit() else str(s)
+        if s not in ODOMETRY_SEQUENCES:
+            raise ConfigError(f"unknown KITTI odometry sequence '{s}'")
+        date, drive, start, end = ODOMETRY_SEQUENCES[s]
+        out.setdefault(date, []).append(
+            {"drive": drive, "start": start, "end": end})
+    return out
+
+
 @dataclass(frozen=True)
 class DatasetConfig:
+    # KITTI raw devkit root and the drives of each split, {date: [drive |
+    # {drive, start, end}, ...]} (data/dataset.py::build_drives)
+    root_path: str = ""
+    train: Dict[str, List] = field(default_factory=dict)
+    validation: Dict[str, List] = field(default_factory=dict)
+    test: Dict[str, List] = field(default_factory=dict)
     channels: Tuple[str, ...] = ("x", "y", "z", "remission", "depth")
     projection: ProjectionConfig = field(default_factory=ProjectionConfig)
     mean: Tuple[float, ...] = ()
@@ -158,7 +196,7 @@ class DatasetConfig:
             raise _unsupported(f"kernel-aligned={proj.kernel_aligned}",
                                _LATER_PROJECTION)
         if bool(_get(d, "slot-bin", False)):
-            raise _unsupported("slot-bin", _LATER_DATA)
+            raise _unsupported("slot-bin", _LATER_VARIANTS)
         world = str(_get(d, "synthetic-world", "origin"))
         if world == "corridor":
             raise _unsupported("synthetic-world corridor", _LATER_VARIANTS)
@@ -191,7 +229,12 @@ class DatasetConfig:
                 raise ConfigError(
                     f"combination {c} out of range for sequence-size {seq} "
                     f"(frame indices are 0..{seq - 1})")
+        kitti = _get(d, "kitti", {}) or {}
         return DatasetConfig(
+            root_path=str(_get(kitti, "root-path", _get(d, "root-path", ""))),
+            train=_split(_get(kitti, "train", {})),
+            validation=_split(_get(kitti, "validation", {})),
+            test=_split(_get(kitti, "test", {})),
             channels=channels,
             projection=proj,
             mean=mean,
@@ -441,13 +484,16 @@ class TrainConfig:
     # ends, the epoch tail shorter than k dropped (as in the JAX package,
     # whose k-step program is bit-identical to k steps)
     steps_per_call: int = 1
+    # project every frame once into f16 memmaps under <workdir>/proj_cache
+    # and train on the cached images (data/proj_cache.py); incompatible
+    # with augment-yaw, which rotates the raw points
+    cache_projections: bool = False
+    # stage the split's scans on the card once and gather each batch there
+    # (data/device_bank.py): the same batches, no per-step copy
+    device_dataset: bool = False
 
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "TrainConfig":
-        if bool(_get(d, "cache-projections", False)):
-            raise _unsupported("train cache-projections", _LATER_DATA)
-        if bool(_get(d, "device-dataset", False)):
-            raise _unsupported("train device-dataset", _LATER_DATA)
         if int(_get(d, "data-parallel", -1)) > 1:
             raise _unsupported("train data-parallel > 1", _LATER_DP)
         return TrainConfig(
@@ -461,7 +507,9 @@ class TrainConfig:
                                             500)),
             keep_checkpoints=int(_get(d, "keep-checkpoints", 3)),
             prefetch=int(_get(d, "prefetch", 2)),
-            steps_per_call=int(_get(d, "steps-per-call", 1)))
+            steps_per_call=int(_get(d, "steps-per-call", 1)),
+            cache_projections=bool(_get(d, "cache-projections", False)),
+            device_dataset=bool(_get(d, "device-dataset", False)))
 
 
 def _net_name(block: Dict[str, Any], key: str, default: str) -> str:
@@ -514,11 +562,17 @@ class Config:
             pretrained=bool(_get(block, "pretrained", False)),
             model_path=str(_get(block, "model-path", "")),
         )
+        train = TrainConfig.from_dict(_get(d, "train", {}) or {})
+        if train.cache_projections and datasets.augment_yaw:
+            raise ConfigError(
+                "cache-projections is incompatible with augment-yaw: the "
+                "yaw augmentation rotates raw points, which cached images "
+                "bypass. Disable one of them.")
         return Config(
             datasets=datasets, model=model,
             loss=LossConfig.from_dict(_get(d, "losses", {}) or {}),
             optim=OptimConfig.from_dict(_get(d, "optimizer", {}) or {}),
-            train=TrainConfig.from_dict(_get(d, "train", {}) or {}))
+            train=train)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

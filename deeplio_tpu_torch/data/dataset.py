@@ -1,7 +1,8 @@
 """Window dataset and batch assembly (counterpart of
-``deeplio_tpu/data/dataset.py``: ``WindowDataset`` on the raw-points path,
-single process, assembling each batch in place with a thread pool, and
-``build_drives``/``build_dataset`` for synthetic drives).
+``deeplio_tpu/data/dataset.py``: ``WindowDataset`` on raw points or on
+cached projections, single process, assembling each batch in place with a
+thread pool, and ``build_drives``/``build_dataset`` for KITTI raw drives
+and synthetic drives).
 
 Each item is a window of ``sequence-size`` frames from one drive; the
 configured ``combinations`` define its P frame pairs. Per pair it carries
@@ -9,8 +10,9 @@ the IMU samples between the two frames, padded to ``max-imu-per-pair``
 with a mask, and the float64-derived relative pose ground truth (dx, dq).
 Projection does not happen here: the raw scans go to the device as
 channel planes, flattened to [B*S, N], and the training step projects
-them. The same drives give the same batches as the JAX package, bit for
-bit.
+them; with a projection cache (``data/proj_cache.py``) the items carry the
+cached f16 images [B, S, H, W, C] instead. The same drives give the same
+batches as the JAX package, bit for bit.
 """
 
 from __future__ import annotations
@@ -20,13 +22,14 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from deeplio_tpu_torch.config.schema import Config, ConfigError, DatasetConfig
+from deeplio_tpu_torch.config.schema import Config, DatasetConfig
 from deeplio_tpu_torch.data import np_spatial as nsp
-from deeplio_tpu_torch.data.drives import Drive, SyntheticDrive
+from deeplio_tpu_torch.data.drives import Drive, KittiRawDrive, SyntheticDrive
 
 # channel planes of the raw scans, flat [B*S, N]: the step projects per
 # frame
 PLANE_KEYS = ("points_x", "points_y", "points_z", "points_rem")
+FLAT_KEYS = PLANE_KEYS + ("points_valid",)
 
 # {key: (shape, numpy dtype)} of one batch, and a function that returns
 # arrays of that layout to assemble a batch into
@@ -38,13 +41,34 @@ def empty_batch(spec: BatchSpec) -> Dict[str, np.ndarray]:
     return {k: np.empty(shape, dtype) for k, (shape, dtype) in spec.items()}
 
 
+def collate(items: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    """Stack items (:meth:`WindowDataset.get`) into a batch, the plane
+    keys flattened to [B*S, N]."""
+    out = {}
+    for k in items[0]:
+        v = np.stack([it[k] for it in items])
+        if k in FLAT_KEYS:
+            v = v.reshape((-1,) + v.shape[2:])
+        out[k] = v
+    return out
+
+
 class WindowDataset:
     """Windows of ``sequence-size`` frames, every ``window-stride`` frames
-    of each drive."""
+    of each drive.
 
-    def __init__(self, ds_cfg: DatasetConfig, drives: Sequence[Drive]):
+    ``image_cache`` (a ``ProjectionCache``): the items carry the cached f16
+    ``images`` [S, H, W, C] instead of the raw points, and the training
+    step skips its projection. ``with_points=False``: neither (no model of
+    the port reads such items yet).
+    """
+
+    def __init__(self, ds_cfg: DatasetConfig, drives: Sequence[Drive],
+                 with_points: bool = True, image_cache=None):
         self.cfg = ds_cfg
         self.drives = list(drives)
+        self.with_points = with_points and image_cache is None
+        self.image_cache = image_cache
         S = ds_cfg.sequence_size
         stride = max(ds_cfg.window_stride, 1)
         self.index: List[Tuple[int, int]] = []
@@ -84,26 +108,42 @@ class WindowDataset:
         di, s = self.index[idx]
         d = self.drives[di]
         S = self.cfg.sequence_size
-        for k in range(S):
-            planes, vld = d.points_planes(s + k)
-            r = row * S + k
-            for c, key in enumerate(PLANE_KEYS):
-                out[key][r] = planes[c]
-            out["points_valid"][r] = vld
+        if self.with_points:
+            for k in range(S):
+                planes, vld = d.points_planes(s + k)
+                r = row * S + k
+                for c, key in enumerate(PLANE_KEYS):
+                    out[key][r] = planes[c]
+                out["points_valid"][r] = vld
+        elif self.image_cache is not None:
+            out["images"][row] = self.image_cache.images(d, s, s + S)
         (out["imu"][row], out["imu_mask"][row], out["x_gt"][row],
          out["q_gt"][row], out["valid"][row]) = self._pair_meta(d, s)
         out["meta"][row] = (di, s)
+
+    def get(self, idx: int) -> Dict[str, np.ndarray]:
+        """Window ``idx`` as one item: planes [S, N], ``images`` [S, H, W,
+        C], the pair meta [P, ...] and ``meta`` (drive, start)."""
+        out = empty_batch(self.batch_spec(1))
+        self.get_into(idx, 0, out)
+        return {k: v if k in FLAT_KEYS else v[0] for k, v in out.items()}
 
     def batch_spec(self, rows: int) -> BatchSpec:
         """The layout of a batch of ``rows`` windows."""
         S = self.cfg.sequence_size
         P = self.cfg.num_pairs
         T = self.cfg.max_imu_per_pair
-        N = self.cfg.projection.max_points
-        spec: BatchSpec = {key: ((rows * S, N), np.float32)
-                           for key in PLANE_KEYS}
-        spec.update(points_valid=((rows * S, N), np.bool_),
-                    imu=((rows, P, T, 6), np.float32),
+        spec: BatchSpec = {}
+        if self.with_points:
+            N = self.cfg.projection.max_points
+            spec.update({key: ((rows * S, N), np.float32)
+                         for key in PLANE_KEYS})
+            spec["points_valid"] = ((rows * S, N), np.bool_)
+        elif self.image_cache is not None:
+            p = self.cfg.projection
+            spec["images"] = ((rows, S, p.height, p.width,
+                               self.cfg.num_image_channels), np.float16)
+        spec.update(imu=((rows, P, T, 6), np.float32),
                     imu_mask=((rows, P, T), np.float32),
                     x_gt=((rows, P, 3), np.float32),
                     q_gt=((rows, P, 4), np.float32),
@@ -150,27 +190,39 @@ class WindowDataset:
 
 
 def build_drives(cfg: Config, split: str) -> List[Drive]:
-    """The drives of a split (``train``, ``validation`` or ``test``): with
-    ``datasets.synthetic``, deterministic synthetic drives with the JAX
-    package's seeds and lengths (train seeds 0.., validation 100.., test
-    200..)."""
+    """The drives of a split (``train``, ``validation`` or ``test``): the
+    KITTI raw drives the split lists under ``root-path``, each a number or
+    ``{drive, start, end}``; with ``datasets.synthetic``, deterministic
+    synthetic drives with the JAX package's seeds and lengths (train seeds
+    0.., validation 100.., test 200..)."""
     ds = cfg.datasets
-    if not ds.synthetic:
-        raise ConfigError(
-            "KITTI drives are not supported by the PyTorch port yet; the "
-            "KITTI data slice (ROADMAP.md Queue 1 item 3) adds them: set "
-            "datasets.synthetic")
-    seeds = {"train": range(ds.synthetic_train_drives),
-             "validation": range(100, 100 + ds.synthetic_eval_drives),
-             "test": range(200, 200 + ds.synthetic_eval_drives)}[split]
-    n_frames = ds.synthetic_frames
-    if split != "train" and ds.synthetic_eval_frames:
-        n_frames = ds.synthetic_eval_frames
-    return [SyntheticDrive(n_frames=n_frames,
-                           max_points=ds.projection.max_points, seed=sd)
-            for sd in seeds]
+    n_pts = ds.projection.max_points
+    if ds.synthetic:
+        seeds = {"train": range(ds.synthetic_train_drives),
+                 "validation": range(100, 100 + ds.synthetic_eval_drives),
+                 "test": range(200, 200 + ds.synthetic_eval_drives)}[split]
+        n_frames = ds.synthetic_frames
+        if split != "train" and ds.synthetic_eval_frames:
+            n_frames = ds.synthetic_eval_frames
+        return [SyntheticDrive(n_frames=n_frames, max_points=n_pts, seed=sd)
+                for sd in seeds]
+    split_map = {"train": ds.train, "validation": ds.validation,
+                 "test": ds.test}
+    drives: List[Drive] = []
+    for date, ids in split_map[split].items():
+        for drive in ids:
+            if isinstance(drive, dict):
+                drives.append(KittiRawDrive(
+                    ds.root_path, date, int(drive["drive"]),
+                    max_points=n_pts, start=int(drive.get("start", 0)),
+                    end=int(drive.get("end", -1))))
+            else:
+                drives.append(KittiRawDrive(ds.root_path, date, int(drive),
+                                            max_points=n_pts))
+    return drives
 
 
-def build_dataset(cfg: Config, split: str) -> WindowDataset:
-    return WindowDataset(cfg.datasets, build_drives(cfg, split))
-
+def build_dataset(cfg: Config, split: str,
+                  image_cache=None) -> WindowDataset:
+    return WindowDataset(cfg.datasets, build_drives(cfg, split),
+                         image_cache=image_cache)

@@ -1,6 +1,6 @@
 """Drive abstractions (counterpart of ``deeplio_tpu/data/drives.py``: the
-``Drive`` interface and ``SyntheticDrive``; ``KittiRawDrive`` comes with
-the KITTI data slice).
+``Drive`` interface, ``KittiRawDrive`` for KITTI raw drives on disk and
+``SyntheticDrive``).
 
 Scans are padded/truncated to a static ``max_points`` with a validity
 mask; poses are float64 on the host, normalised to a drive-local origin.
@@ -9,8 +9,10 @@ Projection does not happen here: it runs on the device.
 
 from __future__ import annotations
 
+import datetime as dt
+import os
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -46,6 +48,141 @@ class Drive:
     def imu_between(self, t0: float, t1: float) -> np.ndarray:
         """IMU samples [K, 6] = (ax,ay,az,wx,wy,wz) with t0 < t <= t1."""
         raise NotImplementedError
+
+
+class KittiRawDrive(Drive):
+    """One KITTI raw synced drive, ``<root>/<date>/<date>_drive_%04d_sync``,
+    frames ``start`` to ``end`` (inclusive; ``-1``: to the last):
+
+    - ``velodyne_points/data/%010d.bin``: float32 [n, 4] (x, y, z,
+      remission) in the sensor's ring order;
+    - ``velodyne_points/timestamps.txt`` and ``oxts/timestamps.txt``;
+    - ``oxts/data/%010d.txt``: one 30-field GPS/IMU record a file.
+
+    Scans are read from disk on every access. The OXTS records are parsed
+    on the first pose or IMU access, once. Same outputs as the JAX
+    package's ``KittiRawDrive`` on the same tree, bit for bit.
+    """
+
+    # 0-based fields of an OXTS record
+    _LAT, _LON, _ALT, _ROLL, _PITCH, _YAW = 0, 1, 2, 3, 4, 5
+    _AX, _AY, _AZ = 11, 12, 13     # body-frame acceleration
+    _WX, _WY, _WZ = 17, 18, 19     # body-frame angular rates
+
+    def __init__(self, root: str, date: str, drive: int,
+                 max_points: int = 131072, start: int = 0, end: int = -1,
+                 slot_grid=None):
+        if slot_grid is not None:
+            raise ValueError(
+                "slot-binned KITTI scans are not supported by the PyTorch "
+                "port yet; the model-variants slice (ROADMAP.md Queue 1 "
+                "item 5) adds them")
+        self.root = root
+        self.date = date
+        self.drive = drive
+        self.max_points = max_points
+        base = os.path.join(root, date, f"{date}_drive_{drive:04d}_sync")
+        self.velo_dir = os.path.join(base, "velodyne_points", "data")
+        self.oxts_dir = os.path.join(base, "oxts", "data")
+        self.name = f"{date}_drive_{drive:04d}"
+        velo_times = self._read_timestamps(
+            os.path.join(base, "velodyne_points", "timestamps.txt"))
+        oxts_times = self._read_timestamps(
+            os.path.join(base, "oxts", "timestamps.txt"))
+        n = len(velo_times)
+        self.start, self.end = start, n if end < 0 else min(end + 1, n)
+        # one clock for frames and records
+        t0 = min(velo_times[0], oxts_times[0]) if n else 0.0
+        self.velo_times = velo_times - t0
+        self.oxts_times = oxts_times - t0
+        self._oxts: Optional[np.ndarray] = None
+        self._poses: Optional[np.ndarray] = None
+
+    @staticmethod
+    def _read_timestamps(path: str) -> np.ndarray:
+        """``2011-10-03 12:55:34.349659964`` lines -> float64 seconds."""
+        out = []
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                date_part, time_part = line.split(" ")
+                frac = 0.0
+                if "." in time_part:
+                    time_part, frac_s = time_part.split(".")
+                    frac = float("0." + frac_s)
+                t = dt.datetime.strptime(f"{date_part} {time_part}",
+                                         "%Y-%m-%d %H:%M:%S")
+                out.append(t.timestamp() + frac)
+        return np.asarray(out, np.float64)
+
+    @property
+    def oxts(self) -> np.ndarray:
+        """Every OXTS record of the drive, [m, 30] float64."""
+        if self._oxts is None:
+            recs = []
+            for i in range(len(self.oxts_times)):
+                with open(os.path.join(self.oxts_dir, f"{i:010d}.txt")) as f:
+                    recs.append(np.array(f.read().split(), np.float64))
+            self._oxts = np.stack(recs) if recs else np.zeros((0, 30))
+        return self._oxts
+
+    @property
+    def _poses_oxts(self) -> np.ndarray:
+        """Poses at the records' times, mercator, drive-local origin."""
+        if self._poses is None:
+            ox = self.oxts
+            scale = np.cos(np.deg2rad(ox[0, self._LAT])) if len(ox) else 1.0
+            Ts = [nsp.oxts_to_pose(r[self._LAT], r[self._LON], r[self._ALT],
+                                   r[self._ROLL], r[self._PITCH],
+                                   r[self._YAW], scale) for r in ox]
+            Ts = np.stack(Ts) if Ts else np.zeros((0, 4, 4))
+            if len(Ts):
+                Ts = np.einsum("ij,njk->nik", nsp.se3_inv(Ts[0]), Ts)
+            self._poses = Ts
+        return self._poses
+
+    def __len__(self) -> int:
+        return self.end - self.start
+
+    def points(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
+        raw = np.fromfile(
+            os.path.join(self.velo_dir, f"{self.start + i:010d}.bin"),
+            dtype=np.float32).reshape(-1, 4)
+        n = min(raw.shape[0], self.max_points)
+        pts = np.zeros((self.max_points, 4), np.float32)
+        pts[:n] = raw[:n]
+        valid = np.zeros(self.max_points, bool)
+        valid[:n] = True
+        return pts, valid
+
+    def labels(self, i: int, labels_path: str):
+        raise ValueError(
+            "per-point KITTI labels are not supported by the PyTorch port "
+            "yet; the CLI and evaluation slice (ROADMAP.md Queue 1 item 4) "
+            "adds them with PointSeg pretraining")
+
+    def frame_time(self, i: int) -> float:
+        return float(self.velo_times[self.start + i])
+
+    def pose(self, i: int) -> np.ndarray:
+        """The pose of the OXTS record nearest frame i's time."""
+        t = self.velo_times[self.start + i]
+        j = int(np.clip(np.searchsorted(self.oxts_times, t), 0,
+                        len(self.oxts_times) - 1))
+        if j > 0 and (abs(self.oxts_times[j - 1] - t)
+                      < abs(self.oxts_times[j] - t)):
+            j -= 1
+        return self._poses_oxts[j]
+
+    def imu_between(self, t0: float, t1: float) -> np.ndarray:
+        sel = (self.oxts_times > t0) & (self.oxts_times <= t1)
+        r = self.oxts[sel]
+        if r.size == 0:
+            return np.zeros((0, 6), np.float32)
+        return r[:, [self._AX, self._AY, self._AZ, self._WX, self._WY,
+                     self._WZ]].astype(np.float32)
 
 
 class SyntheticDrive(Drive):

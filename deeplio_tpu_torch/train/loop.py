@@ -1,7 +1,10 @@
 """Training loop (counterpart of ``deeplio_tpu/train/loop.py``; reference:
 the Trainer/Worker classes around ``train.py``): dataset -> prefetcher ->
 train step, with metrics, validation, checkpoints, the best model and
-resume, on one device.
+resume, on one device. The batches come from the host (scans read or
+synthesised per batch, or cached projections with ``cache-projections``)
+or, with ``device-dataset``, are gathered from a bank of every scan staged
+on the device once.
 
 Observability: ``metrics.jsonl`` in the work directory is the source of
 truth, one record per log step and per validation with the reference's
@@ -21,8 +24,10 @@ from typing import Dict, List, Optional
 import torch
 
 from deeplio_tpu_torch.config.schema import Config
-from deeplio_tpu_torch.data.dataset import build_dataset
+from deeplio_tpu_torch.data import device_bank as dbank
+from deeplio_tpu_torch.data.dataset import build_dataset, build_drives
 from deeplio_tpu_torch.data.pipeline import DevicePrefetcher, PinnedRing
+from deeplio_tpu_torch.data.proj_cache import ProjectionCache
 from deeplio_tpu_torch.device import DeviceLike, resolve_device
 from deeplio_tpu_torch.models.zoo import build_model
 from deeplio_tpu_torch.train.checkpoint import (
@@ -74,12 +79,16 @@ def _host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
 
 
 class Trainer:
-    """Train a config's model on its synthetic drives.
+    """Train a config's model on its KITTI or synthetic drives.
 
     ``device`` is CUDA unless ``"cpu"`` is passed (no fallback: without a
     GPU the default raises). ``resume`` restores the latest checkpoint and
     ``trainer_meta.json`` (best validation loss, epochs done, plateau
-    state) from ``workdir``; ``eval_only`` builds no training split.
+    state) from ``workdir``; ``eval_only`` builds no training split. A
+    validation split whose drives are missing on disk leaves ``val_ds``
+    None. ``cache-projections`` projects the train and validation drives
+    into ``<workdir>/proj_cache`` before the first epoch;
+    ``device-dataset`` stages both splits' scans on the device.
     """
 
     def __init__(self, cfg: Config, workdir: str = "runs/default",
@@ -91,8 +100,24 @@ class Trainer:
         self.log = get_app_logger()
         bs = cfg.train.batch_size
 
-        self.train_ds = None if eval_only else build_dataset(cfg, "train")
-        self.val_ds = build_dataset(cfg, "validation")
+        self.image_cache = None
+        if cfg.train.cache_projections and not eval_only:
+            self.image_cache = ProjectionCache(
+                os.path.join(workdir, "proj_cache"), cfg.datasets,
+                self.device)
+            drives = build_drives(cfg, "train")
+            try:
+                drives += build_drives(cfg, "validation")
+            except (KeyError, FileNotFoundError):
+                pass
+            self.image_cache.ensure(drives)
+        self.train_ds = None if eval_only else build_dataset(
+            cfg, "train", image_cache=self.image_cache)
+        try:
+            self.val_ds = build_dataset(cfg, "validation",
+                                        image_cache=self.image_cache)
+        except (KeyError, FileNotFoundError):
+            self.val_ds = None
         if not eval_only and len(self.train_ds) == 0:
             raise ValueError("empty training dataset")
         steps_per_epoch = max(self.train_ds.steps_per_epoch(bs), 1) \
@@ -120,6 +145,10 @@ class Trainer:
                 f"steps per epoch (batch-size {bs}, {len(self.train_ds)} "
                 f"windows): every epoch would drop all its batches")
         self.train_step, self.eval_step = build_train_step(cfg)
+        self._train_bank = self._val_bank = None
+        self.bank_ms: Dict[str, float] = {}
+        if cfg.train.device_dataset and not eval_only:
+            self._stage_banks()
         # one set of page-locked staging buffers for every epoch and
         # validation (depth + 1 batches)
         self._ring = PinnedRing(cfg.train.prefetch + 1) \
@@ -154,6 +183,43 @@ class Trainer:
     @property
     def step(self) -> int:
         return self.state.step
+
+    def _stage_banks(self) -> None:
+        """Build the host banks of both splits and copy them to the device
+        once (``bank_ms``: host build and copy ms, and the MB)."""
+        if not self.train_ds.with_points:
+            raise ValueError("device-dataset needs a dataset of raw points "
+                             "(no cache-projections)")
+        splits = [self.train_ds] + ([self.val_ds] if self.val_ds is not None
+                                    and len(self.val_ds) else [])
+        nbytes = sum(dbank.bank_nbytes(ds) for ds in splits)
+        if self.device.type == "cuda":
+            free = torch.cuda.mem_get_info(self.device)[0]
+            if nbytes > free:
+                raise ValueError(
+                    f"device-dataset: the banks take {nbytes / 1e6:.0f} MB, "
+                    f"more than the device's {free / 1e6:.0f} MB free")
+        self.log.info("staging the device-resident dataset (%.0f MB)",
+                      nbytes / 1e6)
+        t0 = time.perf_counter()
+        hosts = [dbank.build_host_bank(ds) for ds in splits]
+        t1 = time.perf_counter()
+        banks = [dbank.put_bank(h, self.device) for h in hosts]
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t2 = time.perf_counter()
+        self._train_bank = banks[0]
+        self._val_bank = banks[1] if len(banks) > 1 else None
+        self.bank_ms = {"mb": nbytes / 1e6, "build": (t1 - t0) * 1e3,
+                        "put": (t2 - t1) * 1e3}
+
+    def _bank_epoch(self, ds, bank, shuffle: bool, seed: int = 0):
+        """One epoch's batches gathered from ``bank`` on the device, in
+        ``iter_batches``'s order."""
+        for w in dbank.epoch_indices(len(ds), self.cfg.train.batch_size,
+                                     shuffle, seed):
+            yield dbank.gather_batch(bank, torch.from_numpy(w).to(
+                self.device))
 
     def _prefetch(self, ds, **kw) -> DevicePrefetcher:
         bs = self.cfg.train.batch_size
@@ -201,8 +267,12 @@ class Trainer:
         # is used once
         first_epoch = self._epochs_done
         for epoch in range(first_epoch, first_epoch + epochs):
-            it = self._prefetch(self.train_ds, shuffle=True,
-                                seed=cfg.train.seed + epoch)
+            seed = cfg.train.seed + epoch
+            if self._train_bank is not None:
+                it = self._bank_epoch(self.train_ds, self._train_bank, True,
+                                      seed)
+            else:
+                it = self._prefetch(self.train_ds, shuffle=True, seed=seed)
             t_last = time.time()
             try:
                 group: List[Dict[str, torch.Tensor]] = []
@@ -223,8 +293,9 @@ class Trainer:
                     self._periodic_save()
             finally:
                 it.close()
-            self.data_timings.append(it.timings())
-            if (len(self.val_ds)
+            if isinstance(it, DevicePrefetcher):
+                self.data_timings.append(it.timings())
+            if (self.val_ds is not None and len(self.val_ds)
                     and (epoch + 1) % cfg.train.eval_every_epochs == 0):
                 self._after_validation(epoch, self.validate())
             self._epochs_done = epoch + 1
@@ -270,7 +341,10 @@ class Trainer:
         ({} when it holds less than one batch)."""
         sums: Dict[str, float] = {}
         n = 0
-        it = self._prefetch(self.val_ds, shuffle=False)
+        if self._val_bank is not None:
+            it = self._bank_epoch(self.val_ds, self._val_bank, False)
+        else:
+            it = self._prefetch(self.val_ds, shuffle=False)
         try:
             for batch in it:
                 _, _, m = self.eval_step(self.state, batch)

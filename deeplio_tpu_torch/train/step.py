@@ -9,6 +9,9 @@ Raw batch contract (``data/dataset.py`` output, on the device):
     imu [B, P, T, 6], imu_mask [B, P, T]
     x_gt [B, P, 3], q_gt [B, P, 4], valid [B, P]
 
+or, from a projection cache (``data/proj_cache.py``), ``images`` [B, S,
+H, W, C] float16 in place of the planes: the step then projects nothing.
+
 One training step, in order: yaw augmentation (when configured), one
 projection of all B*S frames (a single kernel launch), the P pair images
 per window, the forward pass in training mode (BatchNorm batch statistics
@@ -55,13 +58,18 @@ def batch_to_device(host: Dict[str, np.ndarray],
 
 
 def make_model_batch(cfg: Config, projector: Callable, raw: Batch) -> Batch:
-    """Raw planes and IMU -> the model's batch: ``images`` [B, P, H, W,
-    2C], the channel concat of frames i and j of each configured pair, and
-    the IMU windows."""
-    imgs, _ = projector((raw["points_x"], raw["points_y"], raw["points_z"],
-                         raw["points_rem"]), raw["points_valid"])
-    b = raw["x_gt"].shape[0]
-    imgs = imgs.reshape((b, -1) + tuple(imgs.shape[1:]))   # [B, S, H, W, C]
+    """Raw planes (or cached images) and IMU -> the model's batch:
+    ``images`` [B, P, H, W, 2C], the channel concat of frames i and j of
+    each configured pair, and the IMU windows."""
+    if "images" in raw:
+        # cached f16 images go straight to the compute dtype
+        imgs = raw["images"].to(DTYPES[cfg.model.compute_dtype])
+    else:
+        imgs, _ = projector((raw["points_x"], raw["points_y"],
+                             raw["points_z"], raw["points_rem"]),
+                            raw["points_valid"])
+        b = raw["x_gt"].shape[0]
+        imgs = imgs.reshape((b, -1) + tuple(imgs.shape[1:]))  # [B,S,H,W,C]
     combos = cfg.datasets.effective_combinations
     first = imgs[:, [i for i, _ in combos]]
     second = imgs[:, [j for _, j in combos]]

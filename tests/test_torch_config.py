@@ -11,6 +11,7 @@ import yaml
 pytest.importorskip("torch")
 
 from deeplio_tpu.config import load_config as jax_load  # noqa: E402
+from deeplio_tpu.config import load_config_dict as jax_load_dict  # noqa: E402
 from deeplio_tpu_torch.config import (  # noqa: E402
     ConfigError,
     load_config,
@@ -136,8 +137,8 @@ def test_training_blocks_match_jax_parse(kitti):
     (("datasets", "synthetic-world"), "corridor"),
     (("param-dtype",), "bfloat16"),
     (("train", "data-parallel"), 2),
-    (("train", "cache-projections"), True),
-    (("train", "device-dataset"), True),
+    (("datasets", "backend"), "sort-sentinel"),
+    (("datasets", "kernel-aligned"), "trust"),
     (("train", "data-parallel"), 4),
     (("datasets", "slot-bin"), True),
 ])
@@ -199,13 +200,20 @@ def test_plateau_with_warmup_raises(kitti):
 
 
 def test_kitti_splits_raise_naming_item_3(kitti):
-    """Without ``synthetic`` the splits name KITTI drives, which the KITTI
-    data slice adds: building them (and so a Trainer) raises."""
+    """Without ``synthetic`` the splits name KITTI drives under
+    ``root-path``, which the KITTI data slice (Queue 1 item 3) reads: with
+    no devkit tree there, building a split raises FileNotFoundError, as in
+    the JAX package, and so does a Trainer."""
+    from deeplio_tpu.data.dataset import build_drives as jax_build_drives
     from deeplio_tpu_torch.data.dataset import build_drives
     from deeplio_tpu_torch.train import Trainer
-    cfg = load_config_dict(copy.deepcopy(kitti))
+    d = copy.deepcopy(kitti)
+    d["datasets"]["kitti"]["root-path"] = str(ROOT / "no-kitti-tree-here")
+    cfg, ref = load_config_dict(d), jax_load_dict(d)
     for split in ("train", "validation", "test"):
-        with pytest.raises(ConfigError, match="Queue 1 item 3"):
+        with pytest.raises(FileNotFoundError):
+            jax_build_drives(ref, split)
+        with pytest.raises(FileNotFoundError, match="no-kitti-tree-here"):
             build_drives(cfg, split)
-    with pytest.raises(ConfigError, match="Queue 1 item 3"):
+    with pytest.raises(FileNotFoundError):
         Trainer(cfg, device="cpu")

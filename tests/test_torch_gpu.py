@@ -1,6 +1,7 @@
 """The CUDA kernels (ring and point-scatter projection) against their plain
-PyTorch versions, and the training loop's prefetcher and resume, on the
-card.
+PyTorch versions, the training loop's prefetcher and resume, and the KITTI
+data path (the device bank's gather, the projection cache's prefill, fit
+on a devkit tree), on the card.
 
 Every test here needs a CUDA device and skips without one (the kernel has
 no CPU mode). This file imports neither JAX nor the JAX package, so it runs
@@ -441,3 +442,106 @@ def test_fit_then_resume_on_the_card_equals_an_uninterrupted_run(
     with open(tmp_path / "b" / "metrics.jsonl") as f:
         b = [(r["step"], r["split"], r["loss"]) for r in map(json.loads, f)]
     assert a == b and all(np.isfinite(r[2]) for r in a)
+
+
+# ------------------------------------------------------------- KITTI data
+
+def _kitti_cfg(root, **train):
+    """The loop configuration above on a KITTI devkit tree (drives 27 and
+    42 of 11 ring-ordered frames, 16 rings), ``backend: pallas-ring``."""
+    from deeplio_tpu_torch.config import load_config_dict
+    with open(KITTI_TPU) as f:
+        d = yaml.safe_load(f)
+    d["datasets"]["kitti"] = {
+        "root-path": str(root), "train": {"2011_10_03": [27, {
+            "drive": 42, "start": 0, "end": 10}]},
+        "validation": {"2011_10_03": [42]}}
+    d["datasets"].update({"image-height": 16, "image-width": 128,
+                          "max-points": 2048, "sequence-size": 3,
+                          "window-stride": 2})
+    d["train"].update({"batch-size": 2, "log-every": 1,
+                       "checkpoint-every-steps": 0, **train})
+    return load_config_dict(d)
+
+
+@pytest.fixture(scope="module")
+def kitti_root(tmp_path_factory):
+    from deeplio_tpu_torch.bench.kitti_tree import make_tree
+    root = tmp_path_factory.mktemp("kitti_gpu")
+    make_tree(str(root), [27, 42], n_frames=11, max_points=2048, rings=16,
+              world_points=6000)
+    return root
+
+
+def test_bank_gather_on_the_card_equals_the_host_batch(cuda, kitti_root):
+    from deeplio_tpu_torch.data import device_bank as dbank
+    from deeplio_tpu_torch.data.dataset import build_dataset
+    from deeplio_tpu_torch.train.step import batch_to_device
+    ds = build_dataset(_kitti_cfg(kitti_root), "train")
+    bank = dbank.put_bank(dbank.build_host_bank(ds), cuda)
+    idx = dbank.epoch_indices(len(ds), 3, shuffle=True, seed=4)
+    hosts = list(ds.iter_batches(3, shuffle=True, seed=4))
+    assert len(idx) == len(hosts) == 3
+    for w, host in zip(idx, hosts):
+        got = dbank.gather_batch(bank, torch.from_numpy(w).to(cuda))
+        want = batch_to_device(host, cuda)
+        assert set(got) == set(want) | {"meta"}
+        for k in want:
+            assert got[k].device.type == "cuda"
+            assert torch.equal(got[k], want[k]), k
+        assert np.array_equal(got["meta"].cpu().numpy(), host["meta"])
+
+
+def test_cache_prefill_launches_the_ring_kernel_once_per_chunk(
+        cuda, kitti_root, tmp_path):
+    """Two drives of 11 frames in chunks of 4: three launches each, and
+    every cached frame is the card's projector output cast to f16."""
+    from deeplio_tpu_torch.data.dataset import build_drives
+    from deeplio_tpu_torch.data.proj_cache import ProjectionCache
+    from deeplio_tpu_torch.ops.projection import make_projector
+    cfg = _kitti_cfg(kitti_root)
+    drives = build_drives(cfg, "train")
+    cache = ProjectionCache(str(tmp_path), cfg.datasets, cuda)
+    before = tring.ring_select.launches
+    cache.ensure(drives, batch=4)
+    torch.cuda.synchronize()
+    assert tring.ring_select.launches - before == 6
+    ds = cfg.datasets
+    proj = make_projector(ds.projection, ds.channels, ds.mean, ds.std)
+    for d in drives:
+        pts, vld = zip(*[d.points(i) for i in range(len(d))])
+        img, _ = proj(torch.from_numpy(np.stack(pts)).to(cuda),
+                      torch.from_numpy(np.stack(vld)).to(cuda))
+        want = img.to(torch.float16).cpu().numpy()
+        got = np.asarray(cache.images(d, 0, len(d)))
+        assert got.view(np.uint16).tobytes() == \
+            want.view(np.uint16).tobytes()
+
+
+def test_kitti_fit_on_the_card_launches_the_ring_kernel_per_batch(
+        cuda, kitti_root, tmp_path):
+    """Host-fed, then from a device bank: one ring launch per train step
+    and per validation batch (5 windows a drive at stride 2: 5 steps and 2
+    validation batches an epoch), finite losses."""
+    from deeplio_tpu_torch.train import Trainer
+    for bank in (False, True):
+        t = Trainer(_kitti_cfg(kitti_root, **{"device-dataset": bank}),
+                    workdir=str(tmp_path / str(bank)))
+        assert (t._train_bank is not None) == bank
+        before = tring.ring_select.launches
+        t.fit(epochs=1)
+        torch.cuda.synchronize()
+        assert tring.ring_select.launches - before == 5 + 2
+        with open(tmp_path / str(bank) / "metrics.jsonl") as f:
+            assert all(np.isfinite(json.loads(r)["loss"]) for r in f)
+        t.close()
+
+
+def test_device_dataset_refuses_a_bank_larger_than_free_memory(
+        cuda, kitti_root, tmp_path, monkeypatch):
+    from deeplio_tpu_torch.train import Trainer
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device=None: (10**6, 80 * 10**9))
+    with pytest.raises(ValueError, match=r"MB, more than the device's 1 MB"):
+        Trainer(_kitti_cfg(kitti_root, **{"device-dataset": True}),
+                workdir=str(tmp_path))

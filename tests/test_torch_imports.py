@@ -67,7 +67,9 @@ def test_port_has_its_modules():
                  "ops/augment.py", "losses/pose.py", "data/dataset.py",
                  "train/optim.py", "train/state.py", "train/step.py",
                  "train/loop.py", "train/checkpoint.py", "data/pipeline.py",
-                 "utils/meters.py", "utils/logger.py"):
+                 "utils/meters.py", "utils/logger.py",
+                 "data/proj_cache.py", "data/device_bank.py",
+                 "bench/kitti_tree.py"):
         assert want in mods, want
     for src in ("ring_project.cu", "proj_scatter.cu"):
         assert (ROOT / "deeplio_tpu_torch" / "csrc" / src).exists()

@@ -85,6 +85,24 @@ but for its ``root-path`` and splits, so ``backend: pallas-ring``:
     Prints ms/step in ``fit`` for A, B and C, the data waits and build
     times, the bank's size and staging time, the prefill's time and size.
 
+Slice 5, the command lines (evaluation, streaming, the serving export) on
+the same tree and configuration, with drive 42 as the test split:
+
+12. ``cli.train`` for 1 epoch (3 ring launches); ``cli.test`` (129
+    stride-1 windows of drive 42 in 9 batches of 16: 9 ring launches at
+    B = 144, finite scores with the JAX package's keys, the first eval
+    batch's selection bit-equal to the plain version on the same card
+    tensors; eval ms per batch and pairs/s), again with ``--use-best``;
+    ``cli.stream`` (one launch per frame, frames/s and the real-time
+    factor); ``cli.export`` with chunks of 4, then the artifact fed the
+    drive chunk by chunk (the last padded) against the eager step on the
+    same weights: bit-equal poses, one launch per tick, the export's
+    seconds, the artifact's MB and ms per frame each way.
+
+After phase 4, the cost of the operator binding: a stream with the ring
+kernel behind ``torch.ops.deeplio.ring_select`` and with its CUDA
+implementation called directly, in turns (frames/s each way).
+
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails. The last line is the JSON object
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -187,6 +205,12 @@ FIT_LABELS, RESUME_LABELS = [3, 4, 6], [6, 8, 9]
 KITTI_DATE, KITTI_DRIVES, KITTI_FRAMES = "2011_10_03", (27, 42), 137
 KITTI_TRAIN = {KITTI_DATE: [27, {"drive": 42, "start": 0, "end": 136}]}
 KITTI_VAL = {KITTI_DATE: [27]}
+# phase 12: the CLIs on the same tree, drive 42 (137 frames) as the test
+# split: 129 stride-1 windows of 9, 9 eval batches of 16 windows (the last
+# padded), each one ring launch at B = 144; the artifact's chunk (a chunk
+# unrolls the model that many times in the exported program)
+KITTI_TEST = {KITTI_DATE: [42]}
+EXPORT_CHUNK = 4
 KITTI_EPOCHS, PREFILL_CHUNK, STREAM_FRAMES = 2, 16, 16
 
 
@@ -217,6 +241,23 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 5) -> float:
         pairs.append((s, e))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+HOST_CALLS = 200
+
+
+def host_call_us(fn, calls: int = HOST_CALLS, warmup: int = 5) -> float:
+    """Host microseconds a call of ``fn`` takes to issue: ``calls`` calls
+    back to back on the host clock, then one synchronize, over ``calls``
+    (a device that keeps up adds only the last call's tail)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
 
 
 def graph_ms(fn, inner: int = 10, reps: int = REPS) -> float:
@@ -321,6 +362,53 @@ def phase_kernel(dev, rng):
         print(f"kernel vs plain [{name}]: B={pts.shape[0]} N={pts.shape[1]} "
               f"landed={int(mk.sum())} bit-identical")
     return worst
+
+
+def phase_dispatch(dev, gpu, frames: int = 24):
+    """What binding the ring kernel as a ``torch.library`` operator costs
+    the host-bound stream: the same drive streamed with the operator
+    (``torch.ops.deeplio.ring_select``, the dispatcher in front of the
+    kernel) and with its CUDA implementation called as a plain function
+    (the binding before the operator), in turns; and one call's host issue
+    time at B = 1 each way (``host_call_us``)."""
+    from deeplio_tpu_torch.ops import projection_ring as pring
+    cfg = load_config(CONFIG)
+    drive = SyntheticDrive(n_frames=frames, max_points=N, seed=2,
+                           world_points=300_000, rings=H)
+    for k in range(frames):
+        drive.points(k)
+    so = StreamingOdometry(cfg, build_model(cfg, device=dev, seed=0),
+                           chunk=16, device=dev)
+
+    def direct(*args):
+        return pring._ring_select_cuda(*args)
+
+    op = pring.ring_select
+    so.run(drive)                                    # warm-up
+    fps = {"operator": [], "plain function": []}
+    for name in ("operator", "plain function", "plain function",
+                 "operator"):
+        pring.ring_select = op if name == "operator" else direct
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            so.run(drive)
+            fps[name].append(frames / (time.perf_counter() - t0))
+        finally:
+            pring.ring_select = op
+    rng = np.random.default_rng(5)
+    args = ring_prologue(*planes(torch.from_numpy(synthetic_ring_batch(
+        rng, 1, N)).to(dev)), torch.ones(1, N, dtype=torch.bool,
+                                         device=dev), H, W, FU, FD)
+    host_us = {name: host_call_us(lambda f=f: f(*args, H * W))
+               for name, f in (("operator", op), ("plain function", direct))}
+    print(f"dispatch: {frames} frames streamed at "
+          + "; ".join(f"{k} {' / '.join(f'{v:.1f}' for v in fps[k])} "
+                      f"frames/s" for k in fps)
+          + " (in turns: operator, function, function, operator); host "
+          f"time to issue one B = 1 call ({HOST_CALLS} calls back to back, "
+          f"then one synchronize): operator {host_us['operator']:.1f} us, "
+          f"plain function {host_us['plain function']:.1f} us [{gpu}]")
 
 
 def phase_timings(dev, rng, gpu):
@@ -1023,24 +1111,29 @@ def phase_fit(dev, gpu, workdir: pathlib.Path, cfg=None):
 
 # ------------------------------------------------------------- slice 4
 
-def kitti_config(root, over=None, **train):
-    """``configs/deeplio_kitti_tpu.yaml`` as shipped, on the devkit tree at
-    ``root`` with the phase's splits, logging every step, prefetch 2 and a
-    checkpoint interval longer than the run; ``train`` adds ``train``
-    keys, ``over`` replaces ``datasets`` keys and ``compute_dtype`` (the
-    CPU rehearsal)."""
+def kitti_dict(root, over=None, **train):
+    """``configs/deeplio_kitti_tpu.yaml`` as shipped, as a dict, on the
+    devkit tree at ``root`` with the phase's splits (and phase 12's test
+    split), logging every step, prefetch 2 and a checkpoint interval
+    longer than the run; ``train`` adds ``train`` keys, ``over`` replaces
+    ``datasets`` keys and ``compute_dtype`` (the CPU rehearsal)."""
     with open(CONFIG) as f:
         d = yaml.safe_load(f)
     over = dict(over or {})
     if "compute_dtype" in over:
         d["compute-dtype"] = over.pop("compute_dtype")
     d["datasets"]["kitti"] = {"root-path": str(root), "train": KITTI_TRAIN,
-                              "validation": KITTI_VAL}
+                              "validation": KITTI_VAL, "test": KITTI_TEST}
     d["datasets"].update({k.replace("_", "-"): v for k, v in over.items()})
     d["train"].update({"log-every": 1, "prefetch": 2,
                        "checkpoint-every-steps": 1000})
     d["train"].update({k.replace("_", "-"): v for k, v in train.items()})
-    return load_config_dict(d)
+    return d
+
+
+def kitti_config(root, over=None, **train):
+    """:func:`kitti_dict`, parsed."""
+    return load_config_dict(kitti_dict(root, over, **train))
 
 
 def write_kitti_tree(root, gpu, frames: int = KITTI_FRAMES) -> None:
@@ -1273,38 +1366,287 @@ def phase_kitti_stream(dev, gpu, root, cfg):
     return launches
 
 
-def phase_kitti(dev, gpu, over=None, frames: int = KITTI_FRAMES):
-    """Phase 11: a KITTI devkit tree in a temporary directory, runs A, B
-    and C, the ring kernel at B = 144 and 16, a profiled train step of run
-    A and a stream from disk. Returns (ring launches of the phase's paths,
-    the B = 144 and B = 16 timings, ms/step of the runs)."""
-    import shutil
-    import tempfile
-    root = pathlib.Path(tempfile.mkdtemp(prefix="kitti_smoke_"))
-    try:
-        write_kitti_tree(root, gpu, frames)
-        launches, ms, host, trainer = phase_kitti_runs(dev, gpu, root, over)
-        times = phase_ring_training(dev, gpu, host)
-        raw = batch_to_device(host, dev)
-        trainer.state, _ = trainer.train_step(trainer.state, raw)  # warm-up
-        share = phase_train_profile(trainer.state, trainer.train_step, raw,
-                                    gpu, ms["A"], steps=1,
-                                    kernel=("ring_project", RING_KERNELS))
-        if share is not None:
-            print(f"kitti: the ring kernel is {share:.4f} of a run-A train "
-                  f"step's device time (the scatter kernel's share in "
-                  f"slice 2 was 0.0044) [{gpu}]")
-        cfg = trainer.cfg
-        trainer.close()
-        del trainer, raw
-        torch.cuda.empty_cache()
-        launches["stream"] = phase_kitti_stream(dev, gpu, root, cfg)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+def phase_kitti(dev, gpu, root, over=None, frames: int = KITTI_FRAMES):
+    """Phase 11: a KITTI devkit tree under ``root``, runs A, B and C, the
+    ring kernel at B = 144 and 16, a profiled train step of run A and a
+    stream from disk. Returns (ring launches of the phase's paths, the B =
+    144 and B = 16 timings, ms/step of the runs)."""
+    write_kitti_tree(root, gpu, frames)
+    launches, ms, host, trainer = phase_kitti_runs(dev, gpu, root, over)
+    times = phase_ring_training(dev, gpu, host)
+    raw = batch_to_device(host, dev)
+    trainer.state, _ = trainer.train_step(trainer.state, raw)  # warm-up
+    share = phase_train_profile(trainer.state, trainer.train_step, raw,
+                                gpu, ms["A"], steps=1,
+                                kernel=("ring_project", RING_KERNELS))
+    if share is not None:
+        print(f"kitti: the ring kernel is {share:.4f} of a run-A train "
+              f"step's device time (the scatter kernel's share in "
+              f"slice 2 was 0.0044) [{gpu}]")
+    cfg = trainer.cfg
+    trainer.close()
+    del trainer, raw
+    torch.cuda.empty_cache()
+    launches["stream"] = phase_kitti_stream(dev, gpu, root, cfg)
     print(f"kitti rate: run A {ms['A']:.2f}, run B {ms['B']:.2f}, run C "
           f"{ms['C']:.2f} ms/step in fit; ring launches "
           f"{', '.join(f'{k} {v}' for k, v in launches.items())} [{gpu}]")
     return sum(launches.values()), times, ms
+
+
+# ------------------------------------------------------------- slice 5
+
+EVAL_KEYS = ["ate_m", "rpe_trans_m", "rpe_rot_rad", "t_rel_pct",
+             "r_rel_deg_per_100m", "n_segments"]
+
+
+class FirstCall:
+    """A selection that passes every call through to ``op`` and keeps the
+    first call's arguments and outputs (copies), to hold them against the
+    plain version afterwards."""
+
+    def __init__(self, op):
+        self.op, self.first = op, None
+
+    def __call__(self, *args):
+        out = self.op(*args)
+        if self.first is None:
+            self.first = ([a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args], [o.clone() for o in out])
+        return out
+
+
+def _timed(fn, seconds: list):
+    """``fn``, appending each call's host seconds to ``seconds``."""
+    def wrapped(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+    return wrapped
+
+
+def _zero_counts() -> None:
+    torch.cuda.synchronize()
+    ring_select.launches = scatter_select.launches = 0
+
+
+def phase_cli_eval(gpu, common, cfg, label: str, extra=()):
+    """``cli.test.main``: 9 ring launches at B = 144 on the test drive,
+    finite scores with the JAX package's keys, the first eval batch's
+    selection bit-equal to the plain version on the same card tensors.
+    The drive's one-time OXTS parse is made as soon as ``cli.test`` has
+    built the drive, and timed apart; ``predict_drive`` (the eval
+    batches) is timed apart from the rest of ``evaluate_drive`` (ground
+    truth, metrics, pose files), with its prefetcher's timings. Returns
+    the ring launches."""
+    from deeplio_tpu_torch.cli import test as test_cli
+    from deeplio_tpu_torch.data.dataset import build_drives
+    from deeplio_tpu_torch.eval import runner
+    from deeplio_tpu_torch.ops import projection_ring as pring
+    ds = cfg.datasets
+    n = len(build_drives(cfg, "test")[0])
+    windows = n - ds.sequence_size + 1
+    bs = cfg.train.batch_size
+    batches = -(-windows // bs)
+    spy = FirstCall(pring.ring_select)
+    parse_s, predict_s, evaluate_s, prefetchers = [], [], [], []
+    build, evaluate = test_cli.build_drives, test_cli.evaluate_drive
+    predict, prefetcher = runner.predict_drive, runner.DevicePrefetcher
+
+    def parsed_drives(*args):
+        drives = build(*args)
+        t0 = time.perf_counter()
+        for d in drives:
+            d.pose(0)             # the drive's OXTS records and poses
+        parse_s.append(time.perf_counter() - t0)
+        return drives
+
+    class Recorded(prefetcher):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            prefetchers.append(self)
+
+    pring.ring_select = spy
+    test_cli.build_drives = parsed_drives
+    test_cli.evaluate_drive = _timed(evaluate, evaluate_s)
+    runner.predict_drive = _timed(predict, predict_s)
+    runner.DevicePrefetcher = Recorded
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        scores = test_cli.main(list(common) + list(extra))
+        wall = time.perf_counter() - t0
+    finally:
+        pring.ring_select = spy.op
+        test_cli.build_drives, test_cli.evaluate_drive = build, evaluate
+        runner.predict_drive, runner.DevicePrefetcher = predict, prefetcher
+    ring, scatter = ring_select.launches, scatter_select.launches
+    check(ring == batches and scatter == 0, f"eval {label}: {ring} ring and "
+          f"{scatter} scatter launches, want {batches} (one per eval batch) "
+          f"and 0")
+    (name, s), = scores.items()
+    check(list(s) == EVAL_KEYS and all(np.isfinite(v) for v in s.values())
+          and s["n_segments"] > 0, f"eval {label}: scores {s}")
+    args, outs = spy.first
+    check(args[0].shape[0] == bs * ds.sequence_size,
+          f"eval {label}: first ring launch at B = {args[0].shape[0]}")
+    ref = ring_select_reference(*args)
+    worst = max(int((a.long() - r.long()).abs().max())
+                for a, r in zip(outs, ref))
+    check(worst == 0, f"eval {label}: the first eval batch's selection "
+          f"differs from the plain version by {worst}")
+    (pf,) = prefetchers
+    t = pf.timings()
+    check(t["batches"] == batches, f"eval {label}: prefetcher gave "
+          f"{t['batches']} batches, want {batches}")
+    pred, secs = predict_s[0], evaluate_s[0]
+    pairs = bs * ds.num_pairs
+    print(f"cli test ({label}): {name}, {n} frames, {windows} stride-1 "
+          f"windows in {batches} batches of {bs} (ring launches {ring} at "
+          f"B = {args[0].shape[0]}); OXTS parse and poses {parse_s[0]:.3f} "
+          f"s (apart); predict_drive {pred:.3f} s: "
+          f"{pred / batches * 1e3:.1f} ms per eval batch, "
+          f"{batches * pairs / pred:.1f} model pairs/s; prefetcher per "
+          f"batch: build {t['build_ms'] / batches:.1f} ms (8 threads), copy "
+          f"{t['copy_ms'] / batches:.2f} ms, consumer wait "
+          f"{t['wait_ms'] / batches:.1f} ms (first batch "
+          f"{t['first_wait_ms']:.1f} ms); evaluate_drive {secs:.3f} s "
+          f"(ground truth, metrics and files {secs - pred:.3f} s), "
+          f"{(n - 1) / secs:.1f} drive pairs/s scored; cli.test.main "
+          f"{wall:.2f} s; first batch's selection bit-equal to the plain "
+          f"version; scores {json.dumps(s)} [{gpu}]")
+    return ring
+
+
+def _serve(step, carry, chunks, to_device):
+    """The chunks through ``step``; (poses, dx, dq) of the real frames."""
+    outs = []
+    for n_real, host in chunks:
+        carry, res = step(carry, to_device(host))
+        outs.append([r[:n_real] for r in res])
+    torch.cuda.synchronize()
+    return [torch.cat(o).cpu().numpy() for o in zip(*outs)]
+
+
+def phase_cli_export(dev, gpu, common, cfg, wd):
+    """``cli.export.main``, then the artifact fed the test drive chunk by
+    chunk (the last chunk padded) against the eager step of
+    ``StreamingOdometry`` on the same restored weights and chunks.
+    Returns the artifact path's ring launches."""
+    from deeplio_tpu_torch.cli import export as export_cli
+    from deeplio_tpu_torch.cli._common import restore_trainer
+    from deeplio_tpu_torch.data.dataset import build_drives
+    from deeplio_tpu_torch.eval.export import load_streaming_artifact
+    from deeplio_tpu_torch.eval.streaming import CHUNK_KEYS
+    t0 = time.perf_counter()
+    art = export_cli.main(list(common) + ["--chunk", str(EXPORT_CHUNK)])
+    export_s = time.perf_counter() - t0
+    mb = sum(p.stat().st_size for p in pathlib.Path(art).iterdir()) / 1e6
+    step, init_carry, manifest = load_streaming_artifact(art)
+    trainer = restore_trainer(cfg, wd, dev.type)
+    so = StreamingOdometry(cfg, trainer.state.model, chunk=EXPORT_CHUNK,
+                           device=dev)
+    drive = build_drives(cfg, "test")[0]
+    chunks = list(so.host_chunks(drive, pad=True))   # disk reads first
+
+    def eager(carry, inp):
+        with torch.no_grad():
+            *carry, p, x, q = so.step(*carry, *(inp[k] for k in CHUNK_KEYS))
+        return carry, (p, x, q)
+
+    for fn, c0 in ((step, init_carry), (eager, so.init_carry)):
+        _serve(fn, c0(), chunks[:1], so.to_device)             # warm-up
+    _zero_counts()
+    walls = {"artifact": [], "eager": []}
+    got = None
+    for name in ("artifact", "eager", "eager", "artifact"):
+        fn, c0 = ((step, init_carry) if name == "artifact"
+                  else (eager, so.init_carry))
+        before = ring_select.launches
+        t0 = time.perf_counter()
+        out = _serve(fn, c0(), chunks, so.to_device)
+        walls[name].append(time.perf_counter() - t0)
+        if name == "artifact" and got is None:
+            got, art_launches = out, ring_select.launches - before
+        elif name == "eager":
+            want = out
+    frames = len(drive)
+    padded = len(chunks) * EXPORT_CHUNK
+    check(art_launches == padded, f"artifact: {art_launches} ring launches "
+          f"for {padded} ticks ({frames} frames padded to chunks of "
+          f"{EXPORT_CHUNK})")
+    diff = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+          f"artifact vs eager step: poses, dx, dq differ by up to {diff}")
+    check(all(np.isfinite(g).all() for g in got), "artifact: non-finite")
+    ms = {k: [w / padded * 1e3 for w in v] for k, v in walls.items()}
+    print(f"cli export: chunk {EXPORT_CHUNK} exported in {export_s:.2f} s "
+          f"(cli.export.main, Trainer restore included), artifact "
+          f"{mb:.2f} MB ({', '.join(sorted(manifest))}); {frames} frames of "
+          f"{drive.name} in {len(chunks)} chunks: artifact "
+          f"{' / '.join(f'{v:.2f}' for v in ms['artifact'])} ms/frame, "
+          f"eager step {' / '.join(f'{v:.2f}' for v in ms['eager'])} "
+          f"ms/frame (two runs each, in turns); poses, dx, dq bit-equal to "
+          f"the eager step; ring launches {art_launches} [{gpu}]")
+    trainer.close()
+    return art_launches
+
+
+def phase_cli(dev, gpu, root, over=None):
+    """Phase 12: the command lines on phase 11's tree, with drive 42 as
+    the test split: train 1 epoch, evaluate (latest and ``--use-best``),
+    stream, export and serve the artifact. Returns the ring launches of
+    those paths."""
+    from deeplio_tpu_torch.cli import stream as stream_cli
+    from deeplio_tpu_torch.cli import train as train_cli
+    cfg_path = root / "kitti_cli.yaml"
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(kitti_dict(root, over), f)
+    cfg = load_config(cfg_path)
+    wd = str(root / "cli_run")
+    common = ["-c", str(cfg_path), "--workdir", wd, "--device", dev.type]
+    launches = {}
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    train_cli.main(common + ["--epochs", "1"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ring, scatter = ring_select.launches, scatter_select.launches
+    records = _records(wd)
+    steps = [r["step"] for r in records if r["split"] == "train"]
+    # 2 train steps and 1 validation batch (phase 11's splits)
+    check(ring == 3 and scatter == 0 and steps == [1, 2]
+          and all(np.isfinite(r["loss"]) for r in records),
+          f"cli train: steps {steps}, {ring} ring and {scatter} scatter "
+          f"launches, want [1, 2], 3 and 0")
+    print(f"cli train: 1 epoch ({steps[-1]} steps, 1 validation) in "
+          f"{secs:.2f} s (Trainer build and the OXTS parse included), ring "
+          f"launches {ring} [{gpu}]")
+    launches["train"] = ring
+
+    launches["eval"] = phase_cli_eval(gpu, common, cfg, "latest checkpoint")
+    launches["eval best"] = phase_cli_eval(
+        gpu, common, cfg, "--use-best",
+        ["--use-best", "--out", str(root / "cli_eval_best")])
+
+    _zero_counts()
+    scores = stream_cli.main(common + ["--chunk", "16"])
+    ring = ring_select.launches
+    (name, s), = scores.items()
+    check(ring == s["frames"] and np.isfinite(s["ate_m"]),
+          f"cli stream: {ring} ring launches for {s['frames']} frames")
+    print(f"cli stream: {name}, {s['frames']} frames at "
+          f"{s['frames_per_sec']:.1f} frames/s, real-time factor "
+          f"{s['real_time_factor']:.2f} (10 Hz LiDAR), ATE {s['ate_m']:.4f} "
+          f"m, ring launches {ring} [{gpu}]")
+    launches["stream"] = ring
+
+    launches["artifact"] = phase_cli_export(dev, gpu, common, cfg, wd)
+    print(f"cli: ring launches {', '.join(f'{k} {v}' for k, v in launches.items())} [{gpu}]")
+    return sum(launches.values())
 
 
 def main() -> int:
@@ -1333,6 +1675,7 @@ def main() -> int:
     worst = phase_kernel(dev, rng)
     launches, fps, so = phase_slice(dev, gpu)
     phase_profile(so, gpu)
+    phase_dispatch(dev, gpu)
     phase_timings(dev, rng, gpu)
     print(f"slice rate: {fps:.1f} frames/s [{gpu}]")
     del so
@@ -1367,10 +1710,20 @@ def main() -> int:
     del host
     torch.cuda.empty_cache()
 
-    # slice 4: training on KITTI raw drives, ring kernel at B = 144
-    k_launches, k_times, _ = phase_kitti(dev, gpu)
+    # slice 4: training on KITTI raw drives, ring kernel at B = 144;
+    # slice 5: the command lines on the same tree (evaluation at B = 144,
+    # streaming and the artifact at B = 1)
+    import shutil
+    import tempfile
+    root = pathlib.Path(tempfile.mkdtemp(prefix="kitti_smoke_"))
+    try:
+        k_launches, k_times, _ = phase_kitti(dev, gpu, root)
+        c_launches = phase_cli(dev, gpu, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     print(f"kernels: ring_project (ported, launches={k_launches} on the "
-          f"KITTI paths, {launches} in the slice-1 stream, bit-exact), "
+          f"KITTI training paths, {c_launches} on the command lines' paths, "
+          f"{launches} in the slice-1 stream, bit-exact), "
           f"proj_scatter (ported, launches={s_launches}: the training "
           f"step's and the fit's, bit-exact)")
     k_ms, p_ms, bound_ms, k_worst = k_times[TRAIN_B * TRAIN_S]
@@ -1381,7 +1734,7 @@ def main() -> int:
         "route": "cuda",
         "source": "deeplio_tpu_torch/csrc/ring_project.cu",
         "replaces": "deeplio_tpu/ops/projection_pallas_ring.py:62",
-        "launches": k_launches,
+        "launches": k_launches + c_launches,
         "max_abs_err": float(worst),
         "ms": k_ms,
         "plain_ms": p_ms,

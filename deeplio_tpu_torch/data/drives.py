@@ -160,8 +160,8 @@ class KittiRawDrive(Drive):
     def labels(self, i: int, labels_path: str):
         raise ValueError(
             "per-point KITTI labels are not supported by the PyTorch port "
-            "yet; the CLI and evaluation slice (ROADMAP.md Queue 1 item 4) "
-            "adds them with PointSeg pretraining")
+            "yet; the pretraining slice (ROADMAP.md Queue 1 item 4b) adds "
+            "them with PointSeg pretraining")
 
     def frame_time(self, i: int) -> float:
         return float(self.velo_times[self.start + i])

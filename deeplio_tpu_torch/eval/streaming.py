@@ -3,10 +3,18 @@
 Each tick projects the incoming raw scan on the device, pairs it with the
 carried previous range image, runs DeepLIO on that one-pair window and
 composes the predicted relative pose onto the carried global pose in
-float32. The tick is a Python loop over frames; ``chunk`` only groups the
-host-to-device copies (one pinned, asynchronous copy per chunk), so results
-do not depend on it. No LSTM state carries across ticks: every tick is a
-fresh one-pair window, as in the JAX package.
+float32. No LSTM state carries across ticks: every tick is a fresh
+one-pair window, as in the JAX package.
+
+The tick is a function of its carry ``(prev_img, pose, started)``, as the
+JAX package's ``tick``/``chunk_fn``/``init_carry``: :class:`StreamingStep`
+runs a chunk of ticks, and ``started`` is a tensor, so the first frame's
+identity motion is a ``torch.where`` and not a Python branch.
+``StreamingOdometry.run`` calls that step chunk by chunk, and
+``eval/export.py`` exports the same module, so the served artifact and
+``run`` cannot drift apart. ``chunk`` only groups the host-to-device
+copies (one pinned, asynchronous copy per chunk) and the frames of one
+step call; results do not depend on it.
 
 Each tick is annotated with three profiler spans, ``stream.project``,
 ``stream.model`` and ``stream.compose`` (a few microseconds each when no
@@ -15,10 +23,11 @@ profiler is running); ``chip_smoke.py`` reads them to split the tick.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Callable, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 from torch.profiler import record_function
 
 from deeplio_tpu_torch.config.schema import Config
@@ -26,6 +35,45 @@ from deeplio_tpu_torch.data.drives import Drive
 from deeplio_tpu_torch.device import DeviceLike, resolve_device
 from deeplio_tpu_torch.ops.projection import make_projector
 from deeplio_tpu_torch.utils import spatial as sp
+
+Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+# the inputs of one chunk, in the order StreamingStep takes them
+CHUNK_KEYS = ("points", "valid", "imu", "imu_mask")
+
+
+class StreamingStep(nn.Module):
+    """``(prev_img, pose, started, points [c, N, 4], valid [c, N], imu [c,
+    T, 6], imu_mask [c, T]) -> (prev_img, pose, started, poses [c, 4, 4],
+    dx [c, 3], dq [c, 4])``: ``c`` ticks from the carry, the new carry
+    first. ``started`` is a float32 scalar, 0 before the first frame."""
+
+    def __init__(self, model: nn.Module, projector: Callable):
+        super().__init__()
+        self.model = model
+        self.projector = projector
+
+    def forward(self, prev_img, pose, started, points, valid, imu, imu_mask):
+        poses, dxs, dqs = [], [], []
+        for j in range(points.shape[0]):
+            with record_function("stream.project"):
+                img, _ = self.projector(points[j:j + 1], valid[j:j + 1])
+            img = img[0]
+            batch = {"images": torch.cat([prev_img, img], -1)[None, None],
+                     "imu": imu[j][None, None],
+                     "imu_mask": imu_mask[j][None, None]}
+            with record_function("stream.model"):
+                x, q = self.model(batch)
+            go = started > 0                  # first frame: identity motion
+            dx = torch.where(go, x[0, 0], torch.zeros_like(x[0, 0]))
+            dq = torch.where(go, q[0, 0], q.new_tensor([1.0, 0.0, 0.0, 0.0]))
+            with record_function("stream.compose"):
+                pose = sp.apply_relative(pose, dx, dq)
+            poses.append(pose)
+            dxs.append(dx)
+            dqs.append(dq)
+            prev_img, started = img, torch.ones_like(started)
+        return (prev_img, pose, started, torch.stack(poses),
+                torch.stack(dxs), torch.stack(dqs))
 
 
 class StreamingOdometry:
@@ -46,13 +94,28 @@ class StreamingOdometry:
                                         ds.mean, ds.std)
         self._img_shape = (ds.projection.height, ds.projection.width,
                            ds.num_image_channels)
+        self.step = StreamingStep(self.model, self.projector)
 
-    def _host_chunks(self, drive: Drive) -> Iterator[Dict[str, np.ndarray]]:
+    def init_carry(self) -> Carry:
+        """The carry before the first frame: a zero image, the identity
+        pose, ``started`` 0."""
+        dev = self.device
+        return (torch.zeros(self._img_shape, dtype=torch.float32, device=dev),
+                torch.eye(4, dtype=torch.float32, device=dev),
+                torch.zeros((), dtype=torch.float32, device=dev))
+
+    def host_chunks(self, drive: Drive, pad: bool = False
+                    ) -> Iterator[Tuple[int, Dict[str, np.ndarray]]]:
+        """(real frames, chunk) for each chunk of the drive, the inputs as
+        numpy arrays keyed by ``CHUNK_KEYS``. ``pad``: the last chunk is
+        filled up to ``chunk`` frames by repeating its last frame (the
+        fixed shape of an exported step), as the JAX package pads it."""
         T = self.cfg.datasets.max_imu_per_pair
         n = len(drive)
         for c0 in range(0, n, self.chunk):
+            ks = list(range(c0, min(c0 + self.chunk, n)))
             pts, vld, imu, msk = [], [], [], []
-            for k in range(c0, min(c0 + self.chunk, n)):
+            for k in ks + ks[-1:] * ((self.chunk - len(ks)) if pad else 0):
                 p, v = drive.points(k)
                 pts.append(p)
                 vld.append(v)
@@ -66,11 +129,11 @@ class StreamingOdometry:
                 mk[:m] = 1.0
                 imu.append(buf)
                 msk.append(mk)
-            yield {"points": np.stack(pts), "valid": np.stack(vld),
-                   "imu": np.stack(imu), "imu_mask": np.stack(msk)}
+            yield len(ks), {"points": np.stack(pts), "valid": np.stack(vld),
+                            "imu": np.stack(imu), "imu_mask": np.stack(msk)}
 
-    def _to_device(self, chunk: Dict[str, np.ndarray]
-                   ) -> Dict[str, torch.Tensor]:
+    def to_device(self, chunk: Dict[str, np.ndarray]
+                  ) -> Dict[str, torch.Tensor]:
         out = {}
         for k, v in chunk.items():
             t = torch.from_numpy(v)
@@ -86,36 +149,14 @@ class StreamingOdometry:
         poses[k] is the integrated pose AFTER consuming frame k; the first
         tick emits identity motion, so poses[0] is the identity.
         """
-        dev = self.device
-        prev_img = torch.zeros(self._img_shape, dtype=torch.float32,
-                               device=dev)
-        pose = torch.eye(4, dtype=torch.float32, device=dev)
-        identity_q = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
-        zero_x = torch.zeros(3, device=dev)
-        started = False
+        carry = self.init_carry()
         poses, dxs, dqs = [], [], []
-        for host in self._host_chunks(drive):
-            chunk = self._to_device(host)
-            for j in range(chunk["points"].shape[0]):
-                with record_function("stream.project"):
-                    img, _ = self.projector(chunk["points"][j:j + 1],
-                                            chunk["valid"][j:j + 1])
-                img = img[0]
-                batch = {
-                    "images": torch.cat([prev_img, img], -1)[None, None],
-                    "imu": chunk["imu"][j][None, None],
-                    "imu_mask": chunk["imu_mask"][j][None, None],
-                }
-                with record_function("stream.model"):
-                    x, q = self.model(batch)
-                dx = x[0, 0] if started else zero_x
-                dq = q[0, 0] if started else identity_q
-                with record_function("stream.compose"):
-                    pose = sp.apply_relative(pose, dx, dq)
-                poses.append(pose)
-                dxs.append(dx)
-                dqs.append(dq)
-                prev_img, started = img, True
-        return (torch.stack(poses).cpu().numpy(),
-                torch.stack(dxs).cpu().numpy(),
-                torch.stack(dqs).cpu().numpy())
+        for _, host in self.host_chunks(drive):
+            chunk = self.to_device(host)
+            *carry, p, x, q = self.step(*carry,
+                                        *(chunk[k] for k in CHUNK_KEYS))
+            poses.append(p)
+            dxs.append(x)
+            dqs.append(q)
+        return (torch.cat(poses).cpu().numpy(), torch.cat(dxs).cpu().numpy(),
+                torch.cat(dqs).cpu().numpy())

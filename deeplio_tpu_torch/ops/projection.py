@@ -21,12 +21,13 @@ as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from deeplio_tpu_torch.config.schema import ProjectionConfig
+if TYPE_CHECKING:   # the serving artifact's loader imports no config
+    from deeplio_tpu_torch.config.schema import ProjectionConfig
 
 DEFAULT_RQ_BITS = 14
 CHANNEL_INDEX = {"x": 0, "y": 1, "z": 2, "remission": 3, "depth": 4}

@@ -125,19 +125,29 @@ def _check_inputs(pix, key, p1, p2, n_pix: int) -> None:
         raise ValueError(f"n_pix must be positive, got {n_pix}")
 
 
-def ring_select(pix, key, p1, p2, n_pix: int):
+_SCHEMA = ("(Tensor pix, Tensor key, Tensor p1, Tensor p2, int n_pix) -> "
+           "(Tensor, Tensor, Tensor)")
+
+
+@torch.library.custom_op("deeplio::ring_select", mutates_args=(),
+                         device_types="cpu", schema=_SCHEMA)
+def ring_select(pix, key, p1, p2, n_pix):
     """Ring selection: [B, N] int32 x4 -> okey, op1, op2 [B, n_pix] int32.
 
-    On a CPU tensor this is :func:`ring_select_reference`. On a CUDA tensor
-    it launches ``csrc/ring_project.cu`` on the current stream, adds one to
-    ``ring_select.launches``, and raises if the launch fails; it never falls
-    back to the plain version there.
+    A PyTorch operator (``torch.ops.deeplio.ring_select``), so
+    ``torch.export`` records it as one node. Its CPU implementation is
+    :func:`ring_select_reference`. Its CUDA implementation launches
+    ``csrc/ring_project.cu`` on the current stream, adds one to
+    ``ring_select.launches``, and raises if the launch fails; it never
+    falls back to the plain version there. Both check their inputs.
     """
     _check_inputs(pix, key, p1, p2, n_pix)
-    if pix.device.type == "cpu":
-        return ring_select_reference(pix, key, p1, p2, n_pix)
-    if pix.device.type != "cuda":
-        raise ValueError(f"ring_select runs on cuda or cpu, got {pix.device}")
+    return ring_select_reference(pix, key, p1, p2, n_pix)
+
+
+@ring_select.register_kernel("cuda")
+def _ring_select_cuda(pix, key, p1, p2, n_pix):
+    _check_inputs(pix, key, p1, p2, n_pix)
     b, n = pix.shape
     lib = _library()
     # the kernel writes every word of the outputs: no fill, no scratch
@@ -153,11 +163,21 @@ def ring_select(pix, key, p1, p2, n_pix: int):
     if err:
         raise RuntimeError(f"ring_project launch failed: "
                            f"{_kernels.error_string(lib, err)}")
-    ring_select.launches += 1
+    _OP.launches += 1
     return okey, op1, op2
 
 
-ring_select.launches = 0
+@ring_select.register_fake
+def _ring_select_fake(pix, key, p1, p2, n_pix):
+    _check_inputs(pix, key, p1, p2, n_pix)
+    okey = pix.new_empty((pix.shape[0], n_pix))
+    return okey, torch.empty_like(okey), torch.empty_like(okey)
+
+
+# the counter lives on the operator object itself, so a stand-in bound to
+# the module's ``ring_select`` (a spy, a timer) neither needs nor hides it
+_OP = ring_select
+_OP.launches = 0
 
 
 def project_batch_ring_planes(

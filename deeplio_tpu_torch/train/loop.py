@@ -149,9 +149,9 @@ class Trainer:
         self.bank_ms: Dict[str, float] = {}
         if cfg.train.device_dataset and not eval_only:
             self._stage_banks()
-        # one set of page-locked staging buffers for every epoch and
-        # validation (depth + 1 batches)
-        self._ring = PinnedRing(cfg.train.prefetch + 1) \
+        # one set of page-locked staging buffers for every epoch, every
+        # validation and the evaluator's batches (depth + 1 batches)
+        self.ring = PinnedRing(cfg.train.prefetch + 1) \
             if self.device.type == "cuda" else None
         self.data_timings: List[Dict[str, float]] = []
 
@@ -223,10 +223,10 @@ class Trainer:
 
     def _prefetch(self, ds, **kw) -> DevicePrefetcher:
         bs = self.cfg.train.batch_size
-        alloc = self._ring.take if self._ring is not None else None
+        alloc = self.ring.take if self.ring is not None else None
         return DevicePrefetcher(ds.iter_batches(bs, alloc=alloc, **kw),
                                 self.device, depth=self.cfg.train.prefetch,
-                                ring=self._ring)
+                                ring=self.ring)
 
     def _periodic_save(self) -> None:
         # Called only where the state holds every step so far (never

@@ -545,3 +545,125 @@ def test_device_dataset_refuses_a_bank_larger_than_free_memory(
     with pytest.raises(ValueError, match=r"MB, more than the device's 1 MB"):
         Trainer(_kitti_cfg(kitti_root, **{"device-dataset": True}),
                 workdir=str(tmp_path))
+
+
+# ------------------------------------------- operators, evaluation, export
+
+def _op_case(name, dev):
+    """(operator, its plain version, arguments) on ``dev``."""
+    rng = np.random.default_rng(9)
+    if name == "ring":
+        pts = synthetic_ring_batch(rng, 3, 4096, rings=H)
+        words = _words(pts, np.ones((3, 4096), bool), dev)
+        return (torch.ops.deeplio.ring_select, tring.ring_select_reference,
+                (*words, H * W), tring.ring_select)
+    words = _scatter_words(_unordered(rng, 3, 4096),
+                           np.ones((3, 4096), bool), dev)
+    return (torch.ops.deeplio.scatter_select,
+            tsc.scatter_select_reference,
+            (*words, H * W, tsc.rq_bits_for(H * W)), tsc.scatter_select)
+
+
+@pytest.mark.parametrize("name", ["ring", "scatter"])
+def test_operator_on_cuda_counts_and_captures_in_a_graph(cuda, name):
+    """The registered operator launches the kernel (one count a call), is
+    captured in a CUDA graph (the count moves at capture, not at replay)
+    and equals its plain version, called and replayed."""
+    op, plain, args, wrapper = _op_case(name, cuda)
+    ref = plain(*args)
+    before = wrapper.launches
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        op(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = op(*args)
+    captured = wrapper.launches
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert wrapper.launches == captured == before + 3
+    assert all(torch.equal(a, b) for a, b in zip(outs, ref))
+
+
+def _eval_cfg(root, dtype="float32"):
+    """``_kitti_cfg`` with a test split (drive 42, 11 frames) and
+    ``compute-dtype``."""
+    from deeplio_tpu_torch.config import load_config_dict
+    with open(KITTI_TPU) as f:
+        d = yaml.safe_load(f)
+    d["compute-dtype"] = dtype
+    d["datasets"]["kitti"] = {
+        "root-path": str(root), "train": {"2011_10_03": [27]},
+        "test": {"2011_10_03": [42]}}
+    d["datasets"].update({"image-height": 16, "image-width": 128,
+                          "max-points": 2048, "sequence-size": 3,
+                          "window-stride": 2})
+    d["train"]["batch-size"] = 2
+    return load_config_dict(d)
+
+
+def test_predict_drive_on_the_card_launches_per_batch(cuda, kitti_root):
+    """9 stride-1 windows of drive 42 in batches of 2: 5 ring launches
+    (the tail padded); float32 with TF32 off against the CPU within 1e-3
+    of the largest magnitude (cuDNN's summation order)."""
+    from deeplio_tpu_torch.data.dataset import build_drives
+    from deeplio_tpu_torch.eval.runner import predict_drive
+    from deeplio_tpu_torch.models.zoo import build_model
+    from deeplio_tpu_torch.train.state import create_train_state
+    from deeplio_tpu_torch.train.step import build_train_step
+    cfg = _eval_cfg(kitti_root)
+    drive = build_drives(cfg, "test")[0]
+    _, eval_step = build_train_step(cfg)
+    out = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", "cuda"):
+            state = create_train_state(cfg, build_model(cfg, dev, seed=0), 10)
+            before = tring.ring_select.launches
+            out[dev] = predict_drive(cfg, eval_step, state, drive,
+                                     device=dev)
+            if dev == "cuda":
+                assert tring.ring_select.launches - before == 5
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert np.abs(got - want).max() <= 1e-3 * np.abs(want).max()
+
+
+def test_artifact_on_the_card_equals_streaming_run(cuda, kitti_root,
+                                                    tmp_path):
+    """The bfloat16 chunk step exported on the card (autocast regions and
+    the float32 island kept) reproduces ``StreamingOdometry.run`` there
+    bit for bit, one ring launch per frame."""
+    from deeplio_tpu_torch.data.dataset import build_drives
+    from deeplio_tpu_torch.eval.export import (
+        export_streaming,
+        load_streaming_artifact,
+    )
+    from deeplio_tpu_torch.eval.streaming import StreamingOdometry
+    from deeplio_tpu_torch.models.zoo import build_model
+    cfg = _eval_cfg(kitti_root, "bfloat16")
+    model = build_model(cfg, cuda, seed=0)
+    art = export_streaming(cfg, model, str(tmp_path / "art"), chunk=4,
+                           device=cuda)
+    so = StreamingOdometry(cfg, model, chunk=4, device=cuda)
+    drive = build_drives(cfg, "test")[0]
+    want = so.run(drive)
+    step, init_carry, manifest = load_streaming_artifact(art)
+    assert manifest["device"] == "cuda"
+    carry, outs = init_carry(), []
+    before = tring.ring_select.launches
+    for n_real, host in so.host_chunks(drive, pad=True):
+        carry, res = step(carry, so.to_device(host))
+        outs.append([r[:n_real].cpu().numpy() for r in res])
+    assert tring.ring_select.launches - before == 12     # 3 chunks of 4
+    for got, w in zip((np.concatenate(o) for o in zip(*outs)), want):
+        np.testing.assert_array_equal(got, w)

@@ -12,6 +12,8 @@ torch = pytest.importorskip("torch")
 from deeplio_tpu_torch.config import load_config, load_config_dict  # noqa: E402
 from deeplio_tpu_torch.data.pipeline import DevicePrefetcher  # noqa: E402
 from deeplio_tpu_torch.device import resolve_device  # noqa: E402
+from deeplio_tpu_torch.cli import train as train_cli  # noqa: E402
+from deeplio_tpu_torch.eval.export import export_streaming  # noqa: E402
 from deeplio_tpu_torch.eval.streaming import StreamingOdometry  # noqa: E402
 from deeplio_tpu_torch.models.zoo import build_model  # noqa: E402
 from deeplio_tpu_torch.train import Trainer  # noqa: E402
@@ -69,7 +71,10 @@ def test_port_has_its_modules():
                  "train/loop.py", "train/checkpoint.py", "data/pipeline.py",
                  "utils/meters.py", "utils/logger.py",
                  "data/proj_cache.py", "data/device_bank.py",
-                 "bench/kitti_tree.py"):
+                 "bench/kitti_tree.py", "eval/metrics.py",
+                 "eval/trajectory.py", "eval/plot.py", "eval/runner.py",
+                 "eval/export.py", "utils/timing.py", "cli/train.py",
+                 "cli/test.py", "cli/stream.py", "cli/export.py"):
         assert want in mods, want
     for src in ("ring_project.cu", "proj_scatter.cu"):
         assert (ROOT / "deeplio_tpu_torch" / "csrc" / src).exists()
@@ -117,6 +122,15 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(synth, workdir=str(tmp_path))
     assert not any(tmp_path.iterdir())        # raised before any output
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export_streaming(cfg, model, str(tmp_path / "art"), chunk=1)
+    assert not any(tmp_path.iterdir())
+    cfg_path = tmp_path.parent / f"{tmp_path.name}.yaml"
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(d, f)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.main(["-c", str(cfg_path), "--workdir", str(tmp_path)])
+    assert not any(tmp_path.iterdir())
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -99,6 +99,22 @@ the same tree and configuration, with drive 42 as the test split:
     same weights: bit-equal poses, one launch per tick, the export's
     seconds, the artifact's MB and ms per frame each way.
 
+Slice 6, PointSeg pretraining (``cli.pretrain_pointseg``) on the same
+tree and configuration, both kernels at B = 16:
+
+13. SemanticKITTI label files for the tree (``bench/kitti_tree.py``:
+    ground and building ids by height, a few unlabeled points and ids >=
+    2048); ``cli.pretrain_pointseg --steps 30 --batch-size 16`` with the
+    labels and SemanticKITTI's learning map (20 classes), then 4 steps
+    with geometric labels: exactly one ring launch (the model input) and
+    one scatter launch (the label image) a step, the first step's
+    selections and the first batch's label image bit-equal to the plain
+    versions, finite losses whose last 5 average below the first 5; one
+    float32 step on the card against the CPU at 16x128; the snapshot
+    grafted into a ``Trainer`` (``pretrained: true``) that trains a step
+    through the ring kernel; a profiled step; both kernels timed on the
+    first batch (B = 16) beside their bounds. Prints ms/step and scans/s.
+
 After phase 4, the cost of the operator binding: a stream with the ring
 kernel behind ``torch.ops.deeplio.ring_select`` and with its CUDA
 implementation called directly, in turns (frames/s each way).
@@ -212,6 +228,16 @@ KITTI_VAL = {KITTI_DATE: [27]}
 KITTI_TEST = {KITTI_DATE: [42]}
 EXPORT_CHUNK = 4
 KITTI_EPOCHS, PREFILL_CHUNK, STREAM_FRAMES = 2, 16, 16
+# phase 13: pretraining on the same tree, 16 scans a step, 30 steps with
+# label files (3 of them warm-up for the rate), 4 with geometric labels
+PRETRAIN_B, PRETRAIN_STEPS, PRETRAIN_WARMUP, PRETRAIN_GEO_STEPS = (
+    16, 30, 3, 4)
+# pretraining's float32 step on the card against the CPU (16x128, B = 2):
+# the update in L2 within 1e-3 of the CPU's. Its BatchNorms normalise over
+# 2 x 2 x 16 x 32 values per channel, not the odometry step's 8, so its
+# gradients sit well above the rounding level (an H100 80GB HBM3 gives
+# ~2e-5); the loss and the statistics keep STEP_LOSS_RTOL, STEP_STATS_RTOL
+PRETRAIN_UPDATE_L2 = 1e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1649,6 +1675,396 @@ def phase_cli(dev, gpu, root, over=None):
     return sum(launches.values())
 
 
+# ------------------------------------------------------------- slice 6
+
+# SemanticKITTI's learning map (raw id -> one of 20 train ids), as its
+# semantic-kitti.yaml gives it
+LEARNING_MAP = {
+    0: 0, 1: 0, 10: 1, 11: 2, 13: 5, 15: 3, 16: 5, 18: 4, 20: 5, 30: 6,
+    31: 7, 32: 8, 40: 9, 44: 10, 48: 11, 49: 12, 50: 13, 51: 14, 52: 0,
+    60: 9, 70: 15, 71: 16, 72: 17, 80: 18, 81: 19, 99: 0, 252: 1, 253: 7,
+    254: 6, 255: 8, 256: 5, 257: 5, 258: 4, 259: 5}
+PRETRAIN_CLASSES = 20
+
+
+def pretrain_dict(root, labels: bool = True, over=None):
+    """Phase 11's configuration on its tree (:func:`kitti_dict`), with the
+    tree's SemanticKITTI labels, SemanticKITTI's learning map and its 20
+    classes when ``labels``."""
+    d = kitti_dict(root, over)
+    if labels:
+        d["datasets"].update({"labels-path": str(root / "labels"),
+                              "label-map": LEARNING_MAP,
+                              "labels-num-classes": PRETRAIN_CLASSES})
+    return d
+
+
+class StepClock:
+    """Wraps ``pretrain.build_pretrain_step`` so that the run's steps are
+    timed on the host clock: a synchronize and a stamp before step
+    ``warmup`` and after the last of ``steps``. Keeps the first step's
+    device batch (``first``)."""
+
+    def __init__(self, build, steps: int, warmup: int):
+        self.build, self.steps, self.warmup = build, steps, warmup
+        self.calls, self.t0, self.t1, self.first = 0, None, None, None
+
+    def __call__(self, *args, **kw):
+        step = self.build(*args, **kw)
+
+        def timed(batch):
+            if self.calls == 0:
+                self.first = batch
+            if self.calls == self.warmup:
+                torch.cuda.synchronize()
+                self.t0 = time.perf_counter()
+            out = step(batch)
+            self.calls += 1
+            if self.calls == self.steps:
+                torch.cuda.synchronize()
+                self.t1 = time.perf_counter()
+            return out
+        return timed
+
+    @property
+    def ms(self) -> float:
+        return (self.t1 - self.t0) * 1e3 / (self.steps - self.warmup)
+
+
+def _pretrain_run(dev, gpu, cfg_path, out, steps: int, warmup: int,
+                  label: str):
+    """``cli.pretrain_pointseg`` in-process on ``cfg_path`` at B =
+    PRETRAIN_B for ``steps`` steps, both selections spied on; checks one
+    launch of each kernel a step and the first step's selections against
+    the plain versions. Returns (result, ms/step over the steps after
+    ``warmup``, the ring and scatter launches, the scatter spy, the first
+    step's device batch)."""
+    from deeplio_tpu_torch.cli import pretrain_pointseg as pre_cli
+    from deeplio_tpu_torch.ops import projection_ring as pring
+    from deeplio_tpu_torch.ops import projection_scatter as pscat
+    from deeplio_tpu_torch.train import pretrain as tpre
+    ring, scatter = FirstCall(pring.ring_select), FirstCall(
+        pscat.scatter_select)
+    clock = StepClock(tpre.build_pretrain_step, steps, warmup)
+    build = tpre.build_pretrain_step
+    pring.ring_select, pscat.scatter_select = ring, scatter
+    tpre.build_pretrain_step = clock
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = pre_cli.main(["-c", str(cfg_path), "--out", str(out),
+                            "--steps", str(steps), "--batch-size",
+                            str(PRETRAIN_B), "--device", dev.type])
+        wall = time.perf_counter() - t0
+    finally:
+        pring.ring_select, pscat.scatter_select = ring.op, scatter.op
+        tpre.build_pretrain_step = build
+    launches = (ring_select.launches, scatter_select.launches)
+    check(launches == (steps, steps), f"pretrain {label}: {launches[0]} "
+          f"ring and {launches[1]} scatter launches in {steps} steps, want "
+          f"one of each a step")
+    worst = 0
+    for name, spy, plain in (("ring", ring, ring_select_reference),
+                             ("scatter", scatter, scatter_select_reference)):
+        args, outs = spy.first
+        check(args[0].shape[0] == PRETRAIN_B, f"pretrain {label}: first "
+              f"{name} launch at B = {args[0].shape[0]}")
+        worst = max([worst] + [int((a.long() - r.long()).abs().max())
+                               for a, r in zip(outs, plain(*args))])
+    check(worst == 0, f"pretrain {label}: the first step's selections "
+          f"differ from the plain versions by {worst}")
+    losses = res["losses"]
+    check(len(losses) == steps and np.isfinite(losses).all(),
+          f"pretrain {label}: losses {losses}")
+    print(f"pretrain {label}: cli.pretrain_pointseg {steps} steps of "
+          f"{PRETRAIN_B} scans in {wall:.2f} s; {clock.ms:.2f} ms/step, "
+          f"{PRETRAIN_B / clock.ms * 1e3:.1f} scans/s (host clock over "
+          f"steps {warmup + 1}-{steps}, scans read from disk "
+          f"inside); loss {losses[0]:.4f} -> {losses[-1]:.4f}, last acc "
+          f"{res['acc']:.3f}; launches ring {launches[0]}, scatter "
+          f"{launches[1]}; first step's selections bit-equal to the plain "
+          f"versions [{gpu}]")
+    return res, clock.ms, launches, scatter, clock.first
+
+
+def _label_image_check(batch, scatter_spy, gpu):
+    """The first step's label image through the scatter kernel equals the
+    plain route's bit for bit; ``batch`` is the step's device batch (its
+    keys are the spied launch's)."""
+    from deeplio_tpu_torch.train import pretrain as tpre
+    planes_ = [batch[k] for k in tpre.PLANES]
+    valid, labels = batch["points_valid"], batch["labels"]
+    key = scatter_prologue(*planes_, valid, H, W, FU, FD)[0]
+    check(torch.equal(key, scatter_spy.first[0][0]),
+          "pretrain: the first step's batch is not the spied launch's")
+    got = tpre.label_image(planes_, valid, labels, H, W, FU, FD,
+                           select=scatter_select)
+    ref = tpre.label_image(planes_, valid, labels, H, W, FU, FD,
+                           select=scatter_select_reference)
+    check(torch.equal(got, ref), "pretrain: the label image differs from "
+          "the plain route's")
+    counts = torch.bincount(got.flatten(), minlength=PRETRAIN_CLASSES)
+    print(f"pretrain: first batch's label image ({PRETRAIN_B}x{H}x{W}) "
+          f"bit-equal to the plain route's; pixels per class "
+          f"{counts.tolist()} [{gpu}]")
+
+
+def phase_pretrain_vs_cpu(dev):
+    """One float32 pretraining step on the card against the same step on
+    the CPU, 16x128, B = 2 ring scans with labels, identical weights."""
+    from deeplio_tpu_torch.train import pretrain as tpre
+    over = dict(image_height=16, image_width=128, max_points=2048,
+                compute_dtype="float32")
+    cfg = load_config_dict(pretrain_dict(pathlib.Path("/unused"),
+                                         over=over))
+    rng = np.random.default_rng(9)
+    pts = synthetic_ring_batch(rng, 2, 2048, rings=16)
+    labels = rng.integers(0, PRETRAIN_CLASSES, (2, 2048)).astype(np.int32)
+    host = {k: np.ascontiguousarray(pts[..., c])
+            for c, k in enumerate(tpre.PLANES)}
+    host.update(points_valid=np.ones((2, 2048), bool), labels=labels)
+    cpu_model = tpre.build_pointseg(cfg, PRETRAIN_CLASSES)
+    from deeplio_tpu_torch.models.zoo import init_parameters
+    init_parameters(cpu_model, torch.Generator().manual_seed(0))
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    old = _flat(to_flax_variables(cpu_model))
+    out = {}
+    for name, model, d in (("cpu", cpu_model, torch.device("cpu")),
+                           ("gpu", gpu_model, dev)):
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3,
+                               eps=tpre.ADAM_EPS)
+        step = tpre.build_pretrain_step(cfg, model, opt, PRETRAIN_CLASSES)
+        loss, acc = step(batch_to_device(host, d))
+        out[name] = (float(loss), float(acc),
+                     _flat(to_flax_variables(model)))
+    (lc, ac, new_c), (lg, ag, new_g) = out["cpu"], out["gpu"]
+    rel = abs(lg - lc) / abs(lc)
+    params = sorted(k for k in old if k.startswith("params/"))
+    du_c = np.concatenate([(new_c[k] - old[k]).ravel() for k in params])
+    du_g = np.concatenate([(new_g[k] - old[k]).ravel() for k in params])
+    upd = float(np.linalg.norm(du_g - du_c) / np.linalg.norm(du_c))
+    stats = max(float(np.abs(new_g[k] - new_c[k]).max()
+                      / max(np.abs(new_c[k]).max(), 1e-3))
+                for k in old if k.startswith("batch_stats/"))
+    print(f"pretrain: float32 step GPU vs CPU at 16x128: loss rel err "
+          f"{rel:.3g} (tolerance {STEP_LOSS_RTOL}), acc {ag:.4f} vs "
+          f"{ac:.4f}, BatchNorm statistics {stats:.3g} ({STEP_STATS_RTOL}), "
+          f"update L2 {upd:.3g} ({PRETRAIN_UPDATE_L2})")
+    check(rel <= STEP_LOSS_RTOL, "float32 pretraining loss GPU vs CPU")
+    check(stats <= STEP_STATS_RTOL, "float32 pretraining BatchNorm "
+          "statistics GPU vs CPU")
+    check(upd <= PRETRAIN_UPDATE_L2, "float32 pretraining update GPU vs CPU")
+
+
+def phase_pretrain_graft(dev, gpu, root, out, over=None):
+    """A ``Trainer`` with ``pretrained: true, model-path``: its encoder is
+    the snapshot, every other tensor its seeded init; then one train step
+    through the ring kernel."""
+    d = kitti_dict(root, over)
+    d["lidar-feat-pointseg"].update({"pretrained": True,
+                                     "model-path": str(out)})
+    cfg = load_config_dict(d)
+    saved = torch.load(pathlib.Path(out) / "params.pt", map_location="cpu",
+                       weights_only=True)
+    trainer = Trainer(cfg, workdir=str(root / "graft_run"), device=dev)
+    try:
+        got = {k: v.cpu() for k, v in trainer.state.model.state_dict()
+               .items()}
+        init = build_model(cfg, device="cpu", seed=cfg.train.seed)
+        enc = "lidar_feat.pointseg.encoder."
+        check(all(torch.equal(got[enc + k[len("encoder."):]], v)
+                  for k, v in saved.items()),
+              "graft: the encoder is not the snapshot")
+        rest = [k for k in got if not k.startswith(enc)]
+        check(all(torch.equal(got[k], init.state_dict()[k]) for k in rest),
+              "graft: a tensor outside the encoder moved")
+        host = next(trainer.train_ds.iter_batches(cfg.train.batch_size,
+                                                  shuffle=False))
+        raw = batch_to_device(host, dev)
+        _zero_counts()
+        trainer.state, m = trainer.train_step(trainer.state, raw)
+        torch.cuda.synchronize()
+        launches = (ring_select.launches, scatter_select.launches)
+        loss = float(m["loss"])
+    finally:
+        trainer.close()
+    check(launches == (1, 0) and np.isfinite(loss), f"graft: train step "
+          f"with {launches} launches, loss {loss}")
+    print(f"pretrain graft: Trainer with pretrained: true loads the "
+          f"snapshot's {len(saved)} encoder tensors, its other "
+          f"{len(rest)} tensors keep their seed-{cfg.train.seed} init; one "
+          f"train step of {cfg.train.batch_size} windows: loss {loss:.4f}, "
+          f"ring launches {launches[0]} [{gpu}]")
+    return launches[0]
+
+
+def phase_pretrain_profile(dev, cfg, batch, gpu, step_ms: float):
+    """torch.profiler over one pretraining step on the first batch, after
+    a warm-up step: device busy and idle share (against the run's ms/step
+    and the profiled wall), the spans, both kernels' shares, the top
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    from deeplio_tpu_torch.models.zoo import init_parameters
+    from deeplio_tpu_torch.train import pretrain as tpre
+    model = tpre.build_pointseg(cfg, PRETRAIN_CLASSES)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    model = model.to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3, eps=tpre.ADAM_EPS)
+    step = tpre.build_pretrain_step(cfg, model, opt, PRETRAIN_CLASSES)
+    step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = device_kernels(events, "pretrain.")
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy <= 0:
+        print("pretrain profile: the profiler recorded no device time")
+        return
+    print(f"pretrain profile: one step {wall_ms:.3f} ms wall (profiler on, "
+          f"batch on the card), device busy {busy:.3f} ms, idle share "
+          f"{max(0.0, 1 - busy / wall_ms):.3f} (profiler on), "
+          f"{max(0.0, 1 - busy / step_ms):.3f} against the run's "
+          f"{step_ms:.2f} ms/step (scans read inside), "
+          f"{sum(e.count for e in kernels)} device kernels [{gpu}]")
+    own = {e.key: e.device_time_total / 1e3 for e in events
+           if e.key.startswith("pretrain.") and e.device_type.name == "CPU"}
+    for e in events:
+        if e.key in own and e.device_type.name == "CPU":
+            dev_ms = own[e.key]
+            if e.key == "pretrain.backward":
+                dev_ms = busy - sum(v for k, v in own.items() if k != e.key)
+            print(f"pretrain profile span {e.key}: host "
+                  f"{e.cpu_time_total / 1e3:.3f} ms, its kernels "
+                  f"{dev_ms:.3f} ms")
+    for name, names in (("ring_project", RING_KERNELS),
+                        ("proj_scatter", SCATTER_KERNELS)):
+        sel = [e for e in kernels if any(p in e.key for p in names)]
+        ms = sum(e.self_device_time_total for e in sel) / 1e3
+        print(f"pretrain profile {name}: {ms:.4f} ms ({ms / busy:.4f} of "
+              f"busy) in {sum(e.count for e in sel)} kernel [{gpu}]")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"pretrain profile kernel {e.key[:160]}: "
+              f"{e.self_device_time_total / 1e3:.3f} ms, {e.count} launches")
+
+
+def _early_frames(cfg, dev):
+    """The first PRETRAIN_B frames of the first train drive, on the card:
+    scans still inside the tree's world, fuller than random draws."""
+    from deeplio_tpu_torch.data.dataset import build_drives
+    from deeplio_tpu_torch.train import pretrain as tpre
+    drive = build_drives(cfg, "train")[0]
+    planes, valid = zip(*(drive.points_planes(i) for i in range(PRETRAIN_B)))
+    planes = np.stack(planes)
+    host = {k: np.ascontiguousarray(planes[:, c])
+            for c, k in enumerate(tpre.PLANES)}
+    host["points_valid"] = np.stack(valid)
+    return drive.name, batch_to_device(host, dev)
+
+
+def phase_pretrain_timings(dev, batches, gpu, ring16_ms=None):
+    """Both kernels at B = 16 on each of ``batches`` ({what: device
+    batch}): graph-replay device time, the plain version's, the byte
+    bound, bit-identical outputs; the ring kernel beside ``ring16_ms``,
+    its time on the training batch's first 16 scans (phase 11)."""
+    from deeplio_tpu_torch.train import pretrain as tpre
+    for what, batch in batches.items():
+        planes_ = [batch[k] for k in tpre.PLANES]
+        valid = batch["points_valid"]
+        words = scatter_prologue(*planes_, valid, H, W, FU, FD)
+        args = ring_prologue(*planes_, valid, H, W, FU, FD)
+        n_pts = planes_[0].shape[1]
+        for name, run, plain, per_point in (
+                ("proj_scatter",
+                 lambda: scatter_select(*words, H * W, RQ_BITS),
+                 lambda: scatter_select_reference(*words, H * W, RQ_BITS),
+                 4),
+                ("ring_project", lambda: ring_select(*args, H * W),
+                 lambda: ring_select_reference(*args, H * W), 8)):
+            got, ref = run(), plain()
+            check(all(torch.equal(a, r) for a, r in zip(got, ref)),
+                  f"{name} B={PRETRAIN_B} on {what}: kernel differs from "
+                  f"plain")
+            k_ms, p_ms = graph_ms(run), graph_ms(plain)
+            landed = int((got[0] != SENTINEL).sum())
+            # as for B = 144: the per-point words read once (scatter: the
+            # key; ring: pixel and key), the two payload words of each
+            # landed pixel's winner, three int32 words written per pixel
+            nbytes = (per_point * PRETRAIN_B * n_pts + 8 * landed
+                      + 12 * PRETRAIN_B * H * W)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            print(f"timing {name} B={PRETRAIN_B} ({what}, "
+                  f"{int(valid.sum())} valid points): device (graph "
+                  f"replay) kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; "
+                  f"bound {bound * 1e3:.3f} us ({nbytes} B at 3.35 TB/s, "
+                  f"{landed} pixels landed: {k_ms / bound:.1f}x); "
+                  f"bit-identical"
+                  + (f"; {ring16_ms:.4f} ms on the training batch's first "
+                     f"16 scans (phase 11)" if name == "ring_project"
+                     and ring16_ms is not None else "") + f" [{gpu}]")
+
+
+def phase_pretrain(dev, gpu, root, over=None, ring16_ms=None):
+    """Phase 13 on phase 11's tree: SemanticKITTI label files, then
+    ``cli.pretrain_pointseg`` for PRETRAIN_STEPS steps of 16 scans with
+    the labels and PRETRAIN_GEO_STEPS with geometric labels, each step one
+    ring and one scatter launch; the label image; a float32 step against
+    the CPU; the graft into a Trainer; a profiled step; both kernels at B
+    = 16 on the first step's batch and on a drive's first 16 frames (the
+    ring kernel beside ``ring16_ms``, phase 11's B = 16 time). Returns the
+    ring and the scatter launches its paths' counters read."""
+    from deeplio_tpu_torch.bench.kitti_tree import write_labels
+    t0 = time.perf_counter()
+    write_labels(str(root), str(root / "labels"), KITTI_DRIVES, KITTI_DATE)
+    mb = sum(f.stat().st_size for f in (root / "labels").rglob("*.label"))
+    print(f"pretrain: SemanticKITTI label files of drives {KITTI_DRIVES} "
+          f"written in {time.perf_counter() - t0:.1f} s, {mb / 1e6:.1f} MB "
+          f"[{gpu}]")
+    cfg_path = root / "pretrain.yaml"
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(pretrain_dict(root, over=over), f)
+    cfg = load_config(cfg_path)
+    out = root / "pretrained"
+    res, step_ms, l_launches, scatter_spy, batch = _pretrain_run(
+        dev, gpu, cfg_path, out, PRETRAIN_STEPS, PRETRAIN_WARMUP,
+        "with labels")
+    losses = res["losses"]
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    check(last < first, f"pretrain: loss did not fall: mean of the first 5 "
+          f"{first:.4f}, of the last 5 {last:.4f}")
+    print(f"pretrain: mean loss of steps 1-5 {first:.4f}, of the last 5 "
+          f"{last:.4f}; losses {' '.join(f'{v:.3f}' for v in losses)}")
+    _label_image_check(batch, scatter_spy, gpu)
+
+    geo_path = root / "pretrain_geometric.yaml"
+    with open(geo_path, "w") as f:
+        yaml.safe_dump(pretrain_dict(root, labels=False, over=over), f)
+    _, g_ms, g_launches, _, _ = _pretrain_run(
+        dev, gpu, geo_path, root / "pretrained_geo", PRETRAIN_GEO_STEPS, 1,
+        "geometric labels")
+    phase_pretrain_vs_cpu(dev)
+    graft_ring = phase_pretrain_graft(dev, gpu, root, out, over)
+    phase_pretrain_profile(dev, cfg, batch, gpu, step_ms)
+    drive, full = _early_frames(cfg, dev)
+    phase_pretrain_timings(
+        dev, {"the first pretraining batch": batch,
+              f"frames 0-{PRETRAIN_B - 1} of drive {drive}": full},
+        gpu, ring16_ms)
+    ring = l_launches[0] + g_launches[0]
+    scatter = l_launches[1] + g_launches[1]
+    print(f"pretrain rate: {step_ms:.2f} ms/step, "
+          f"{PRETRAIN_B / step_ms * 1e3:.1f} scans/s with labels; "
+          f"{g_ms:.2f} ms/step geometric; launches ring {ring} + "
+          f"{graft_ring} (graft), scatter {scatter} [{gpu}]")
+    del batch, full
+    torch.cuda.empty_cache()
+    return ring + graft_ring, scatter
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one GPU",
@@ -1719,13 +2135,21 @@ def main() -> int:
     try:
         k_launches, k_times, _ = phase_kitti(dev, gpu, root)
         c_launches = phase_cli(dev, gpu, root)
+        # slice 6: PointSeg pretraining on the same tree, both kernels at
+        # B = 16
+        t0 = time.perf_counter()
+        p_ring, p_scatter = phase_pretrain(
+            dev, gpu, root, ring16_ms=k_times[PREFILL_CHUNK][0])
+        print(f"pretrain phase: {time.perf_counter() - t0:.1f} s [{gpu}]")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"kernels: ring_project (ported, launches={k_launches} on the "
           f"KITTI training paths, {c_launches} on the command lines' paths, "
-          f"{launches} in the slice-1 stream, bit-exact), "
-          f"proj_scatter (ported, launches={s_launches}: the training "
-          f"step's and the fit's, bit-exact)")
+          f"{p_ring} on pretraining's, {launches} in the slice-1 stream, "
+          f"bit-exact), proj_scatter (ported, launches={s_launches}: the "
+          f"training step's and the fit's, and {p_scatter} on "
+          f"pretraining's, bit-exact)")
+    s_launches += p_scatter
     k_ms, p_ms, bound_ms, k_worst = k_times[TRAIN_B * TRAIN_S]
     worst = max(worst, k_worst, k_times[PREFILL_CHUNK][3])
     sk_ms, sp_ms, s_bound_ms = s_times[TRAIN_B * TRAIN_S]
@@ -1734,7 +2158,7 @@ def main() -> int:
         "route": "cuda",
         "source": "deeplio_tpu_torch/csrc/ring_project.cu",
         "replaces": "deeplio_tpu/ops/projection_pallas_ring.py:62",
-        "launches": k_launches + c_launches,
+        "launches": k_launches + c_launches + p_ring,
         "max_abs_err": float(worst),
         "ms": k_ms,
         "plain_ms": p_ms,

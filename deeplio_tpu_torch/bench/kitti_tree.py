@@ -17,6 +17,14 @@ For each drive, ``<root>/<date>/<date>_drive_%04d_sync`` holds:
 
 Read back with ``KittiRawDrive(root, date, drive, max_points)``, the
 scans equal the synthetic drive's bit for bit.
+
+``write_labels`` adds SemanticKITTI label files for a written tree,
+``<labels_root>/<date>_drive_%04d/%010d.label``, one uint32 per point of
+the ``.bin``: the semantic id in the low 16 bits follows the geometry
+(``GROUND_ID`` below ``GROUND_Z``, ``BUILDING_ID`` above), with a few
+points unlabeled (0) and a few carrying ids at or above 2048 (3000 and
+0xFFFF), and an instance id in the high 16 bits. The tree's own files do
+not change.
 """
 
 from __future__ import annotations
@@ -32,6 +40,10 @@ from deeplio_tpu_torch.data.drives import SyntheticDrive
 
 DATE = "2011_10_03"
 _BASE = dt.datetime(2011, 10, 3, 12, 55, 34)
+GROUND_Z = -1.2
+GROUND_ID, BUILDING_ID = 40, 50          # SemanticKITTI road, building
+HIGH_IDS = (3000, 0xFFFF)                # ids a float16 holds inexactly
+UNLABELED_SHARE, HIGH_SHARE = 0.02, 0.002
 
 
 def write_timestamps(path: str, times: Iterable[float]) -> None:
@@ -45,6 +57,19 @@ def write_timestamps(path: str, times: Iterable[float]) -> None:
 
 def drive_dir(root: str, date: str, drive: int) -> str:
     return os.path.join(root, date, f"{date}_drive_{drive:04d}_sync")
+
+
+def scan_labels(xyz: np.ndarray, seed: int) -> np.ndarray:
+    """SemanticKITTI labels (uint32 [n]) of a scan's points [n, 3]."""
+    rng = np.random.default_rng(seed)
+    n = xyz.shape[0]
+    sem = np.where(xyz[:, 2] < GROUND_Z, GROUND_ID, BUILDING_ID)
+    u = rng.uniform(size=n)
+    sem = np.where(u < UNLABELED_SHARE, 0, sem)
+    high = u > 1.0 - HIGH_SHARE
+    sem = np.where(high, rng.choice(HIGH_IDS, n), sem).astype(np.uint32)
+    inst = rng.integers(0, 1 << 16, n, dtype=np.uint32)
+    return sem | (inst << np.uint32(16))
 
 
 def write_drive(root: str, drive: int, source: SyntheticDrive,
@@ -80,6 +105,28 @@ def write_drive(root: str, drive: int, source: SyntheticDrive,
         with open(os.path.join(oxts, "data", f"{k:010d}.txt"), "w") as f:
             f.write(" ".join(f"{v:.17g}" for v in r) + "\n")
     return base
+
+
+def write_labels(root: str, labels_root: str, drives: Iterable[int],
+                 date: str = DATE, workers: int = 8) -> None:
+    """Label files for ``drives`` of ``date`` already under ``root``, from
+    their ``.bin`` scans (frame i of drive d drawn with seed
+    ``d * 100000 + i``)."""
+    for drive in drives:
+        velo = os.path.join(drive_dir(root, date, drive), "velodyne_points",
+                            "data")
+        out = os.path.join(labels_root, f"{date}_drive_{drive:04d}")
+        os.makedirs(out, exist_ok=True)
+
+        def one(name: str) -> None:
+            i = int(name[:-len(".bin")])
+            pts = np.fromfile(os.path.join(velo, name), np.float32)
+            scan_labels(pts.reshape(-1, 4)[:, :3], drive * 100_000 + i
+                        ).tofile(os.path.join(out, f"{i:010d}.label"))
+
+        with ThreadPoolExecutor(workers) as pool:
+            list(pool.map(one, sorted(f for f in os.listdir(velo)
+                                      if f.endswith(".bin"))))
 
 
 def make_tree(root: str, drives: Iterable[int], n_frames: int,

@@ -1,3 +1,3 @@
 """Command-line entry points: ``python -m deeplio_tpu_torch.cli.train``,
-``.test``, ``.stream`` and ``.export`` (the JAX package's flags; each
-takes ``--device cuda|cpu``, CUDA by default)."""
+``.test``, ``.stream``, ``.export`` and ``.pretrain_pointseg`` (the JAX
+package's flags; each takes ``--device cuda|cpu``, CUDA by default)."""

@@ -6,7 +6,9 @@ for the settings the port computes: the projection, the channel stack and
 its normalization, the window (``sequence-size``, ``combinations``,
 ``window-stride``), yaw augmentation, the KITTI ``root-path`` and split
 lists (``{date: [drive | {drive, start, end}, ...]}`` or ``{sequences:
-["00", ...]}``), the synthetic drives, the DeepLIO model with its dropout
+["00", ...]}``), the synthetic drives, the segmentation labels of PointSeg
+pretraining (``labels-path``, ``label-map``, ``labels-num-classes``), the
+DeepLIO model with its dropout
 and warm starts, the pose loss, the optimizer with its plateau schedule,
 and the ``train`` block of the training loop with its projection cache and
 device-resident dataset.
@@ -149,6 +151,14 @@ class DatasetConfig:
     synthetic_train_drives: int = 2
     synthetic_eval_drives: int = 1
     synthetic_world: str = "origin"
+    # SemanticKITTI-format per-point labels for PointSeg pretraining
+    # (train/pretrain.py): <labels-path>/<drive name>/<frame>.label, one
+    # uint32 a point, the low 16 bits the semantic id; empty = geometric
+    # pseudo-labels. ``label-map`` remaps raw ids to train ids (ids not
+    # listed map to 0, unlabeled).
+    labels_path: str = ""
+    label_map: Dict[int, int] = field(default_factory=dict)
+    labels_num_classes: int = 20
 
     @property
     def num_image_channels(self) -> int:
@@ -250,6 +260,10 @@ class DatasetConfig:
             synthetic_train_drives=int(_get(d, "synthetic-train-drives", 2)),
             synthetic_eval_drives=int(_get(d, "synthetic-eval-drives", 1)),
             synthetic_world=world,
+            labels_path=str(_get(d, "labels-path", "")),
+            label_map={int(k): int(v)
+                       for k, v in (_get(d, "label-map", {}) or {}).items()},
+            labels_num_classes=int(_get(d, "labels-num-classes", 20)),
         )
 
 

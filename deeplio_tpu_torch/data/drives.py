@@ -157,11 +157,23 @@ class KittiRawDrive(Drive):
         valid[:n] = True
         return pts, valid
 
-    def labels(self, i: int, labels_path: str):
-        raise ValueError(
-            "per-point KITTI labels are not supported by the PyTorch port "
-            "yet; the pretraining slice (ROADMAP.md Queue 1 item 4b) adds "
-            "them with PointSeg pretraining")
+    def labels(self, i: int, labels_path: str) -> Optional[np.ndarray]:
+        """SemanticKITTI per-point labels of frame i, aligned with
+        :meth:`points` (int32 [max_points], 0 past the file's points), or
+        None when ``<labels_path>/<drive name>/<frame>.label`` is absent.
+
+        The file holds one uint32 a point: the low 16 bits are the
+        semantic id, the high 16 the instance id, which is dropped.
+        """
+        path = os.path.join(labels_path, self.name,
+                            f"{self.start + i:010d}.label")
+        if not os.path.exists(path):
+            return None
+        raw = np.fromfile(path, dtype=np.uint32) & 0xFFFF
+        n = min(raw.shape[0], self.max_points)
+        out = np.zeros(self.max_points, np.int32)
+        out[:n] = raw[:n].astype(np.int32)
+        return out
 
     def frame_time(self, i: int) -> float:
         return float(self.velo_times[self.start + i])

@@ -1,5 +1,5 @@
 """PointSeg building blocks (counterpart of ``deeplio_tpu/models/blocks.py``:
-``ConvBN``, ``SELayer``, classic ``Fire`` and ``ASPP``).
+``ConvBN``, ``SELayer``, classic ``Fire``, ``FireDeconv`` and ``ASPP``).
 
 Modules take NCHW tensors. Submodules carry the names flax gives the
 matching parameters (``Conv_0``, ``BatchNorm_0``, ``Dense_0``...), so
@@ -8,6 +8,8 @@ matching parameters (``Conv_0``, ``BatchNorm_0``, ``Dense_0``...), so
 Convolutions use flax's SAME padding, which is asymmetric for a strided
 kernel (the extra row or column goes at the bottom/right); PyTorch's
 ``padding=`` is symmetric, so :class:`SameConv2d` pads explicitly.
+Transposed convolutions follow flax's ``ConvTranspose(padding="SAME")``
+(:class:`SameConvTranspose2d`).
 """
 
 from __future__ import annotations
@@ -54,6 +56,42 @@ class SameConv2d(nn.Conv2d):
         x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
         return F.conv2d(x, self.weight, self.bias, self.stride, 0,
                         self.dilation)
+
+
+def transpose_pads(kernel: int, stride: int) -> Pair:
+    """``lax.conv_transpose``'s SAME padding (before, after) of the
+    stride-dilated input along one axis."""
+    total = kernel + stride - 2
+    before = kernel - 1 if stride > kernel - 1 else -(-total // 2)
+    return before, total - before
+
+
+class SameConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` computing flax's ``ConvTranspose`` with SAME
+    padding: output size = input size x stride.
+
+    Flax cross-correlates the stride-dilated input, padded (a, b) as
+    :func:`transpose_pads` says, with its kernel ``[kh, kw, I, O]`` as it
+    stands; PyTorch's transposed convolution runs the same correlation
+    with its ``weight [I, O, kh, kw]`` flipped in both spatial dims and
+    ``padding = k - 1 - a`` on each side, plus ``output_padding = b - a``
+    at the bottom/right. So ``weight = kernel[::-1, ::-1]`` laid out as
+    ``[I, O, kh, kw]`` (``models/from_flax.py`` converts).
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel=(1, 4),
+                 stride=(1, 2)):
+        kernel, stride = _pair(kernel), _pair(stride)
+        pads = [transpose_pads(k, s) for k, s in zip(kernel, stride)]
+        for k, s, (a, b) in zip(kernel, stride, pads):
+            if a > k - 1 or not 0 <= b - a < s:
+                raise ValueError(f"SAME transposed conv kernel {k} stride "
+                                 f"{s}: pads ({a}, {b}) have no PyTorch "
+                                 f"padding")
+        super().__init__(in_channels, out_channels, kernel, stride=stride,
+                         padding=tuple(k - 1 - a for k, (a, _) in
+                                       zip(kernel, pads)),
+                         output_padding=tuple(b - a for a, b in pads))
 
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):
@@ -128,6 +166,25 @@ class Fire(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = self.ConvBN_0(x)
         return F.relu(torch.cat([self.Conv_0(s), self.Conv_1(s)], dim=1))
+
+
+class FireDeconv(nn.Module):
+    """Decoder Fire that doubles the width: 1x1 squeeze -> ReLU -> (1, 4)
+    transposed conv at stride (1, 2) -> ReLU -> parallel 1x1 and 3x3
+    expands, concatenated, ReLU. Every conv has a bias; no BatchNorm."""
+
+    def __init__(self, in_channels: int, squeeze: int, expand1: int,
+                 expand3: int):
+        super().__init__()
+        self.Conv_0 = SameConv2d(in_channels, squeeze, (1, 1))
+        self.ConvTranspose_0 = SameConvTranspose2d(squeeze, squeeze, (1, 4),
+                                                   (1, 2))
+        self.Conv_1 = SameConv2d(squeeze, expand1, (1, 1))
+        self.Conv_2 = SameConv2d(squeeze, expand3, (3, 3))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = F.relu(self.ConvTranspose_0(F.relu(self.Conv_0(x))))
+        return F.relu(torch.cat([self.Conv_1(s), self.Conv_2(s)], dim=1))
 
 
 class ASPP(nn.Module):

@@ -7,6 +7,9 @@ loads it into a module whose submodules carry the flax names (every
 module of ``deeplio_tpu_torch.models`` does). The layouts:
 
     conv ``kernel`` [kh, kw, I, O]      -> ``weight`` [O, I, kh, kw]
+    ConvTranspose ``kernel`` [kh, kw, I, O]
+                                        -> ``weight`` [I, O, kh, kw],
+                                           flipped in kh and kw
     Dense ``kernel`` [I, O]             -> ``weight`` [O, I]
     BN ``scale`` / ``bias``             -> ``weight`` / ``bias``
     BN stats ``mean`` / ``var``         -> ``running_mean`` / ``running_var``
@@ -51,6 +54,14 @@ def _target(mod: nn.Module, collection: str, leaf: str,
         if isinstance(mod, nn.Conv2d):
             if leaf == "kernel" and value.ndim == 4:
                 return "weight", value.transpose(3, 2, 0, 1)
+            if leaf == "bias":
+                return "bias", value
+        elif isinstance(mod, nn.ConvTranspose2d):
+            # flax correlates with the kernel as it stands, PyTorch's
+            # transposed conv with its weight flipped (blocks.py::
+            # SameConvTranspose2d)
+            if leaf == "kernel" and value.ndim == 4:
+                return "weight", value[::-1, ::-1].transpose(2, 3, 0, 1)
             if leaf == "bias":
                 return "bias", value
         elif isinstance(mod, nn.Linear):
@@ -118,6 +129,11 @@ def _source(mod: nn.Module, name: str, value: np.ndarray
             return "params", "kernel", value.transpose(2, 3, 1, 0)
         if name == "bias":
             return "params", "bias", value
+    elif isinstance(mod, nn.ConvTranspose2d):
+        if name == "weight":
+            return "params", "kernel", value.transpose(2, 3, 0, 1)[::-1, ::-1]
+        if name == "bias":
+            return "params", "bias", value
     elif isinstance(mod, nn.Linear):
         if name == "weight":
             return "params", "kernel", value.T
@@ -148,5 +164,5 @@ def to_flax_variables(model: nn.Module) -> Dict[str, Dict[str, Any]]:
         node = out[collection]
         for p in path:
             node = node.setdefault(p, {})
-        node[leaf] = np.ascontiguousarray(value)
+        node[leaf] = np.array(value, order="C")   # a copy, also on the CPU
     return {k: v for k, v in out.items() if v}

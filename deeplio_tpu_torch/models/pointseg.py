@@ -1,23 +1,43 @@
-"""PointSeg encoder (counterpart of ``deeplio_tpu/models/pointseg.py``:
-``PointSegEncoder`` at ``stem=classic``, ``pool=stride``, and
-``PointSegNet`` at ``part=encoder``).
+"""PointSeg (counterpart of ``deeplio_tpu/models/pointseg.py``:
+``PointSegEncoder`` at ``stem=classic``, ``pool=stride``, the
+``PointSegDecoder`` and ``PointSegNet``).
 
 ``pool=stride``: no pooling ops; each stage's entry Fire downsamples the
 azimuth with a (1, 2)-strided squeeze conv. NCHW in, NCHW out.
+
+``PointSegNet`` is used two ways, as in the JAX package: as the odometry
+model's LiDAR encoder (``part="encoder"``, no classes: the bottleneck
+feature map, with exactly the encoder's parameters), and as the
+standalone segmentation net that pretrains that encoder
+(``part="encoder+decoder"`` with ``num_classes``: per-pixel logits at the
+input's resolution, ``train/pretrain.py``).
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 from torch import nn
 
-from deeplio_tpu_torch.models.blocks import ASPP, ConvBN, Fire, SELayer
+from deeplio_tpu_torch.models.blocks import (
+    ASPP,
+    ConvBN,
+    Fire,
+    FireDeconv,
+    SameConv2d,
+    SameConvTranspose2d,
+    SELayer,
+)
+
+PARTS = ("encoder", "encoder+decoder")
 
 
 class PointSegEncoder(nn.Module):
     """Strided 3x3 stem + eight Fires (two SE blocks, two residuals) + ASPP.
 
-    Output: [B, 512, H / h_stride, W / (8 * w_stride)].
+    Output: the bottleneck [B, 512, H / h_stride, W / (8 * w_stride)] and
+    the skips (c1, f3, f5) at widths W / w_stride, / 2 and / 4 of that.
     """
 
     def __init__(self, in_channels: int, h_stride: int = 1, w_stride: int = 2,
@@ -41,7 +61,8 @@ class PointSegEncoder(nn.Module):
             self.SELayer_1 = SELayer(256)
         self.ASPP_0 = ASPP(512, 512, squeeze=el_squeeze)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
         c1 = self.ConvBN_0(x)
         f2 = self.Fire_0(c1)
         f3 = self.Fire_1(f2)
@@ -57,15 +78,74 @@ class PointSegEncoder(nn.Module):
         f7 = self.Fire_5(f6)
         f8 = self.Fire_6(f7)
         f9 = self.Fire_7(f8)
-        return self.ASPP_0(f9)
+        return self.ASPP_0(f9), (c1, f3, f5)
+
+
+class PointSegDecoder(nn.Module):
+    """Three FireDeconvs, each doubling the width, with the encoder's skips
+    added back: bottleneck -> [B, 64, H / h_stride, W / w_stride]."""
+
+    def __init__(self):
+        super().__init__()
+        self.FireDeconv_0 = FireDeconv(512, 64, 128, 128)
+        self.FireDeconv_1 = FireDeconv(256, 32, 64, 64)
+        self.FireDeconv_2 = FireDeconv(128, 16, 32, 32)
+
+    def forward(self, x: torch.Tensor,
+                skips: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+        c1, f3, f5 = skips
+        d10 = self.FireDeconv_0(x) + f5
+        d11 = self.FireDeconv_1(d10) + f3
+        return self.FireDeconv_2(d11) + c1
+
+
+def head_kernel(h_stride: int, w_stride: int) -> Tuple[int, int]:
+    """The classifier's transposed-conv kernel: (1, 4) at strides (1, 2),
+    as existing checkpoints have it, else (2 h or 1, 2 w)."""
+    if (h_stride, w_stride) == (1, 2):
+        return 1, 4
+    return (1 if h_stride == 1 else 2 * h_stride), 2 * w_stride
 
 
 class PointSegNet(nn.Module):
-    """PointSeg at ``part=encoder``: the bottleneck feature map."""
+    """Encoder (+ decoder) (+ classifier head).
 
-    def __init__(self, in_channels: int, **encoder_kw):
+    ``part="encoder"`` with no classes: the bottleneck feature map.
+    ``part="encoder+decoder"``: the decoder's per-pixel features.
+    ``num_classes``: the decoder, then ``ConvTranspose_0`` (the stem's
+    strides) back to the input's resolution and the 1x1 ``Conv_0`` to
+    [B, num_classes, H, W] logits. ``Conv_0`` runs in float32 outside any
+    autocast region, on a float32 input, as the JAX package's
+    ``dtype=float32`` head does; ``ConvTranspose_0`` runs in the compute
+    dtype.
+    """
+
+    def __init__(self, in_channels: int, part: str = "encoder",
+                 num_classes: Optional[int] = None, h_stride: int = 1,
+                 w_stride: int = 2, with_se: bool = True,
+                 el_squeeze: int = 0):
         super().__init__()
-        self.encoder = PointSegEncoder(in_channels, **encoder_kw)
+        if part not in PARTS:
+            raise ValueError(f"part must be {'|'.join(PARTS)}, got {part!r}")
+        self.part, self.num_classes = part, num_classes
+        self.encoder = PointSegEncoder(in_channels, h_stride, w_stride,
+                                       with_se, el_squeeze)
+        if part == "encoder" and num_classes is None:
+            return
+        self.decoder = PointSegDecoder()
+        if num_classes is not None:
+            self.ConvTranspose_0 = SameConvTranspose2d(
+                64, 64, head_kernel(h_stride, w_stride),
+                (h_stride, w_stride))
+            self.Conv_0 = SameConv2d(64, num_classes, (1, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.encoder(x)
+        feat, skips = self.encoder(x)
+        if self.part == "encoder" and self.num_classes is None:
+            return feat
+        dec = self.decoder(feat, skips)
+        if self.num_classes is None:
+            return dec
+        up = self.ConvTranspose_0(dec)
+        with torch.autocast(up.device.type, enabled=False):
+            return self.Conv_0(up.float())

@@ -91,8 +91,12 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     +-1/sqrt(H), and the ``q_out`` bias at the identity quaternion."""
     with torch.no_grad():
         for name, mod in model.named_modules():
-            if isinstance(mod, (nn.Conv2d, nn.Linear)):
-                fan_in = mod.weight[0].numel()
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                # a transposed conv's weight is [I, O, kh, kw]; flax's
+                # kernel [kh, kw, I, O] has fan-in kh * kw * I
+                fan_in = (mod.weight[:, 0].numel()
+                          if isinstance(mod, nn.ConvTranspose2d)
+                          else mod.weight[0].numel())
                 std = math.sqrt(1.0 / fan_in) / .87962566103423978
                 nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std,
                                       2 * std, generator=generator)

@@ -1,5 +1,6 @@
 """Training: the optimizer and schedule, the train state, the train and
-eval steps, checkpoints and the ``Trainer`` loop."""
+eval steps, checkpoints, the ``Trainer`` loop and PointSeg pretraining
+(``train/pretrain.py``)."""
 
 from deeplio_tpu_torch.train.loop import Trainer
 

@@ -257,3 +257,91 @@ def test_flags_match_jax():
     assert (args.epochs, args.lr, args.batch_size, args.seed) == \
         (jargs.epochs, jargs.lr, jargs.batch_size, jargs.seed)
     assert args.device == "cuda"                   # the card by default
+
+
+# ------------------------------------------------------------ pretraining
+
+def write_pretrain_config(root, **pointseg):
+    """The kitti-tpu file at 16x128, float32, on a devkit tree of one
+    ring-ordered drive of 6 frames with SemanticKITTI label files, drive
+    27 as the train and validation split (windows of 3 at stride 2)."""
+    from deeplio_tpu_torch.bench.kitti_tree import (
+        DATE,
+        make_tree,
+        write_labels,
+    )
+    if not (root / DATE).exists():
+        make_tree(str(root), [27], n_frames=6, max_points=1024, rings=16,
+                  world_points=4000)
+        write_labels(str(root), str(root / "labels"), [27])
+    with open(KITTI_TPU) as f:
+        d = yaml.safe_load(f)
+    d["compute-dtype"] = "float32"
+    d["datasets"].update({
+        "image-height": 16, "image-width": 128, "max-points": 1024,
+        "sequence-size": 3, "window-stride": 2,
+        "kitti": {"root-path": str(root), "train": {DATE: [27]},
+                  "validation": {DATE: [27]}},
+        "labels-path": str(root / "labels"), "label-map": {40: 1, 50: 2},
+        "labels-num-classes": 3})
+    d["lidar-feat-pointseg"].update(pointseg)
+    d["train"].update({"batch-size": 2, "log-every": 1})
+    path = root / ("graft.yaml" if pointseg else "pretrain.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(d, f)
+    return str(path)
+
+
+def test_pretrain_cli_snapshot_grafts_into_trainer(tmp_path):
+    """``cli.pretrain_pointseg --device cpu`` writes an encoder snapshot;
+    a ``Trainer`` with ``pretrained: true, model-path`` starts from it:
+    its encoder holds the snapshot, its other tensors the seeded init, and
+    it trains a step."""
+    from deeplio_tpu_torch.cli import pretrain_pointseg as pre_cli
+    from deeplio_tpu_torch.train import Trainer
+    out = tmp_path / "pre"
+    res = pre_cli.main(["-c", write_pretrain_config(tmp_path), "--out",
+                        str(out), "--steps", "2", "--batch-size", "2",
+                        "--device", "cpu"])
+    assert len(res["losses"]) == 2 and np.isfinite(res["losses"]).all()
+    saved = torch.load(out / "params.pt", weights_only=True)
+    cfg = load_config(write_pretrain_config(
+        tmp_path, pretrained=True, **{"model-path": str(out)}))
+    trainer = Trainer(cfg, workdir=str(tmp_path / "run"), device="cpu")
+    try:
+        got = trainer.state.model.state_dict()
+        init = build_model(cfg, device="cpu", seed=cfg.train.seed)
+        enc = "lidar_feat.pointseg.encoder."
+        assert all(torch.equal(got[enc + k[len("encoder."):]], v)
+                   for k, v in saved.items())
+        rest = [k for k in got if not k.startswith(enc)]
+        assert rest and all(torch.equal(got[k], init.state_dict()[k])
+                            for k in rest)
+        trainer.fit(epochs=1)
+        assert trainer.step == 1
+    finally:
+        trainer.close()
+
+
+def test_pretrain_flags_match_jax(monkeypatch):
+    """The same flags give the same ``pretrain_pointseg`` arguments."""
+    from deeplio_tpu.cli import pretrain_pointseg as jax_pre_cli
+    from deeplio_tpu_torch.cli import pretrain_pointseg as pre_cli
+    seen = {}
+
+    def capture(name):
+        def fn(cfg, out_dir, **kw):
+            seen[name] = dict(kw, out_dir=out_dir)
+            return {"loss": 0.0, "acc": 0.0}
+        return fn
+    monkeypatch.setattr(jax_pre_cli, "load_config", lambda p: None)
+    monkeypatch.setattr(jax_pre_cli, "pretrain_pointseg", capture("jax"))
+    monkeypatch.setattr(pre_cli, "load_config", lambda p: None)
+    monkeypatch.setattr(pre_cli, "pretrain_pointseg", capture("port"))
+    for flags in ([], ["--steps", "3", "--batch-size", "2", "--lr", "0.5",
+                       "--seed", "9"]):
+        argv = ["-c", "x.yaml", "--out", "o"] + flags
+        jax_pre_cli.main(argv)
+        pre_cli.main(argv)
+        assert seen["port"].pop("device") == "cuda"   # the card by default
+        assert seen["port"] == seen["jax"]

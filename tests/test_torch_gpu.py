@@ -667,3 +667,67 @@ def test_artifact_on_the_card_equals_streaming_run(cuda, kitti_root,
     assert tring.ring_select.launches - before == 12     # 3 chunks of 4
     for got, w in zip((np.concatenate(o) for o in zip(*outs)), want):
         np.testing.assert_array_equal(got, w)
+
+
+# ------------------------------------------------------------ pretraining
+
+class _First:
+    """A selection that passes through and keeps its first call's inputs
+    and outputs."""
+
+    def __init__(self, op):
+        self.op, self.first = op, None
+
+    def __call__(self, *args):
+        out = self.op(*args)
+        if self.first is None:
+            self.first = (args, [o.clone() for o in out])
+        return out
+
+
+@pytest.mark.parametrize("with_labels", [True, False])
+def test_pretrain_step_launches_each_kernel_once(cuda, monkeypatch,
+                                                 with_labels):
+    """One bf16 pretraining step of 2 ring scans at 16x128: one ring
+    launch (the model input) and one scatter launch (the label image),
+    each selection bit-equal to its plain version on the same words, the
+    label image bit-equal to the plain route's, a finite loss."""
+    from deeplio_tpu_torch.config import load_config_dict
+    from deeplio_tpu_torch.train import pretrain as tpre
+    with open(KITTI_TPU) as f:
+        d = yaml.safe_load(f)
+    d["datasets"].update({"image-height": 16, "image-width": 128,
+                          "max-points": 2048})
+    cfg = load_config_dict(d)
+    rng = np.random.default_rng(7)
+    pts = synthetic_ring_batch(rng, 2, 2048, rings=16)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(pts[..., c])).to(cuda)
+             for c, k in enumerate(tpre.PLANES)}
+    batch["points_valid"] = torch.ones(2, 2048, dtype=torch.bool,
+                                       device=cuda)
+    if with_labels:
+        batch["labels"] = torch.from_numpy(rng.integers(
+            0, 20, (2, 2048)).astype(np.int32)).to(cuda)
+    k = 20 if with_labels else tpre.NUM_CLASSES
+    model = tpre.build_pointseg(cfg, k).to(cuda)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3, eps=tpre.ADAM_EPS)
+    step = tpre.build_pretrain_step(cfg, model, opt, k)
+    ring, scatter = _First(tring.ring_select), _First(tsc.scatter_select)
+    monkeypatch.setattr(tring, "ring_select", ring)
+    monkeypatch.setattr(tsc, "scatter_select", scatter)
+    torch.cuda.synchronize()
+    r0, s0 = tring._OP.launches, tsc._OP.launches
+    loss, acc = step(batch)
+    torch.cuda.synchronize()
+    assert (tring._OP.launches - r0, tsc._OP.launches - s0) == (1, 1)
+    assert np.isfinite(float(loss)) and 0.0 <= float(acc) <= 1.0
+    for spy, plain in ((ring, tring.ring_select_reference),
+                       (scatter, tsc.scatter_select_reference)):
+        args, got = spy.first
+        for a, b in zip(got, plain(*args)):
+            assert torch.equal(a, b)
+    args = ([batch[k] for k in tpre.PLANES], batch["points_valid"],
+            batch.get("labels"), 16, 128, 3.0, -25.0)
+    kernel = tpre.label_image(*args, select=tsc._OP)
+    plain = tpre.label_image(*args, select=tsc.scatter_select_reference)
+    assert torch.equal(kernel, plain) and kernel.any()

@@ -94,11 +94,46 @@ def test_truncation_and_drive_local_origin(tree):
 
 
 def test_labels_and_slot_grid_raise_naming_their_items(tree):
+    """Slot binning still raises naming its item; labels, ported with
+    pretraining, no longer raise: a frame with no label file gives None,
+    as in the JAX package."""
     d = KittiRawDrive(tree, DATE, 27, max_points=1024)
-    with pytest.raises(ValueError, match="Queue 1 item 4"):
-        d.labels(0, str(tree))
+    assert d.labels(0, str(tree)) is None
     with pytest.raises(ValueError, match="Queue 1 item 5"):
         KittiRawDrive(tree, DATE, 27, slot_grid=(64, 1024, 3.0, -25.0))
+
+
+@pytest.mark.parametrize("span", [(0, -1), (2, 4)])
+@pytest.mark.parametrize("max_points", [8192, 1024])
+def test_labels_match_jax(tree, tmp_path, max_points, span):
+    """SemanticKITTI label files (uint32, instance ids in the high 16
+    bits): the low 16 bits, zero-padded to (or truncated at) max_points,
+    frames offset by the span's start; a missing file gives None."""
+    d0 = KittiRawDrive(tree, DATE, 27)
+    labdir = tmp_path / d0.name
+    labdir.mkdir()
+    rng = np.random.default_rng(max_points)
+    for i in range(len(d0)):
+        if i == 3:
+            continue                       # frame 3 has no label file
+        n = int(d0.points(i)[1].sum())
+        raw = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+        raw[:4] = [0, 0xFFFF, 0x1234FFFF, 40 | (7 << 16)]
+        raw.tofile(labdir / f"{i:010d}.label")
+    start, end = span
+    d = KittiRawDrive(tree, DATE, 27, max_points=max_points, start=start,
+                      end=end)
+    j = JaxKittiRawDrive(tree, DATE, 27, max_points=max_points, start=start,
+                         end=end)
+    for i in range(len(d)):
+        got, want = d.labels(i, str(tmp_path)), j.labels(i, str(tmp_path))
+        if start + i == 3:
+            assert got is None and want is None
+            continue
+        assert _same(got, want) and got.shape == (max_points,), i
+        assert got.max() <= 0xFFFF
+        if max_points == 8192:
+            assert not got[int(d.points(i)[1].sum()):].any()
 
 
 def kitti_dict(root, train, validation=None, **datasets):

@@ -2,16 +2,18 @@
 ``deeplio_tpu/config/schema.py``).
 
 Reads the same YAML keys as the JAX package (hyphenated or underscored)
-for the settings the port computes: the projection, the channel stack and
-its normalization, the window (``sequence-size``, ``combinations``,
-``window-stride``), yaw augmentation, the KITTI ``root-path`` and split
-lists (``{date: [drive | {drive, start, end}, ...]}`` or ``{sequences:
-["00", ...]}``), the synthetic drives, the segmentation labels of PointSeg
-pretraining (``labels-path``, ``label-map``, ``labels-num-classes``), the
-DeepLIO model with its dropout
-and warm starts, the pose loss, the optimizer with its plateau schedule,
-and the ``train`` block of the training loop with its projection cache and
-device-resident dataset.
+for the settings the port computes: the three model archs (``deepio``,
+``deeplo``, ``deeplio``) with their blocks, the projection, the channel
+stack and its normalization, the window (``sequence-size``,
+``combinations``, ``window-stride``), yaw augmentation, the KITTI
+``root-path`` and split lists (``{date: [drive | {drive, start, end},
+...]}`` or ``{sequences: ["00", ...]}``), the synthetic drives and their
+world, the segmentation labels of PointSeg pretraining (``labels-path``,
+``label-map``, ``labels-num-classes``), the LiDAR towers (PointSeg with
+its ``classic``, ``cheap`` and ``stride`` pools, ``lidar-feat-simple-0``
+and ``-1``), their dropout and warm starts, the pose loss, the optimizer
+with its plateau schedule, and the ``train`` block of the training loop
+with its projection cache and device-resident dataset.
 
 A setting that would change what the port computes, and that the port
 cannot compute yet, raises ``ConfigError`` (a ``ValueError``) naming the
@@ -45,7 +47,11 @@ ODOMETRY_SEQUENCES: Dict[str, Tuple[str, int, int, int]] = {
 _LATER_PROJECTION = "a later projection slice (ROADMAP.md Queue 1 item 5)"
 _LATER_VARIANTS = "the model-variants slice (ROADMAP.md Queue 1 item 5)"
 _LATER_DP = "the data-parallel slice (ROADMAP.md Queue 1 item 6)"
-BACKENDS = ("pallas-ring", "pallas")
+BACKENDS = ("pallas-ring", "pallas", "sort")
+POOLS = ("classic", "cheap", "stride")
+LIDAR_NETS = ("lidar-feat-pointseg", "lidar-feat-simple-0",
+              "lidar-feat-simple-1")
+ARCHS = ("deepio", "deeplo", "deeplio")
 
 
 class ConfigError(ValueError):
@@ -87,13 +93,18 @@ class ProjectionConfig:
     fov_up_deg: float = 3.0
     fov_down_deg: float = -25.0
     max_points: int = 131072
-    # Both kernel routes always carry packed-f16 payloads, so ``packed``
-    # does not change their result (as in the JAX package's pallas and
-    # pallas-ring backends).
+    # The pallas and pallas-ring routes always carry packed-f16 payloads,
+    # so ``packed`` does not change their result (as in the JAX package);
+    # ``sort`` carries packed-f16 words when it is set, exact float32
+    # channels when not.
     packed: bool = False
     # pallas-ring: ring-ordered scans (ops/projection_ring.py);
-    # pallas: scans in any order (ops/projection_scatter.py).
-    backend: str = "pallas-ring"
+    # pallas and sort: scans in any order (ops/projection_scatter.py).
+    backend: str = "sort"
+    # scans per chunk of the JAX package's batched projector: it only
+    # schedules the work (the winners are the same), so the port projects
+    # a batch in one launch whatever it is
+    chunk: int = 16
     # ``kernel-spb`` and ``kernel-packed`` only choose how the TPU kernel
     # schedules and encodes its work; its results are bit-identical either
     # way. They are parsed and validated here and have no effect in the
@@ -184,6 +195,7 @@ class DatasetConfig:
             max_points=int(_get(d, "max-points", 131072)),
             packed=bool(_get(d, "packed", False)),
             backend=str(_get(d, "backend", "sort")),
+            chunk=int(_get(d, "projection-chunk", 16)),
             kernel_spb=int(_get(d, "kernel-spb", 1)),
             kernel_packed=str(_get(d, "kernel-packed", "auto")),
             kernel_aligned=str(_get(d, "kernel-aligned", "off")),
@@ -208,9 +220,7 @@ class DatasetConfig:
         if bool(_get(d, "slot-bin", False)):
             raise _unsupported("slot-bin", _LATER_VARIANTS)
         world = str(_get(d, "synthetic-world", "origin"))
-        if world == "corridor":
-            raise _unsupported("synthetic-world corridor", _LATER_VARIANTS)
-        if world != "origin":
+        if world not in ("origin", "corridor"):
             raise ConfigError(f"synthetic-world must be origin|corridor, "
                               f"got {world!r}")
         channels = tuple(_get(d, "channels",
@@ -272,13 +282,17 @@ class LidarFeatConfig:
     name: str = "lidar-feat-pointseg"
     part: str = "encoder"
     feature_size: int = 512
+    base_channels: int = 64    # the simple towers' first width
     h_stride: int = 1
     w_stride: int = 2
     se: bool = True
     el_squeeze: int = 0
     stem: str = "classic"
     fire: str = "classic"
-    pool: str = "stride"
+    # classic: 3x3 max-pools at stride (1, 2) after the stem and the first
+    # two Fire stages; cheap: (1, 2) windows; stride: no pools, the
+    # stages' entry Fires carry the stride (models/pointseg.py)
+    pool: str = "classic"
     dropout: float = 0.0       # after the tower's Dense, training only
     # warm start of the PointSeg encoder from a snapshot
     # (train/checkpoint.py::load_pointseg_backbone)
@@ -287,8 +301,9 @@ class LidarFeatConfig:
 
     @staticmethod
     def from_dict(name: str, d: Dict[str, Any]) -> "LidarFeatConfig":
-        if name != "lidar-feat-pointseg":
-            raise _unsupported(f"lidar-feat-net {name!r}", _LATER_VARIANTS)
+        if name not in LIDAR_NETS:
+            raise ConfigError(f"lidar-feat-net must be "
+                              f"{'|'.join(LIDAR_NETS)}, got {name!r}")
         bypass = bool(_get(d, "bypass", False))
         part = str(_get(d, "part",
                         "encoder+decoder" if bypass else "encoder"))
@@ -297,14 +312,19 @@ class LidarFeatConfig:
         pool = str(_get(d, "pool", "classic"))
         for what, got, want in (("part", part, "encoder"),
                                 ("stem", stem, "classic"),
-                                ("fire", fire, "classic"),
-                                ("pool", pool, "stride")):
+                                ("fire", fire, "classic")):
             if got != want:
                 raise _unsupported(f"lidar {what}={got!r}", _LATER_VARIANTS)
+        if pool == "stride-fold":
+            raise _unsupported("lidar pool='stride-fold'", _LATER_VARIANTS)
+        if pool not in POOLS:
+            raise ConfigError(f"pool must be classic|cheap|stride|"
+                              f"stride-fold, got {pool!r}")
         return LidarFeatConfig(
             name=name,
             part=part,
             feature_size=int(_get(d, "feature-size", 512)),
+            base_channels=int(_get(d, "base-channels", 64)),
             h_stride=int(_get(d, "h-stride", 1)),
             w_stride=int(_get(d, "w-stride", 2)),
             se=bool(_get(d, "se", True)),
@@ -378,7 +398,7 @@ class OdomFeatConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    arch: str = "deeplio"
+    arch: str = "deeplio"      # deepio | deeplo | deeplio
     lidar: Optional[LidarFeatConfig] = None
     imu: Optional[ImuFeatConfig] = None
     fusion: Optional[FusionConfig] = None
@@ -389,6 +409,14 @@ class ModelConfig:
     # (train/checkpoint.py::load_params)
     pretrained: bool = False
     model_path: str = ""
+
+    @property
+    def uses_lidar(self) -> bool:
+        return self.arch in ("deeplo", "deeplio")
+
+    @property
+    def uses_imu(self) -> bool:
+        return self.arch in ("deepio", "deeplio")
 
 
 @dataclass(frozen=True)
@@ -545,19 +573,27 @@ class Config:
     def from_dict(d: Dict[str, Any]) -> "Config":
         datasets = DatasetConfig.from_dict(_get(d, "datasets", {}) or {})
         arch = str(_get(d, "arch", "deeplio")).lower()
-        if arch != "deeplio":
-            if arch in ("deepio", "deeplo"):
-                raise _unsupported(f"arch {arch!r}", _LATER_VARIANTS)
+        if arch not in ARCHS:
             raise ConfigError(
                 f"arch must be deepio|deeplo|deeplio, got {arch}")
         block: Dict[str, Any] = _get(d, arch, {}) or {}
-        lspec = _require(block, "lidar-feat-net", f"'{arch}' block")
-        lname = str(lspec if isinstance(lspec, str)
-                    else _get(lspec or {}, "name", "lidar-feat-pointseg"))
-        iname = _net_name(block, "imu-feat-net", "imu-feat-rnn")
+        # the blocks each arch has, as in the JAX package: DeepIO no LiDAR
+        # net, DeepLO no IMU net, only DeepLIO a fusion
+        lidar = imu = fusion = None
+        if arch in ("deeplo", "deeplio"):
+            lspec = _require(block, "lidar-feat-net", f"'{arch}' block")
+            lname = str(lspec if isinstance(lspec, str)
+                        else _get(lspec or {}, "name", "lidar-feat-pointseg"))
+            lidar = LidarFeatConfig.from_dict(lname, _get(d, lname, {}) or {})
+        if arch in ("deepio", "deeplio"):
+            iname = _net_name(block, "imu-feat-net", "imu-feat-rnn")
+            imu = ImuFeatConfig.from_dict(iname, _get(d, iname, {}) or {})
+        if arch == "deeplio":
+            if _get(block, "fusion-net") is None:
+                raise ConfigError("arch deeplio requires a fusion-net block")
+            fusion = FusionConfig.from_dict(_get(block, "fusion-net", {})
+                                            or {})
         oname = _net_name(block, "odom-feat-net", "odom-feat-rnn")
-        if _get(block, "fusion-net") is None:
-            raise ConfigError("arch deeplio requires a fusion-net block")
         compute = str(_get(d, "compute-dtype", "bfloat16"))
         if compute not in ("bfloat16", "float32", "float16"):
             raise ConfigError(f"compute-dtype must be bfloat16|float32|"
@@ -567,9 +603,9 @@ class Config:
             raise _unsupported(f"param-dtype={param!r}", _LATER_VARIANTS)
         model = ModelConfig(
             arch=arch,
-            lidar=LidarFeatConfig.from_dict(lname, _get(d, lname, {}) or {}),
-            imu=ImuFeatConfig.from_dict(iname, _get(d, iname, {}) or {}),
-            fusion=FusionConfig.from_dict(_get(block, "fusion-net", {}) or {}),
+            lidar=lidar,
+            imu=imu,
+            fusion=fusion,
             odom=OdomFeatConfig.from_dict(oname, _get(d, oname, {}) or {}),
             compute_dtype=compute,
             dropout=_rate(_get(block, "dropout", 0.25), "model dropout"),

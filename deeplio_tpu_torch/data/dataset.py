@@ -59,8 +59,8 @@ class WindowDataset:
 
     ``image_cache`` (a ``ProjectionCache``): the items carry the cached f16
     ``images`` [S, H, W, C] instead of the raw points, and the training
-    step skips its projection. ``with_points=False``: neither (no model of
-    the port reads such items yet).
+    step skips its projection. ``with_points=False``: neither (DeepIO's
+    items: the IMU windows and the ground truth only).
     """
 
     def __init__(self, ds_cfg: DatasetConfig, drives: Sequence[Drive],
@@ -204,7 +204,8 @@ def build_drives(cfg: Config, split: str) -> List[Drive]:
         n_frames = ds.synthetic_frames
         if split != "train" and ds.synthetic_eval_frames:
             n_frames = ds.synthetic_eval_frames
-        return [SyntheticDrive(n_frames=n_frames, max_points=n_pts, seed=sd)
+        return [SyntheticDrive(n_frames=n_frames, max_points=n_pts, seed=sd,
+                               world_mode=ds.synthetic_world)
                 for sd in seeds]
     split_map = {"train": ds.train, "validation": ds.validation,
                  "test": ds.test}
@@ -224,5 +225,8 @@ def build_drives(cfg: Config, split: str) -> List[Drive]:
 
 def build_dataset(cfg: Config, split: str,
                   image_cache=None) -> WindowDataset:
+    """A split's windows; with raw points for the LiDAR archs only (DeepIO
+    reads none)."""
     return WindowDataset(cfg.datasets, build_drives(cfg, split),
+                         with_points=cfg.model.uses_lidar,
                          image_cache=image_cache)

@@ -201,20 +201,30 @@ class SyntheticDrive(Drive):
     """Fabricated drive with self-consistent geometry (data/synthetic.py).
 
     With the same arguments it yields the same scans, IMU and poses as the
-    JAX package's ``SyntheticDrive``. ``rings > 0`` (an addition of the
-    port) emits each scan in spinning-sensor order, as KITTI's .bin files
-    are, so the ring projection sees the ordering it is built for.
+    JAX package's ``SyntheticDrive``; ``world_mode`` is ``origin`` (a
+    world around the start) or ``corridor`` (one along the whole
+    trajectory; ``world_points`` unused). ``rings > 0`` (an addition of
+    the port) emits each scan in spinning-sensor order, as KITTI's .bin
+    files are, so the ring projection sees the ordering it is built for.
     """
 
     def __init__(self, n_frames: int = 64, max_points: int = 16384,
                  seed: int = 0, world_points: int = 30000,
-                 name: str = "synth", rings: int = 0):
+                 name: str = "synth", rings: int = 0,
+                 world_mode: str = "origin"):
         self.max_points = max_points
         self.seed = seed
         self.rings = rings
         self.name = f"{name}_{seed}"
         self._Ts, self._times = syn.synthetic_trajectory(n_frames, seed=seed)
-        self._world = syn.synthetic_world(world_points, seed=seed)
+        if world_mode == "origin":
+            self._world = syn.synthetic_world(world_points, seed=seed)
+        elif world_mode == "corridor":
+            # along the trajectory: long drives stay populated
+            self._world = syn.synthetic_world_corridor(self._Ts, seed=seed)
+        else:
+            raise ValueError(f"unknown synthetic world mode {world_mode!r} "
+                             f"(expected 'origin' or 'corridor')")
         self._oxts = syn.synthetic_oxts(self._Ts, self._times, seed=seed)
         # Loader-equivalent poses: recompute from the OXTS records through
         # the mercator path a real loader takes (drive-local origin).

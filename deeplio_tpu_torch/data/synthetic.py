@@ -1,6 +1,7 @@
 """Synthetic KITTI-shaped fixtures (numpy copy of the parts of
-``deeplio_tpu/data/synthetic.py`` that the streaming slice needs:
-``synthetic_world``, ``synthetic_trajectory``, ``synthetic_oxts``,
+``deeplio_tpu/data/synthetic.py`` that the port needs:
+``synthetic_world``, ``synthetic_world_corridor``,
+``synthetic_trajectory``, ``synthetic_oxts``,
 ``synthetic_scan``, ``ring_order`` and ``synthetic_ring_batch``).
 
 A static world point cloud observed from a smooth trajectory, 100 Hz
@@ -51,6 +52,64 @@ def synthetic_world(num_points: int = 40000, seed: int = 0) -> np.ndarray:
     struct = np.concatenate(pts, 0)[:n_struct]
     world = np.concatenate([ground, struct], 0)
     return world.astype(np.float64)
+
+
+def synthetic_world_corridor(
+    Ts: np.ndarray,
+    seed: int = 0,
+    half_width: float = 60.0,
+    ground_density: float = 1.33,
+    max_points: int = 500_000,
+) -> np.ndarray:
+    """World geometry along a trajectory's corridor.
+
+    :func:`synthetic_world` fills a blob of ~60 m radius around the start,
+    so a drive longer than ~128 frames (~100 m) leaves it and its scans
+    go empty. Here ground and pillar points are scattered around anchors
+    taken every ~1 m of the whole path, at the origin world's density
+    (1.33 ground points per m^2) and mix (half ground, half pillars, the
+    same heights and jitters), so scans stay populated however long the
+    drive. The same draws as the JAX package's, in the same order.
+
+    Deterministic in (trajectory, seed). Returns [N, 3] float64.
+    """
+    rng = np.random.default_rng(seed)
+    path = Ts[:, :2, 3]
+    seg_len = np.linalg.norm(np.diff(path, axis=0), axis=1)
+    cum = np.concatenate([[0.0], np.cumsum(seg_len)])
+    length = float(cum[-1])
+    s = np.linspace(0.0, length, max(int(length), 2))
+    anchors = np.stack(
+        [np.interp(s, cum, path[:, 0]), np.interp(s, cum, path[:, 1])], -1
+    )
+
+    area = 2.0 * half_width * max(length, 1.0) + np.pi * half_width**2
+    n_ground = min(int(ground_density * area), max_points // 2)
+    n_struct = n_ground
+
+    def _disk(n: int, radius: float) -> np.ndarray:
+        # uniform points in a disk around random path anchors
+        idx = rng.integers(0, len(anchors), n)
+        rr = radius * np.sqrt(rng.uniform(0.0, 1.0, n))
+        th = rng.uniform(-np.pi, np.pi, n)
+        return anchors[idx] + np.stack([rr * np.cos(th), rr * np.sin(th)], -1)
+
+    gxy = _disk(n_ground, half_width)
+    ground = np.concatenate(
+        [gxy, -1.7 + 0.05 * rng.normal(size=(n_ground, 1))], -1
+    )
+
+    # Pillars: same per-area count as the origin world (60 per pi*60^2).
+    n_pillars = max(8, int(60.0 * area / (np.pi * half_width**2)))
+    centers = _disk(n_pillars, 0.85 * half_width)
+    per = max(n_struct // n_pillars, 1)
+    pts = []
+    for c in centers:
+        z = rng.uniform(-1.7, 2.5, per)
+        xy = c + 0.3 * rng.normal(size=(per, 2))
+        pts.append(np.concatenate([xy, z[:, None]], -1))
+    struct = np.concatenate(pts, 0)[:n_struct]
+    return np.concatenate([ground, struct], 0).astype(np.float64)
 
 
 def synthetic_trajectory(

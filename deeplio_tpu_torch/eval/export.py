@@ -44,14 +44,16 @@ def _dtype(t: torch.Tensor) -> str:
 
 def export_streaming(cfg, model, out_dir: str, chunk: int = 16,
                      device=None) -> str:
-    """Export the streaming chunk step of ``model`` (a DeepLIO) on
-    ``device`` (CUDA unless ``"cpu"``); returns the artifact dir.
+    """Export the streaming chunk step of ``model`` (a DeepLIO or a
+    DeepLO) on ``device`` (CUDA unless ``"cpu"``); returns the artifact
+    dir.
 
     The exported call is ``(*carry, points, valid, imu, imu_mask) ->
     (*carry, poses [c,4,4], dx [c,3], dq [c,4])`` with ``carry =
-    (prev_img, pose, started)``: exactly ``StreamingStep``, weights inside.
+    (prev_img, pose, started)``, DeepLO's without ``imu`` and
+    ``imu_mask``: exactly ``StreamingStep``, weights inside.
     """
-    from deeplio_tpu_torch.eval.streaming import CHUNK_KEYS, StreamingOdometry
+    from deeplio_tpu_torch.eval.streaming import StreamingOdometry
 
     so = StreamingOdometry(cfg, model, chunk=chunk, device=device)
     carry = so.init_carry()
@@ -64,7 +66,7 @@ def export_streaming(cfg, model, out_dir: str, chunk: int = 16,
     ex = {k: v.to(so.device) for k, v in ex.items()}
     with torch.no_grad():
         program = torch.export.export(
-            so.step, (*carry, *(ex[k] for k in CHUNK_KEYS)), strict=False)
+            so.step, (*carry, *(ex[k] for k in so.keys)), strict=False)
 
     os.makedirs(out_dir, exist_ok=True)
     torch.export.save(program, os.path.join(out_dir, _PROGRAM))
@@ -75,7 +77,7 @@ def export_streaming(cfg, model, out_dir: str, chunk: int = 16,
         "device": so.device.type,
         "chunk": chunk,
         "arch": cfg.model.arch,
-        "inputs": {k: [list(ex[k].shape), _dtype(ex[k])] for k in CHUNK_KEYS},
+        "inputs": {k: [list(ex[k].shape), _dtype(ex[k])] for k in so.keys},
         "carry": [[list(c.shape), _dtype(c)] for c in carry],
         "image": {"height": ds.projection.height,
                   "width": ds.projection.width,
@@ -91,8 +93,9 @@ def load_streaming_artifact(art_dir: str) -> Tuple[Callable, Callable, dict]:
 
     ``step(carry, chunk_inputs)`` runs the exported program on the
     manifest's device: ``carry`` a tuple of three tensors, ``chunk_inputs``
-    a dict of ``points``, ``valid``, ``imu`` and ``imu_mask`` tensors there
-    with the manifest's shapes; it returns ``(carry, (poses, dx, dq))``.
+    a dict of the manifest's inputs (``points``, ``valid``, and for
+    DeepLIO ``imu`` and ``imu_mask``) as tensors there with its shapes;
+    it returns ``(carry, (poses, dx, dq))``.
     ``init_carry()`` gives the artifact's initial carry on that device."""
     with open(os.path.join(art_dir, _MANIFEST)) as f:
         manifest = json.load(f)

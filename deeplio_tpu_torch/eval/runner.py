@@ -72,7 +72,7 @@ def predict_drive(cfg: Config, eval_step, state, drive: Drive,
     # with stride 1 (a stride-8 training config would otherwise skip tail
     # pairs of each drive).
     ds = WindowDataset(dataclasses.replace(cfg.datasets, window_stride=1),
-                       [drive])
+                       [drive], with_points=cfg.model.uses_lidar)
     combos = cfg.datasets.effective_combinations
     n_pairs = len(drive) - 1
     dx_out = np.full((n_pairs, 3), np.nan, np.float32)

@@ -1,10 +1,11 @@
 """Streaming odometry (counterpart of ``deeplio_tpu/eval/streaming.py``).
 
 Each tick projects the incoming raw scan on the device, pairs it with the
-carried previous range image, runs DeepLIO on that one-pair window and
-composes the predicted relative pose onto the carried global pose in
-float32. No LSTM state carries across ticks: every tick is a fresh
-one-pair window, as in the JAX package.
+carried previous range image, runs the model (DeepLIO, or DeepLO with no
+IMU input) on that one-pair window and composes the predicted relative
+pose onto the carried global pose in float32. DeepIO has no scan to
+stream and raises, as in the JAX package. No LSTM state carries across
+ticks: every tick is a fresh one-pair window, as in the JAX package.
 
 The tick is a function of its carry ``(prev_img, pose, started)``, as the
 JAX package's ``tick``/``chunk_fn``/``init_carry``: :class:`StreamingStep`
@@ -41,26 +42,34 @@ Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 CHUNK_KEYS = ("points", "valid", "imu", "imu_mask")
 
 
+def chunk_keys(arch: str) -> Tuple[str, ...]:
+    """The inputs of a chunk for ``arch``: DeepLO takes no IMU."""
+    return CHUNK_KEYS if arch == "deeplio" else CHUNK_KEYS[:2]
+
+
 class StreamingStep(nn.Module):
     """``(prev_img, pose, started, points [c, N, 4], valid [c, N], imu [c,
     T, 6], imu_mask [c, T]) -> (prev_img, pose, started, poses [c, 4, 4],
     dx [c, 3], dq [c, 4])``: ``c`` ticks from the carry, the new carry
-    first. ``started`` is a float32 scalar, 0 before the first frame."""
+    first. ``started`` is a float32 scalar, 0 before the first frame.
+    DeepLO's step takes no ``imu`` and ``imu_mask``."""
 
     def __init__(self, model: nn.Module, projector: Callable):
         super().__init__()
         self.model = model
         self.projector = projector
 
-    def forward(self, prev_img, pose, started, points, valid, imu, imu_mask):
+    def forward(self, prev_img, pose, started, points, valid, imu=None,
+                imu_mask=None):
         poses, dxs, dqs = [], [], []
         for j in range(points.shape[0]):
             with record_function("stream.project"):
                 img, _ = self.projector(points[j:j + 1], valid[j:j + 1])
             img = img[0]
-            batch = {"images": torch.cat([prev_img, img], -1)[None, None],
-                     "imu": imu[j][None, None],
-                     "imu_mask": imu_mask[j][None, None]}
+            batch = {"images": torch.cat([prev_img, img], -1)[None, None]}
+            if imu is not None:
+                batch["imu"] = imu[j][None, None]
+                batch["imu_mask"] = imu_mask[j][None, None]
             with record_function("stream.model"):
                 x, q = self.model(batch)
             go = started > 0                  # first frame: identity motion
@@ -77,12 +86,12 @@ class StreamingStep(nn.Module):
 
 
 class StreamingOdometry:
-    """Streaming odometry over one drive with a DeepLIO model."""
+    """Streaming odometry over one drive with a DeepLIO or DeepLO model."""
 
     def __init__(self, cfg: Config, model: torch.nn.Module, chunk: int = 16,
                  device: DeviceLike = None):
-        if cfg.model.arch != "deeplio":
-            raise ValueError("the port's streaming odometry runs DeepLIO")
+        if not cfg.model.uses_lidar:
+            raise ValueError("streaming odometry needs a lidar arch")
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         self.device = resolve_device(device)
@@ -95,6 +104,7 @@ class StreamingOdometry:
         self._img_shape = (ds.projection.height, ds.projection.width,
                            ds.num_image_channels)
         self.step = StreamingStep(self.model, self.projector)
+        self.keys = chunk_keys(cfg.model.arch)
 
     def init_carry(self) -> Carry:
         """The carry before the first frame: a zero image, the identity
@@ -107,7 +117,7 @@ class StreamingOdometry:
     def host_chunks(self, drive: Drive, pad: bool = False
                     ) -> Iterator[Tuple[int, Dict[str, np.ndarray]]]:
         """(real frames, chunk) for each chunk of the drive, the inputs as
-        numpy arrays keyed by ``CHUNK_KEYS``. ``pad``: the last chunk is
+        numpy arrays keyed by ``self.keys``. ``pad``: the last chunk is
         filled up to ``chunk`` frames by repeating its last frame (the
         fixed shape of an exported step), as the JAX package pads it."""
         T = self.cfg.datasets.max_imu_per_pair
@@ -129,8 +139,9 @@ class StreamingOdometry:
                 mk[:m] = 1.0
                 imu.append(buf)
                 msk.append(mk)
-            yield len(ks), {"points": np.stack(pts), "valid": np.stack(vld),
-                            "imu": np.stack(imu), "imu_mask": np.stack(msk)}
+            out = {"points": np.stack(pts), "valid": np.stack(vld),
+                   "imu": np.stack(imu), "imu_mask": np.stack(msk)}
+            yield len(ks), {k: out[k] for k in self.keys}
 
     def to_device(self, chunk: Dict[str, np.ndarray]
                   ) -> Dict[str, torch.Tensor]:
@@ -154,7 +165,7 @@ class StreamingOdometry:
         for _, host in self.host_chunks(drive):
             chunk = self.to_device(host)
             *carry, p, x, q = self.step(*carry,
-                                        *(chunk[k] for k in CHUNK_KEYS))
+                                        *(chunk[k] for k in self.keys))
             poses.append(p)
             dxs.append(x)
             dqs.append(q)

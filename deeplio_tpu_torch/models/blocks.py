@@ -1,5 +1,6 @@
 """PointSeg building blocks (counterpart of ``deeplio_tpu/models/blocks.py``:
-``ConvBN``, ``SELayer``, classic ``Fire``, ``FireDeconv`` and ``ASPP``).
+``ConvBN``, ``SELayer``, classic ``Fire``, ``FireDeconv`` and ``ASPP``,
+and flax's SAME max-pool).
 
 Modules take NCHW tensors. Submodules carry the names flax gives the
 matching parameters (``Conv_0``, ``BatchNorm_0``, ``Dense_0``...), so
@@ -34,6 +35,19 @@ def same_pads(size: int, kernel: int, stride: int,
     out = -(-size // stride)
     total = max((out - 1) * stride + k - size, 0)
     return total // 2, total - total // 2
+
+
+def same_max_pool(x: torch.Tensor, kernel: Pair, stride: Pair
+                  ) -> torch.Tensor:
+    """flax's ``nn.max_pool(padding="SAME")`` on NCHW: the padding of
+    :func:`same_pads` (the extra row or column at the bottom/right) filled
+    with -inf. ``F.max_pool2d``'s own padding is symmetric, so it pads
+    here."""
+    ph = same_pads(x.shape[-2], kernel[0], stride[0])
+    pw = same_pads(x.shape[-1], kernel[1], stride[1])
+    if any(ph + pw):
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+    return F.max_pool2d(x, kernel, stride)
 
 
 class SameConv2d(nn.Conv2d):

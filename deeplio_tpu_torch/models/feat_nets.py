@@ -1,8 +1,9 @@
-"""Feature nets of DeepLIO (counterpart of ``deeplio_tpu/models/feat_nets.py``:
-``LidarPointSegFeat``, ``ImuFeatRnn``, ``FusionLayer``, ``OdomFeatRNN``,
-``PoseHeads``).
+"""Feature nets of the model zoo (counterpart of
+``deeplio_tpu/models/feat_nets.py``: ``LidarPointSegFeat``,
+``LidarSimpleFeat0``, ``LidarSimpleFeat1``, ``ImuFeatRnn``,
+``FusionLayer``, ``OdomFeatRNN``, ``PoseHeads``).
 
-Dropout (``LidarPointSegFeat`` after its Dense, ``PoseHeads`` before its
+Dropout (the LiDAR towers after their Dense, ``PoseHeads`` before its
 layers) acts in training mode only, draws its masks from the generator
 the caller passes, and scales what it keeps by 1 / (1 - rate), as flax's
 ``nn.Dropout`` does.
@@ -43,12 +44,13 @@ class LidarPointSegFeat(nn.Module):
 
     def __init__(self, in_channels: int, feature_size: int = 512,
                  h_stride: int = 1, w_stride: int = 2, se: bool = True,
-                 el_squeeze: int = 0, dropout: float = 0.0):
+                 el_squeeze: int = 0, dropout: float = 0.0,
+                 pool: str = "stride"):
         super().__init__()
         self.dropout = dropout
         self.pointseg = PointSegNet(in_channels, h_stride=h_stride,
                                     w_stride=w_stride, with_se=se,
-                                    el_squeeze=el_squeeze)
+                                    el_squeeze=el_squeeze, pool=pool)
         self.ConvBN_0 = ConvBN(512, 256, (3, 3), (2, 2))
         self.ConvBN_1 = ConvBN(256, 256, (3, 3), (2, 2))
         self.Dense_0 = nn.Linear(256, feature_size)
@@ -58,6 +60,67 @@ class LidarPointSegFeat(nn.Module):
         feat = self.ConvBN_1(self.ConvBN_0(self.pointseg(x)))
         feat = F.relu(self.Dense_0(feat.mean(dim=(-2, -1))))
         return inverted_dropout(feat, self.dropout, self.training, generator)
+
+
+def _tower_head(tower: nn.Module, x: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+    """A simple tower's tail: spatial mean -> Dense -> ReLU -> dropout."""
+    x = F.relu(tower.Dense_0(x.mean(dim=(-2, -1))))
+    return inverted_dropout(x, tower.dropout, tower.training, generator)
+
+
+class LidarSimpleFeat0(nn.Module):
+    """Plain strided ConvBN tower (the reference's simple variant 0): five
+    ConvBNs, widths ``base_channels * 2**i`` up to 256, kernels (3, 7),
+    (3, 5) at stride (1, 2), then three 3x3 at (2, 2) -> [B, F]."""
+
+    SPEC = (((3, 7), (1, 2)), ((3, 5), (1, 2)), ((3, 3), (2, 2)),
+            ((3, 3), (2, 2)), ((3, 3), (2, 2)))
+
+    def __init__(self, in_channels: int, feature_size: int = 256,
+                 base_channels: int = 32, dropout: float = 0.0):
+        super().__init__()
+        self.dropout = dropout
+        c = in_channels
+        for i, (k, s) in enumerate(self.SPEC):
+            ch = min(base_channels * 2 ** i, 256)
+            setattr(self, f"ConvBN_{i}", ConvBN(c, ch, k, s))
+            c = ch
+        self.Dense_0 = nn.Linear(c, feature_size)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for i in range(len(self.SPEC)):
+            x = getattr(self, f"ConvBN_{i}")(x)
+        return _tower_head(self, x, generator)
+
+
+class LidarSimpleFeat1(nn.Module):
+    """Deeper simple tower (variant 1): four stages, each a strided 3x3
+    ConvBN ((1, 2) twice, then (2, 2)) and a residual 3x3 ConvBN, widths
+    ``base_channels * 2**i`` up to 256 -> [B, F]."""
+
+    STAGES = 4
+
+    def __init__(self, in_channels: int, feature_size: int = 256,
+                 base_channels: int = 32, dropout: float = 0.0):
+        super().__init__()
+        self.dropout = dropout
+        c = in_channels
+        for i in range(self.STAGES):
+            ch = min(base_channels * 2 ** i, 256)
+            setattr(self, f"ConvBN_{2 * i}",
+                    ConvBN(c, ch, (3, 3), (1, 2) if i < 2 else (2, 2)))
+            setattr(self, f"ConvBN_{2 * i + 1}", ConvBN(ch, ch, (3, 3)))
+            c = ch
+        self.Dense_0 = nn.Linear(c, feature_size)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for i in range(self.STAGES):
+            x = getattr(self, f"ConvBN_{2 * i}")(x)
+            x = x + getattr(self, f"ConvBN_{2 * i + 1}")(x)
+        return _tower_head(self, x, generator)
 
 
 class ImuFeatRnn(nn.Module):

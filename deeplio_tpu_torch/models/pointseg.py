@@ -1,9 +1,13 @@
 """PointSeg (counterpart of ``deeplio_tpu/models/pointseg.py``:
-``PointSegEncoder`` at ``stem=classic``, ``pool=stride``, the
-``PointSegDecoder`` and ``PointSegNet``).
+``PointSegEncoder`` at ``stem=classic`` with the ``classic``, ``cheap``
+and ``stride`` pools, the ``PointSegDecoder`` and ``PointSegNet``).
 
-``pool=stride``: no pooling ops; each stage's entry Fire downsamples the
-azimuth with a (1, 2)-strided squeeze conv. NCHW in, NCHW out.
+The pools halve the azimuth three times after the stem, as in JAX:
+``classic`` with 3x3 max-pools at stride (1, 2) after ``c1``, ``f3`` and
+``f5``; ``cheap`` with (1, 2) windows there; ``stride`` with no pooling
+op, each stage's entry Fire downsampling with a (1, 2)-strided squeeze
+conv. All three give the same parameters and the skips at the same
+widths. NCHW in, NCHW out.
 
 ``PointSegNet`` is used two ways, as in the JAX package: as the odometry
 model's LiDAR encoder (``part="encoder"``, no classes: the bottleneck
@@ -28,9 +32,13 @@ from deeplio_tpu_torch.models.blocks import (
     SameConv2d,
     SameConvTranspose2d,
     SELayer,
+    same_max_pool,
 )
 
 PARTS = ("encoder", "encoder+decoder")
+# pool -> (max-pool window or None, the stage-entry Fires' strides)
+POOLS = {"classic": ((3, 3), (1, 1)), "cheap": ((1, 2), (1, 1)),
+         "stride": (None, (1, 2))}
 
 
 class PointSegEncoder(nn.Module):
@@ -41,9 +49,12 @@ class PointSegEncoder(nn.Module):
     """
 
     def __init__(self, in_channels: int, h_stride: int = 1, w_stride: int = 2,
-                 with_se: bool = True, el_squeeze: int = 0):
+                 with_se: bool = True, el_squeeze: int = 0,
+                 pool: str = "stride"):
         super().__init__()
-        entry = (1, 2)
+        if pool not in POOLS:
+            raise ValueError(f"pool must be {'|'.join(POOLS)}, got {pool!r}")
+        self.pool_window, entry = POOLS[pool]
         self.ConvBN_0 = ConvBN(in_channels, 64, (3, 3), (h_stride, w_stride))
         spec = [  # (squeeze, expand1, expand3, strides)
             (16, 64, 64, entry), (16, 64, 64, (1, 1)),
@@ -61,20 +72,25 @@ class PointSegEncoder(nn.Module):
             self.SELayer_1 = SELayer(256)
         self.ASPP_0 = ASPP(512, 512, squeeze=el_squeeze)
 
+    def _pool(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pool_window is None:
+            return x          # the stage-entry Fires downsample instead
+        return same_max_pool(x, self.pool_window, (1, 2))
+
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
         c1 = self.ConvBN_0(x)
-        f2 = self.Fire_0(c1)
+        f2 = self.Fire_0(self._pool(c1))
         f3 = self.Fire_1(f2)
         if self.with_se:
             f3 = self.SELayer_0(f3)
         f3 = f3 + f2
-        f4 = self.Fire_2(f3)
+        f4 = self.Fire_2(self._pool(f3))
         f5 = self.Fire_3(f4)
         if self.with_se:
             f5 = self.SELayer_1(f5)
         f5 = f5 + f4
-        f6 = self.Fire_4(f5)
+        f6 = self.Fire_4(self._pool(f5))
         f7 = self.Fire_5(f6)
         f8 = self.Fire_6(f7)
         f9 = self.Fire_7(f8)
@@ -123,13 +139,13 @@ class PointSegNet(nn.Module):
     def __init__(self, in_channels: int, part: str = "encoder",
                  num_classes: Optional[int] = None, h_stride: int = 1,
                  w_stride: int = 2, with_se: bool = True,
-                 el_squeeze: int = 0):
+                 el_squeeze: int = 0, pool: str = "stride"):
         super().__init__()
         if part not in PARTS:
             raise ValueError(f"part must be {'|'.join(PARTS)}, got {part!r}")
         self.part, self.num_classes = part, num_classes
         self.encoder = PointSegEncoder(in_channels, h_stride, w_stride,
-                                       with_se, el_squeeze)
+                                       with_se, el_squeeze, pool)
         if part == "encoder" and num_classes is None:
             return
         self.decoder = PointSegDecoder()

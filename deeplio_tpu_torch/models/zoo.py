@@ -1,13 +1,14 @@
-"""DeepLIO and its factory (counterpart of ``deeplio_tpu/models/zoo.py``:
-``DeepLIO``, the classic-stem path of ``_lidar_features`` and
-``build_model``).
+"""The model zoo and its factory (counterpart of
+``deeplio_tpu/models/zoo.py``: ``DeepIO``, ``DeepLO``, ``DeepLIO``, the
+classic-stem path of ``_lidar_features`` and ``build_model``).
 
 Forward contract, as in the JAX package::
 
     model(batch) -> (x_pred [B, P, 3], q_pred [B, P, 4])
 
-with ``batch`` holding ``images`` [B, P, H, W, 2C] (NHWC pair stacks),
-``imu`` [B, P, T, 6] and ``imu_mask`` [B, P, T].
+with ``batch`` holding ``images`` [B, P, H, W, 2C] (NHWC pair stacks) for
+the LiDAR archs (DeepLO, DeepLIO) and ``imu`` [B, P, T, 6] and
+``imu_mask`` [B, P, T] for the IMU archs (DeepIO, DeepLIO).
 
 Layout: the images stay NHWC in memory. The tower sees them through a
 permuted view, NCHW by shape and channels-last by strides, so cuDNN runs
@@ -39,6 +40,8 @@ from deeplio_tpu_torch.models.feat_nets import (
     FusionLayer,
     ImuFeatRnn,
     LidarPointSegFeat,
+    LidarSimpleFeat0,
+    LidarSimpleFeat1,
     OdomFeatRNN,
     PoseHeads,
 )
@@ -48,41 +51,114 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
 
-class DeepLIO(nn.Module):
-    """lidar-feat (+) imu-feat -> fusion -> odom-feat -> pose heads."""
-
-    def __init__(self, cfg: ModelConfig, image_channels: int):
-        super().__init__()
-        lc, ic, oc = cfg.lidar, cfg.imu, cfg.odom
-        self.compute_dtype = DTYPES[cfg.compute_dtype]
-        self.lidar_feat = LidarPointSegFeat(
+def _lidar_net(cfg: ModelConfig, image_channels: int) -> nn.Module:
+    """The LiDAR tower a config names, over pair-stacked images."""
+    lc = cfg.lidar
+    if lc.name == "lidar-feat-pointseg":
+        return LidarPointSegFeat(
             2 * image_channels, lc.feature_size, lc.h_stride, lc.w_stride,
-            lc.se, lc.el_squeeze, lc.dropout)
+            lc.se, lc.el_squeeze, lc.dropout, lc.pool)
+    simple = {"lidar-feat-simple-0": LidarSimpleFeat0,
+              "lidar-feat-simple-1": LidarSimpleFeat1}.get(lc.name)
+    if simple is None:
+        raise ValueError(f"unknown lidar feat net {lc.name!r}")
+    return simple(2 * image_channels, lc.feature_size, lc.base_channels,
+                  lc.dropout)
+
+
+class _Odometry(nn.Module):
+    """What the three archs share: the compute dtype, the odometry RNN
+    over the window's pairs and the pose heads (registered last, after
+    the feature nets, in the JAX package's order)."""
+
+    def _tail(self, cfg: ModelConfig, feature_size: int) -> None:
+        self.compute_dtype = DTYPES[cfg.compute_dtype]
+        self.odom_feat = OdomFeatRNN(feature_size, cfg.odom.hidden_size,
+                                     cfg.odom.num_layers)
+        self.heads = PoseHeads(cfg.odom.hidden_size, cfg.dropout)
+
+    def _autocast(self, device: torch.device):
+        low = self.compute_dtype != torch.float32
+        return torch.autocast(device.type, dtype=self.compute_dtype,
+                              enabled=low)
+
+    def _lidar(self, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The LiDAR tower on the pair images: [B * P, F]."""
+        x = batch["images"].flatten(0, 1).permute(0, 3, 1, 2)  # NCHW view
+        return self.lidar_feat(x, generator)
+
+    def _imu(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The IMU encoder on each pair's window: [B * P, H]."""
+        return self.imu_feat(batch["imu"].flatten(0, 1),
+                             batch["imu_mask"].flatten(0, 1))
+
+    def _pose(self, feat: torch.Tensor, b: int, p: int,
+              generator: Optional[torch.Generator]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        feat = self.odom_feat(feat.reshape(b, p, -1))
+        x_out, q_out = self.heads(feat.flatten(0, 1), generator)
+        return x_out.reshape(b, p, 3), q_out.reshape(b, p, 4)
+
+
+class DeepIO(_Odometry):
+    """IMU-only: imu-feat -> odom-feat -> pose heads."""
+
+    def __init__(self, cfg: ModelConfig, image_channels: int = 0):
+        super().__init__()
+        ic = cfg.imu
         self.imu_feat = ImuFeatRnn(ic.input_size, ic.hidden_size,
                                    ic.num_layers)
-        self.fusion = FusionLayer(lc.feature_size, ic.hidden_size,
-                                  cfg.fusion.kind)
-        self.odom_feat = OdomFeatRNN(lc.feature_size + ic.hidden_size,
-                                     oc.hidden_size, oc.num_layers)
-        self.heads = PoseHeads(oc.hidden_size, cfg.dropout)
+        self._tail(cfg, ic.hidden_size)
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        imgs = batch["images"]
-        b, p = imgs.shape[0], imgs.shape[1]
-        x = imgs.flatten(0, 1).permute(0, 3, 1, 2)     # NCHW view of NHWC
-        imu = batch["imu"].flatten(0, 1)
-        mask = batch["imu_mask"].flatten(0, 1)
-        low = self.compute_dtype != torch.float32
-        with torch.autocast(x.device.type, dtype=self.compute_dtype,
-                            enabled=low):
-            lidar = self.lidar_feat(x, generator)
-            imu_f = self.imu_feat(imu, mask)
-            fused = self.fusion(lidar, imu_f).reshape(b, p, -1)
-            feat = self.odom_feat(fused)
-            x_out, q_out = self.heads(feat.flatten(0, 1), generator)
-        return x_out.reshape(b, p, 3), q_out.reshape(b, p, 4)
+        b, p = batch["imu"].shape[:2]
+        with self._autocast(batch["imu"].device):
+            return self._pose(self._imu(batch), b, p, generator)
+
+
+class DeepLO(_Odometry):
+    """LiDAR-only: lidar-feat -> odom-feat -> pose heads."""
+
+    def __init__(self, cfg: ModelConfig, image_channels: int):
+        super().__init__()
+        self.lidar_feat = _lidar_net(cfg, image_channels)
+        self._tail(cfg, cfg.lidar.feature_size)
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        b, p = batch["images"].shape[:2]
+        with self._autocast(batch["images"].device):
+            return self._pose(self._lidar(batch, generator), b, p, generator)
+
+
+class DeepLIO(_Odometry):
+    """lidar-feat (+) imu-feat -> fusion -> odom-feat -> pose heads."""
+
+    def __init__(self, cfg: ModelConfig, image_channels: int):
+        super().__init__()
+        lc, ic = cfg.lidar, cfg.imu
+        self.lidar_feat = _lidar_net(cfg, image_channels)
+        self.imu_feat = ImuFeatRnn(ic.input_size, ic.hidden_size,
+                                   ic.num_layers)
+        self.fusion = FusionLayer(lc.feature_size, ic.hidden_size,
+                                  cfg.fusion.kind)
+        self._tail(cfg, lc.feature_size + ic.hidden_size)
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        b, p = batch["images"].shape[:2]
+        with self._autocast(batch["images"].device):
+            lidar = self._lidar(batch, generator)
+            fused = self.fusion(lidar, self._imu(batch))
+            return self._pose(fused, b, p, generator)
+
+
+ARCHS = {"deepio": DeepIO, "deeplo": DeepLO, "deeplio": DeepLIO}
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
@@ -113,14 +189,16 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def build_model(cfg: Config, device: DeviceLike = None,
-                seed: Optional[int] = 0) -> DeepLIO:
-    """Config -> DeepLIO in eval mode on ``device`` (CUDA by default).
+                seed: Optional[int] = 0) -> nn.Module:
+    """Config -> the arch's model (DeepIO, DeepLO or DeepLIO) in eval mode
+    on ``device`` (CUDA by default).
 
     Weights are drawn on the CPU from ``torch.Generator().manual_seed(seed)``
     (the same values on every device); ``seed=None`` leaves them
     uninitialised for a caller that loads a checkpoint."""
     dev = resolve_device(device)
-    model = DeepLIO(cfg.model, cfg.datasets.num_image_channels)
+    model = ARCHS[cfg.model.arch](cfg.model,
+                                  cfg.datasets.num_image_channels)
     if seed is not None:
         init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

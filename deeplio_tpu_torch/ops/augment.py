@@ -43,7 +43,8 @@ def yaw_rotate(raw: Batch, phi: torch.Tensor) -> Batch:
     """Rotate one window's points, ground truth and IMU by its yaw phi [B].
 
     ``raw`` is the training step's batch: points as planes
-    ``points_x/points_y`` [B*S, N] (z and remission pass through), ``x_gt``
+    ``points_x/points_y`` [B*S, N] (when present: DeepIO's batches have
+    none; z and remission pass through), ``x_gt``
     [B, P, 3], ``q_gt`` [B, P, 4] and ``imu`` [B, P, T, 6] (when present).
     Returns a new dict; the inputs are not modified.
     """
@@ -51,13 +52,14 @@ def yaw_rotate(raw: Batch, phi: torch.Tensor) -> Batch:
     b = raw["x_gt"].shape[0]
     c, s = torch.cos(phi), torch.sin(phi)
 
-    x, y = raw["points_x"], raw["points_y"]
-    rep = x.shape[0] // b                  # frames per window
-    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    cp = c.repeat_interleave(rep).reshape(shape)
-    sp = s.repeat_interleave(rep).reshape(shape)
-    out["points_x"] = cp * x - sp * y
-    out["points_y"] = sp * x + cp * y
+    if "points_x" in raw:
+        x, y = raw["points_x"], raw["points_y"]
+        rep = x.shape[0] // b              # frames per window
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        cp = c.repeat_interleave(rep).reshape(shape)
+        sp = s.repeat_interleave(rep).reshape(shape)
+        out["points_x"] = cp * x - sp * y
+        out["points_y"] = sp * x + cp * y
 
     out["x_gt"] = _rot_xy(raw["x_gt"], c[:, None], s[:, None])
 

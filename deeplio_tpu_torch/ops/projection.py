@@ -1,6 +1,7 @@
 """Device-side spherical ("range-image") projection of LiDAR scans
 (counterpart of ``deeplio_tpu/ops/projection.py``, restricted to what the
-``pallas-ring`` and ``pallas`` backends with ``kernel-aligned: off`` run).
+``pallas-ring``, ``pallas`` and ``sort`` backends with ``kernel-aligned:
+off`` run).
 
 Projection convention (SqueezeSeg), as in the JAX package:
 
@@ -134,18 +135,27 @@ def make_projector(cfg_proj: ProjectionConfig, channels: Sequence[str],
     training step emits its compute dtype); the mask stays float32.
 
     ``backend: pallas-ring`` selects with ``projection_ring.ring_select``
-    (ring-ordered scans), ``backend: pallas`` with
-    ``projection_scatter.scatter_select`` (scans in any order). Each runs
-    its CUDA kernel on the card and its plain PyTorch version on the CPU.
+    (ring-ordered scans), ``backend: pallas`` and ``sort`` with
+    ``projection_scatter.scatter_select`` (scans in any order); ``sort``
+    carries exact float32 channels unless ``packed`` (JAX's ``carry`` and
+    ``carry-f16``). Each runs its CUDA kernel on the card and its plain
+    PyTorch version on the CPU, the whole batch in one launch (JAX's
+    ``projection-chunk`` only schedules its work).
     """
+    import functools
+
     from deeplio_tpu_torch.ops import projection_ring, projection_scatter
 
-    planes_fn = {"pallas-ring": projection_ring.project_batch_ring_planes,
-                 "pallas": projection_scatter.project_batch_scatter_planes,
-                 }.get(cfg_proj.backend)
+    planes_fn = {
+        "pallas-ring": projection_ring.project_batch_ring_planes,
+        "pallas": projection_scatter.project_batch_scatter_planes,
+        "sort": functools.partial(
+            projection_scatter.project_batch_sorted_planes,
+            payload="carry-f16" if cfg_proj.packed else "carry"),
+    }.get(cfg_proj.backend)
     if planes_fn is None or cfg_proj.kernel_aligned != "off":
-        raise ValueError("the port projects with backend=pallas-ring or "
-                         "pallas and kernel-aligned=off only")
+        raise ValueError("the port projects with backend=pallas-ring, "
+                         "pallas or sort and kernel-aligned=off only")
     if layout not in ("aos", "planes"):
         raise ValueError(f"layout must be aos|planes, got {layout!r}")
     if bool(mean) != bool(std):

@@ -21,6 +21,12 @@ Prologue and epilogue are shared by both selections, so on the card the
 kernel is held bit-exact against its plain version. The result equals the
 JAX package's ``project_batch(packed=True)``: the closest point wins a
 pixel whatever the order of the scan.
+
+The ``sort`` backend (``project_batch_sorted_planes``, the JAX package's
+``project_batch_sorted``) selects the same winners, so it runs through
+the same kernel: with packed-f16 payloads it is the route above; with
+exact float32 payloads the kernel carries each point's index and the
+epilogue gathers the winner's channels.
 """
 
 from __future__ import annotations
@@ -47,9 +53,9 @@ CTA_SLOT_BYTES = 64 * 1024   # slots per CTA: 64x1024 pixels in four CTAs
 MAX_CLUSTER = 8              # the portable limit of CTAs in a cluster
 
 
-def scatter_prologue(x, y, z, rem, valid, H: int, W: int,
-                     fov_up_deg: float, fov_down_deg: float):
-    """Planes [B, N] -> (key, xy, zr), each int32 [B, N] contiguous.
+def scatter_keys(x, y, z, valid, H: int, W: int, fov_up_deg: float,
+                 fov_down_deg: float) -> torch.Tensor:
+    """Planes [B, N] -> key int32 [B, N] contiguous.
 
     ``key = (v * W + u) << rq_bits | rq`` for a valid point with range
     above 1 um, SENTINEL otherwise; ``rq`` is the range in quantization
@@ -64,7 +70,15 @@ def scatter_prologue(x, y, z, rem, valid, H: int, W: int,
     rq = torch.clamp(r * rq_scale_for(rq_bits), max=rq_max - 1)
     rq = rq.to(torch.int32).clamp_min(0)
     key = torch.where(ok, ((v * W + u) << rq_bits) | rq, SENTINEL)
-    return (key.to(torch.int32).contiguous(), pack_f16x2(x, y).contiguous(),
+    return key.to(torch.int32).contiguous()
+
+
+def scatter_prologue(x, y, z, rem, valid, H: int, W: int,
+                     fov_up_deg: float, fov_down_deg: float):
+    """Planes [B, N] -> (key, xy, zr), each int32 [B, N] contiguous: the
+    keys of :func:`scatter_keys` and the packed-f16 payload words."""
+    key = scatter_keys(x, y, z, valid, H, W, fov_up_deg, fov_down_deg)
+    return (key, pack_f16x2(x, y).contiguous(),
             pack_f16x2(z, rem).contiguous())
 
 
@@ -241,6 +255,53 @@ def project_batch_scatter_planes(
     kmin, xyo, zro = (select or scatter_select)(key, xy, zr, H * W,
                                                 rq_bits_for(H * W))
     return scatter_epilogue(kmin, xyo, zro, H, W)
+
+
+PAYLOADS = ("carry", "carry-f16")
+
+
+def project_batch_sorted_planes(
+    x: torch.Tensor, y: torch.Tensor, z: torch.Tensor, rem: torch.Tensor,
+    valid: torch.Tensor, H: int, W: int,
+    fov_up_deg: float, fov_down_deg: float, payload: str = "carry",
+    select: Optional[Callable] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``sort`` backend (the JAX package's ``project_batch_sorted``):
+    planes x/y/z/rem [B, N] float32, valid [B, N] bool -> (img [B, H, W,
+    5] float32, mask [B, H, W] float32), scans in any order.
+
+    Its winners are the scatter selection's: per pixel the smallest key
+    ``pix << rq_bits | rq``, ties to the smaller index (JAX's stable
+    sort). ``payload="carry-f16"`` (``packed: true``) carries the
+    packed-f16 words and is :func:`project_batch_scatter_planes`.
+    ``payload="carry"`` (``packed: false``) carries each point's index as
+    the first payload word and zero as the second, then gathers the
+    winner's exact float32 x, y, z and remission and takes its depth as
+    ``sqrt(x*x + y*y + z*z)``, as JAX's ``carry`` mode does. ``select``
+    defaults to :func:`scatter_select`: one launch for the whole batch.
+    """
+    if payload == "carry-f16":
+        return project_batch_scatter_planes(x, y, z, rem, valid, H, W,
+                                            fov_up_deg, fov_down_deg, select)
+    if payload != "carry":
+        raise ValueError(f"payload must be {'|'.join(PAYLOADS)}, got "
+                         f"{payload!r}")
+    b, n = x.shape
+    key = scatter_keys(x, y, z, valid, H, W, fov_up_deg, fov_down_deg)
+    idx = torch.arange(n, dtype=torch.int32, device=key.device)
+    idx = idx.expand(b, n).contiguous()
+    kmin, win, _ = (select or scatter_select)(
+        key, idx, torch.zeros_like(idx), H * W, rq_bits_for(H * W))
+    landed = kmin != SENTINEL
+    win = win.long()             # an empty pixel's word is 0: a real index
+    x, y, z, rem = (torch.gather(p, 1, win) for p in (x, y, z, rem))
+    depth = torch.sqrt(x * x + y * y + z * z)
+    # where, not a product: an empty pixel reads point 0, which may hold
+    # anything
+    img = torch.where(landed[..., None],
+                      torch.stack([x, y, z, rem, depth], -1), 0.0)
+    return (img.reshape(b, H, W, 5),
+            landed.to(torch.float32).reshape(b, H, W))
 
 
 @functools.lru_cache(maxsize=None)

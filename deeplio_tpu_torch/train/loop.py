@@ -87,8 +87,9 @@ class Trainer:
     state) from ``workdir``; ``eval_only`` builds no training split. A
     validation split whose drives are missing on disk leaves ``val_ds``
     None. ``cache-projections`` projects the train and validation drives
-    into ``<workdir>/proj_cache`` before the first epoch;
-    ``device-dataset`` stages both splits' scans on the device.
+    into ``<workdir>/proj_cache`` before the first epoch (not for DeepIO,
+    which reads no scans); ``device-dataset`` stages both splits' scans on
+    the device (a LiDAR arch only).
     """
 
     def __init__(self, cfg: Config, workdir: str = "runs/default",
@@ -101,7 +102,9 @@ class Trainer:
         bs = cfg.train.batch_size
 
         self.image_cache = None
-        if cfg.train.cache_projections and not eval_only:
+        # as in JAX, DeepIO projects nothing, so it caches nothing
+        if (cfg.train.cache_projections and not eval_only
+                and cfg.model.uses_lidar):
             self.image_cache = ProjectionCache(
                 os.path.join(workdir, "proj_cache"), cfg.datasets,
                 self.device)
@@ -126,6 +129,9 @@ class Trainer:
         model = build_model(cfg, device=self.device, seed=cfg.train.seed)
         lidar = cfg.model.lidar
         if lidar is not None and lidar.pretrained and lidar.model_path:
+            if lidar.name != "lidar-feat-pointseg":
+                raise ValueError(f"a pretrained backbone is a PointSeg "
+                                 f"encoder; {lidar.name} has none")
             load_pointseg_backbone(model, lidar.model_path)
             self.log.info("loaded pretrained PointSeg backbone from %s",
                           lidar.model_path)
@@ -189,7 +195,7 @@ class Trainer:
         once (``bank_ms``: host build and copy ms, and the MB)."""
         if not self.train_ds.with_points:
             raise ValueError("device-dataset needs a dataset of raw points "
-                             "(no cache-projections)")
+                             "(arch deeplo or deeplio, no cache-projections)")
         splits = [self.train_ds] + ([self.val_ds] if self.val_ds is not None
                                     and len(self.val_ds) else [])
         nbytes = sum(dbank.bank_nbytes(ds) for ds in splits)

@@ -188,14 +188,14 @@ def label_image(planes: Sequence[torch.Tensor], valid: torch.Tensor,
 def build_pointseg(cfg: Config, num_classes: int) -> PointSegNet:
     """The segmentation net with the odometry encoder's tower settings, so
     its encoder grafts: ``part=encoder+decoder``, ``num_classes`` logits,
-    the pair-stacked input width. (The JAX package pretrains
-    ``pool: stride-fold`` as ``stride``; the port's encoder is ``stride``
-    only.)"""
+    the pair-stacked input width, the config's pool. (The JAX package
+    pretrains ``pool: stride-fold`` as ``stride``; the port has no
+    ``stride-fold``.)"""
     lc = cfg.model.lidar
     return PointSegNet(2 * cfg.datasets.num_image_channels,
                        part="encoder+decoder", num_classes=num_classes,
                        h_stride=lc.h_stride, w_stride=lc.w_stride,
-                       with_se=lc.se, el_squeeze=lc.el_squeeze)
+                       with_se=lc.se, el_squeeze=lc.el_squeeze, pool=lc.pool)
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:

@@ -13,7 +13,8 @@ or, from a projection cache (``data/proj_cache.py``), ``images`` [B, S,
 H, W, C] float16 in place of the planes: the step then projects nothing.
 
 One training step, in order: yaw augmentation (when configured), one
-projection of all B*S frames (a single kernel launch), the P pair images
+projection of all B*S frames (a single kernel launch; none for DeepIO,
+whose batches carry no points), the P pair images
 per window, the forward pass in training mode (BatchNorm batch statistics
 and their running update, dropout), the pose loss, backward, optax's
 global-norm clip and the Adam update. The phases run under the profiler
@@ -58,23 +59,28 @@ def batch_to_device(host: Dict[str, np.ndarray],
 
 
 def make_model_batch(cfg: Config, projector: Callable, raw: Batch) -> Batch:
-    """Raw planes (or cached images) and IMU -> the model's batch:
-    ``images`` [B, P, H, W, 2C], the channel concat of frames i and j of
-    each configured pair, and the IMU windows."""
-    if "images" in raw:
-        # cached f16 images go straight to the compute dtype
-        imgs = raw["images"].to(DTYPES[cfg.model.compute_dtype])
-    else:
-        imgs, _ = projector((raw["points_x"], raw["points_y"],
-                             raw["points_z"], raw["points_rem"]),
-                            raw["points_valid"])
-        b = raw["x_gt"].shape[0]
-        imgs = imgs.reshape((b, -1) + tuple(imgs.shape[1:]))  # [B,S,H,W,C]
-    combos = cfg.datasets.effective_combinations
-    first = imgs[:, [i for i, _ in combos]]
-    second = imgs[:, [j for _, j in combos]]
-    return {"images": torch.cat([first, second], -1),
-            "imu": raw["imu"], "imu_mask": raw["imu_mask"]}
+    """Raw planes (or cached images) and IMU -> the model's batch: for the
+    LiDAR archs ``images`` [B, P, H, W, 2C], the channel concat of frames
+    i and j of each configured pair; for the IMU archs the IMU windows.
+    DeepIO projects nothing."""
+    mb: Batch = {}
+    if cfg.model.uses_lidar:
+        if "images" in raw:
+            # cached f16 images go straight to the compute dtype
+            imgs = raw["images"].to(DTYPES[cfg.model.compute_dtype])
+        else:
+            imgs, _ = projector((raw["points_x"], raw["points_y"],
+                                 raw["points_z"], raw["points_rem"]),
+                                raw["points_valid"])
+            b = raw["x_gt"].shape[0]
+            imgs = imgs.reshape((b, -1) + tuple(imgs.shape[1:]))
+        combos = cfg.datasets.effective_combinations
+        first = imgs[:, [i for i, _ in combos]]
+        second = imgs[:, [j for _, j in combos]]
+        mb["images"] = torch.cat([first, second], -1)
+    if cfg.model.uses_imu:
+        mb["imu"], mb["imu_mask"] = raw["imu"], raw["imu_mask"]
+    return mb
 
 
 def build_train_step(cfg: Config) -> Tuple[Callable, Callable]:

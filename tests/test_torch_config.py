@@ -56,7 +56,7 @@ def _set(d, path, value):
 
 
 @pytest.mark.parametrize("path,value", [
-    (("lidar-feat-pointseg", "pool"), "classic"),
+    (("lidar-feat-pointseg", "pool"), "stride-fold"),
     (("lidar-feat-pointseg", "stem"), "pair-split"),
     (("lidar-feat-pointseg", "fire"), "fused"),
     (("lidar-feat-pointseg", "part"), "encoder+decoder"),
@@ -65,10 +65,10 @@ def _set(d, path, value):
     (("imu-feat-rnn", "bidirectional"), True),
     (("datasets", "channels"), ["x", "y", "z", "depth", "normals"]),
     (("datasets", "kernel-aligned"), "halves"),
-    (("datasets", "backend"), "sort"),
+    (("datasets", "backend"), "ring"),
     (("datasets", "slot-bin"), True),
-    (("arch",), "deepio"),
-    (("deeplio", "lidar-feat-net"), {"name": "lidar-feat-simple-0"}),
+    (("deeplio", "imu-feat-net"), {"name": "imu-feat-fc"}),
+    (("deeplio", "odom-feat-net"), {"name": "odom-feat-fc"}),
 ])
 def test_unsupported_setting_raises(kitti, path, value):
     d = copy.deepcopy(kitti)
@@ -134,7 +134,7 @@ def test_training_blocks_match_jax_parse(kitti):
 @pytest.mark.parametrize("path,value", [
     (("optimizer", "name"), "sgd"),
     (("optimizer", "weight-decay"), 0.1),
-    (("datasets", "synthetic-world"), "corridor"),
+    (("datasets", "kernel-aligned"), "auto"),
     (("param-dtype",), "bfloat16"),
     (("train", "data-parallel"), 2),
     (("datasets", "backend"), "sort-sentinel"),

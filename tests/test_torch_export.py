@@ -172,3 +172,28 @@ def test_manifest_matches_jax(artifact, tmp_path):
     assert got["kind"] == "deeplio_tpu_torch.streaming_step"
     for k in ("version", "chunk", "arch", "inputs", "carry", "image"):
         assert got[k] == want[k], k
+
+
+def test_deeplo_artifact_takes_no_imu(tmp_path):
+    """DeepLO's artifact (``configs/deeplo_synth.yaml`` cut to size) takes
+    points and valid only, and serves the drive bit for bit as the eager
+    step does (float32 on the CPU)."""
+    with open(ROOT / "configs" / "deeplo_synth.yaml") as f:
+        d = yaml.safe_load(f)
+    d["compute-dtype"] = "float32"
+    d["datasets"].update({"image-height": H, "image-width": W,
+                          "max-points": NPTS})
+    d["lidar-feat-simple-0"].update({"feature-size": 16, "base-channels": 8})
+    d["odom-feat-rnn"]["hidden-size"] = 16
+    cfg = port_config(d)
+    model = build_model(cfg, device="cpu", seed=2)
+    out = export_streaming(cfg, model, str(tmp_path / "art"), chunk=CHUNK,
+                           device="cpu")
+    so = StreamingOdometry(cfg, model, chunk=CHUNK, device="cpu")
+    drive = SyntheticDrive(n_frames=FRAMES, max_points=NPTS, seed=4)
+    want = so.run(drive)
+    got, manifest = _serve(out, so, drive)
+    assert list(manifest["inputs"]) == ["points", "valid"]
+    assert manifest["arch"] == "deeplo"
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

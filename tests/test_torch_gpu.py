@@ -731,3 +731,81 @@ def test_pretrain_step_launches_each_kernel_once(cuda, monkeypatch,
     kernel = tpre.label_image(*args, select=tsc._OP)
     plain = tpre.label_image(*args, select=tsc.scatter_select_reference)
     assert torch.equal(kernel, plain) and kernel.any()
+
+
+# ------------------------------------------------- the sort backend, DeepLO
+
+@pytest.mark.parametrize("b,n", [(1, 4097), (3, 12289)])
+def test_sort_route_with_index_payloads_matches_plain(cuda, b, n):
+    """``backend: sort`` with exact payloads: one scatter launch carrying
+    each point's index, the selected words bit-equal to the plain
+    version's, and the projected image and mask bit-equal to the plain
+    route's on the same card tensors."""
+    rng = np.random.default_rng(n + b)
+    pts = rng.uniform(-40, 40, (b, n, 4)).astype(np.float32)
+    pts[:, n // 3:n // 2] = pts[:, :n // 2 - n // 3]       # duplicates
+    valid = torch.from_numpy(rng.uniform(size=(b, n)) > 0.1).to(cuda)
+    p = torch.from_numpy(pts).to(cuda)
+    planes = [p[..., c].contiguous() for c in range(4)]
+    first = []
+
+    def spy(*args):
+        out = tsc._OP(*args)
+        first.append((args, out))
+        return out
+
+    before = tsc._OP.launches
+    got = tsc.project_batch_sorted_planes(*planes, valid, H, W, FU, FD,
+                                          payload="carry", select=spy)
+    torch.cuda.synchronize()
+    assert tsc._OP.launches - before == 1
+    (args, out), = first
+    assert torch.equal(args[1][0], torch.arange(n, dtype=torch.int32,
+                                                device=cuda))
+    for a, r in zip(out, tsc.scatter_select_reference(*args)):
+        assert torch.equal(a, r)
+    want = tsc.project_batch_sorted_planes(
+        *planes, valid, H, W, FU, FD, payload="carry",
+        select=tsc.scatter_select_reference)
+    for a, r in zip(got, want):
+        assert torch.equal(a, r)
+    assert got[1].any()
+
+
+def test_deeplo_step_on_the_card(cuda):
+    """One float32 DeepLO training step (``configs/deeplo_synth.yaml`` at
+    16x128, ``lidar-feat-simple-0``, the sort backend): one scatter
+    launch, a finite loss within 1e-3 of the CPU's, TF32 off."""
+    from deeplio_tpu_torch.config import load_config_dict
+    from deeplio_tpu_torch.data.dataset import WindowDataset
+    from deeplio_tpu_torch.data.drives import SyntheticDrive
+    from deeplio_tpu_torch.models.zoo import build_model
+    from deeplio_tpu_torch.train.state import create_train_state
+    from deeplio_tpu_torch.train.step import batch_to_device, build_train_step
+    with open(KITTI_TPU.parent / "deeplo_synth.yaml") as f:
+        d = yaml.safe_load(f)
+    d["compute-dtype"] = "float32"
+    d["deeplo"]["dropout"] = 0.0
+    d["datasets"].update({"image-height": 16, "image-width": 128,
+                          "max-points": 2048})
+    cfg = load_config_dict(d)
+    host = next(iter(WindowDataset(
+        cfg.datasets, [SyntheticDrive(n_frames=5, max_points=2048)]
+    ).iter_batches(2, shuffle=False)))
+    train_step, _ = build_train_step(cfg)
+    loss = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", "cuda"):
+            state = create_train_state(cfg, build_model(cfg, dev, seed=0),
+                                       10)
+            before = tsc._OP.launches
+            state, m = train_step(state, batch_to_device(host, dev))
+            loss[dev] = float(m["loss"])
+            if dev == "cuda":
+                assert tsc._OP.launches - before == 1
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert np.isfinite(loss["cuda"])
+    assert abs(loss["cuda"] - loss["cpu"]) <= 1e-3 * abs(loss["cpu"])

@@ -263,10 +263,3 @@ def test_root_path_at_the_top_level():
     d["datasets"]["root-path"] = "/top"
     assert port_config(d).datasets.root_path == \
         jax_config(d).datasets.root_path == "/top"
-
-
-def test_kitti_config_refused_naming_item_5():
-    """``configs/deeplio_kitti.yaml`` projects with the ``sort`` backend
-    and the classic pool, which the variants slice adds."""
-    with pytest.raises(ConfigError, match="Queue 1 item 5"):
-        load_config(ROOT / "configs" / "deeplio_kitti.yaml")

@@ -233,3 +233,46 @@ def test_head_runs_float32_under_autocast():
     assert seen == {"up": torch.bfloat16,
                     "head": (torch.float32, torch.float32)}
     assert out.dtype == torch.float32
+
+
+@pytest.mark.parametrize("pool", ["classic", "cheap"])
+def test_pooled_encoder_feeds_the_decoder(pool):
+    """``pool: classic`` (3x3 max-pools at stride (1, 2), lax's SAME
+    padding) and ``cheap``: the stage-entry Fires run unstrided and the
+    pools downsample, so the skips keep the stride-pool widths, the
+    decoder and head need no change, the tree equals the stride pool's,
+    and the segmentation net matches JAX's (eval mode, NET_TOL)."""
+    x = np.random.default_rng(4).normal(size=(2, H, W, C)).astype(
+        np.float32)
+    port = tps.PointSegNet(C, part="encoder+decoder", num_classes=CLASSES,
+                           pool=pool)
+    init_parameters(port, torch.Generator().manual_seed(1))
+    v = _perturb(to_flax_variables(port), seed=2)
+    load_flax_variables(port, v)
+    stride = tps.PointSegNet(C, part="encoder+decoder", num_classes=CLASSES)
+    load_flax_variables(stride, v)              # the same tree
+    port.eval()
+    with torch.no_grad():
+        _, skips = port.encoder(_nchw(x))
+        _, want_skips = stride.encoder(_nchw(x))
+        got = _nhwc(port(_nchw(x)))
+    assert [s.shape for s in skips] == [s.shape for s in want_skips] == [
+        (2, 64, H, W // 2), (2, 128, H, W // 4), (2, 256, H, W // 8)]
+    jnet = jps.PointSegNet(part="encoder+decoder", num_classes=CLASSES,
+                           pool=pool)
+    want = jax.jit(lambda v, a: jnet.apply(v, a, train=False))(
+        v, jnp.asarray(x))
+    assert got.shape == (2, H, W, CLASSES)
+    _close(got, want, NET_TOL)
+
+
+def test_same_max_pool_is_flax_max_pool():
+    """-inf padding with the extra column on the right (not
+    ``F.max_pool2d``'s symmetric padding), on odd and even sizes."""
+    for hw in ((5, 8), (4, 9)):
+        x = np.random.default_rng(5).normal(size=(2, *hw, 3)).astype(
+            np.float32) - 10.0                  # all negative: -inf shows
+        for k, s in (((3, 3), (1, 2)), ((1, 2), (1, 2))):
+            want = nn.max_pool(jnp.asarray(x), k, strides=s, padding="SAME")
+            got = _nhwc(tb.same_max_pool(_nchw(x), k, s))
+            np.testing.assert_array_equal(got, np.asarray(want))

@@ -141,3 +141,43 @@ def test_ring_batch_bit_exact():
     a = jsyn.synthetic_ring_batch(np.random.default_rng(1), 2, 4096, rings=H)
     b = tsyn.synthetic_ring_batch(np.random.default_rng(1), 2, 4096, rings=H)
     np.testing.assert_array_equal(a, b)
+
+
+def _deeplo_dict():
+    """``configs/deeplo_synth.yaml`` cut to the slice's size: DeepLO with
+    ``lidar-feat-simple-0`` and the ``sort`` backend, float32."""
+    with open(KITTI_TPU.parent / "deeplo_synth.yaml") as f:
+        d = yaml.safe_load(f)
+    d["compute-dtype"] = "float32"
+    d["datasets"].update({"image-height": H, "image-width": W,
+                          "max-points": NPTS})
+    d["lidar-feat-simple-0"].update({"feature-size": 16, "base-channels": 8})
+    d["odom-feat-rnn"]["hidden-size"] = 16
+    return d
+
+
+def test_deeplo_streams_without_imu_matches_jax():
+    """DeepLO streams with no IMU input (its chunks carry none), against
+    JAX's ``StreamingOdometry`` on the same weights and drive."""
+    d = _deeplo_dict()
+    jcfg, tcfg = jax_config(d), port_config(d)
+    model, variables = init_model(jcfg, jax.random.PRNGKey(3))
+    variables = jax.tree_util.tree_map(np.asarray, variables)
+    port = build_model(tcfg, device="cpu", seed=None)
+    load_flax_variables(port, variables)
+    drive = SyntheticDrive(n_frames=6, max_points=NPTS, seed=8)
+    so = StreamingOdometry(tcfg, port, chunk=4, device="cpu")
+    assert so.keys == ("points", "valid")
+    assert all(c.keys() == {"points", "valid"}
+               for _, c in so.host_chunks(drive))
+    want = JaxStreaming(jcfg, model, variables, chunk=4).run(drive)
+    got = so.run(drive)
+    assert got[0].shape == (6, 4, 4)
+    _compare(want, got)
+
+
+def test_deepio_does_not_stream():
+    with open(KITTI_TPU.parent / "deepio_synth.yaml") as f:
+        cfg = port_config(yaml.safe_load(f))
+    with pytest.raises(ValueError, match="lidar arch"):
+        StreamingOdometry(cfg, build_model(cfg, device="cpu"), device="cpu")

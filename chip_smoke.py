@@ -136,6 +136,29 @@ towers, the classic pool, ``backend: sort``) on the same tree:
     ``cli.stream`` with no IMU (one launch a tick). One float32 DeepIO and
     one DeepLO step on the card against the CPU within ``STEP_*``.
 
+Slice 8, the JAX package's benchmark configuration as shipped
+(``__graft_entry__._FLAGSHIP``, through ``bench/flagship.py``'s copy:
+pair-split stem, stride-fold pool, ``kernel-aligned: halves``):
+
+15. the training step as ``bench.py`` builds it, 16 windows of 9 grid
+    scans (``bench/flagship.py::raw_batch``) in bfloat16: 3 + 10 steps
+    with no ring and no scatter launch, profiled; one float32 step on the
+    card against the CPU at full width on 2 windows. The same tower with
+    ``kernel-aligned: off`` on the same scans in ring order: one ring
+    launch a step, the kernel bit-equal to its plain version on the
+    step's 144 scans. The routes on those scans at B = 144: ``on`` and
+    ``trust`` bit-equal to the ring kernel's route with no launch,
+    ``halves`` on the card bit-equal to the CPU, ``auto`` and ``on`` on
+    the scans shifted one slot launching the ring kernel once and equal
+    to its route; each route timed, and the check's host read. On phase
+    11's tree: ``cli.train --epochs 1`` with ``auto`` (the tree's
+    compacted scans fall back: 3 ring launches) and with ``slot-bin`` +
+    ``halves`` (none; the native binning library must build), the native
+    binning against its numpy oracle on one scan, ``cli.stream`` on a
+    binned drive, ``cli.export`` and the artifact against the eager step.
+    Then the pair-split stem against the classic stem on the same
+    weights: the stem alone and the step, in turns.
+
 After phase 4, the cost of the operator binding: a stream with the ring
 kernel behind ``torch.ops.deeplio.ring_select`` and with its CUDA
 implementation called directly, in turns (frames/s each way).
@@ -160,6 +183,8 @@ import numpy as np
 import torch
 import yaml
 
+from deeplio_tpu_torch.bench.flagship import flagship_dict
+from deeplio_tpu_torch.bench.flagship import raw_batch as flagship_raw_batch
 from deeplio_tpu_torch.bench.kitti_tree import make_tree
 from deeplio_tpu_torch.config import load_config, load_config_dict
 from deeplio_tpu_torch.data import device_bank as dbank
@@ -172,6 +197,7 @@ from deeplio_tpu_torch.models.from_flax import to_flax_variables
 from deeplio_tpu_torch.models.zoo import build_model
 from deeplio_tpu_torch.ops import _kernels
 from deeplio_tpu_torch.ops.projection import make_projector, rq_bits_for
+from deeplio_tpu_torch.ops.projection_ring import SENTINEL as SENTINEL_RING
 from deeplio_tpu_torch.ops.projection_ring import (
     project_batch_ring_planes,
     ring_prologue,
@@ -275,6 +301,12 @@ SYNTH_FILES = ("deepio_synth.yaml", "deeplo_synth.yaml", "deeplio_synth.yaml",
                "deeplio_synth_gen.yaml", "deeplio_synth_gen2.yaml",
                "deeplio_synth_gen2_packed.yaml")
 SYNTH_DRIVES, SYNTH_FRAMES, SYNTH_N, SYNTH_B = 2, 10, 16384, 24
+# phase 15: the JAX package's benchmark configuration
+# (__graft_entry__._FLAGSHIP, bench/flagship.py): TRAIN_B windows of
+# TRAIN_S frames, its batch (bench/flagship.py::raw_batch); the float32
+# step against the CPU at full width on FLAG_CPU_B windows (the CPU's
+# step over 16 windows would outgrow the phase)
+FLAG_CPU_B = 2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -826,18 +858,20 @@ def _flat(tree, prefix=""):
     return out
 
 
-def phase_train_vs_cpu(dev, cfg=None, label: str = "train"):
+def phase_train_vs_cpu(dev, cfg=None, label: str = "train", host=None):
     """One float32 step on the card against the same step on the CPU, at
     16x128 with identical weights and batch (``cfg``: the slice
-    configuration cut so, by default)."""
+    configuration cut so, by default; ``host``: the batch, by default two
+    windows of a synthetic drive)."""
     cfg = cfg or slice2_config(
         compute_dtype="float32", augment_yaw=False, dropout=0.0,
         image_height=16, image_width=128, max_points=2048, sequence_size=3,
         window_stride=2)
-    ds = WindowDataset(cfg.datasets, [SyntheticDrive(n_frames=5,
-                                                     max_points=2048)],
-                       with_points=cfg.model.uses_lidar)
-    host = next(ds.iter_batches(2, shuffle=False))
+    if host is None:
+        ds = WindowDataset(cfg.datasets, [SyntheticDrive(n_frames=5,
+                                                         max_points=2048)],
+                           with_points=cfg.model.uses_lidar)
+        host = next(ds.iter_batches(2, shuffle=False))
     cpu_model = build_model(cfg, device="cpu", seed=0)
     gpu_model = copy.deepcopy(cpu_model).to(dev)
     old = _flat(to_flax_variables(cpu_model))
@@ -858,7 +892,8 @@ def phase_train_vs_cpu(dev, cfg=None, label: str = "train"):
     stats = max([float(np.abs(new_g[k] - new_c[k]).max()
                        / max(np.abs(new_c[k]).max(), 1e-3))
                  for k in old if k.startswith("batch_stats/")] or [0.0])
-    print(f"{label}: float32 step GPU vs CPU at 16x128: loss rel err "
+    print(f"{label}: float32 step GPU vs CPU at {cfg.datasets.projection.height}"
+          f"x{cfg.datasets.projection.width}: loss rel err "
           f"{rel['loss']:.3g} (tolerance {STEP_LOSS_RTOL}), grad_norm "
           f"{rel['grad_norm']:.3g} ({STEP_NORM_RTOL}), BatchNorm statistics "
           f"{stats:.3g} ({STEP_STATS_RTOL}), update L2 {upd:.3g} "
@@ -1613,11 +1648,12 @@ def _serve(step, carry, chunks, to_device):
     return [torch.cat(o).cpu().numpy() for o in zip(*outs)]
 
 
-def phase_cli_export(dev, gpu, common, cfg, wd):
+def phase_cli_export(dev, gpu, common, cfg, wd, per_tick: int = 1):
     """``cli.export.main``, then the artifact fed the test drive chunk by
     chunk (the last chunk padded) against the eager step of
-    ``StreamingOdometry`` on the same restored weights and chunks.
-    Returns the artifact path's ring launches."""
+    ``StreamingOdometry`` on the same restored weights and chunks, with
+    ``per_tick`` ring launches a tick. Returns the artifact path's ring
+    launches."""
     from deeplio_tpu_torch.cli import export as export_cli
     from deeplio_tpu_torch.cli._common import restore_trainer
     from deeplio_tpu_torch.data.dataset import build_drives
@@ -1657,9 +1693,9 @@ def phase_cli_export(dev, gpu, common, cfg, wd):
             want = out
     frames = len(drive)
     padded = len(chunks) * EXPORT_CHUNK
-    check(art_launches == padded, f"artifact: {art_launches} ring launches "
-          f"for {padded} ticks ({frames} frames padded to chunks of "
-          f"{EXPORT_CHUNK})")
+    check(art_launches == per_tick * padded, f"artifact: {art_launches} "
+          f"ring launches for {padded} ticks ({frames} frames padded to "
+          f"chunks of {EXPORT_CHUNK}), want {per_tick} a tick")
     diff = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
     check(all(np.array_equal(g, w) for g, w in zip(got, want)),
           f"artifact vs eager step: poses, dx, dq differ by up to {diff}")
@@ -2402,6 +2438,405 @@ def phase_variants(dev, gpu, root, over=None):
 
 
 
+# ------------------------------------------------------------- slice 8
+
+def flagship_config(over=None, stem=None, f32=False, **ds):
+    """``__graft_entry__._FLAGSHIP`` (``bench/flagship.py``'s copy) with
+    ``datasets`` keys from ``ds`` (hyphens for underscores) and ``over``
+    (the CPU rehearsal's cuts, ``compute_dtype`` at the top); ``stem``
+    replaces the stem; ``f32``: float32 and no dropout."""
+    d = flagship_dict()
+    over = dict(over or {})
+    if "compute_dtype" in over:
+        d["compute-dtype"] = over.pop("compute_dtype")
+    if f32:
+        d["compute-dtype"] = "float32"
+        d["deeplio"]["dropout"] = 0.0
+    if stem:
+        d["lidar-feat-pointseg"]["stem"] = stem
+    d["datasets"].update({k.replace("_", "-"): v
+                          for k, v in {**over, **ds}.items()})
+    return load_config_dict(d)
+
+
+def _timed_steps(state, train_step, raw, steps: int = TIMED_STEPS):
+    """``steps`` steps after WARMUP_STEPS, the counts set to 0 just before
+    them; (ms/step, ring launches, scatter launches, metrics)."""
+    for _ in range(WARMUP_STEPS):
+        state, m = train_step(state, raw)
+    _zero_counts()
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(steps):
+        state, m = train_step(state, raw)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    ring, scatter = ring_select.launches, scatter_select.launches
+    vals = [_metrics(m) for m in metrics]
+    check(all(np.isfinite(list(v.values())).all() for v in vals),
+          "non-finite training metrics")
+    return ms, ring, scatter, vals
+
+
+def phase_flagship_steps(dev, gpu, over=None):
+    """Items 1 and 2: the flagship's training step as ``bench.py`` builds
+    it (``halves``: no kernel) and the same tower through the ring kernel
+    (``off``: one launch a step, bit-equal to its plain version on the
+    step's scans). Returns (halves ms/step, off ms/step, off launches,
+    worst difference, the ``off`` batch's card planes)."""
+    b = TRAIN_B
+    out = {}
+    for aligned in ("halves", "off"):
+        cfg = flagship_config(over, kernel_aligned=aligned)
+        t0 = time.perf_counter()
+        host = flagship_raw_batch(cfg, b, seed=0)
+        build_s = time.perf_counter() - t0
+        model = build_model(cfg, device=dev, seed=0)
+        state = create_train_state(cfg, model)
+        train_step, _ = build_train_step(cfg)
+        raw = batch_to_device(host, dev)
+        ms, ring, scatter, vals = _timed_steps(state, train_step, raw)
+        want = 0 if aligned == "halves" else TIMED_STEPS
+        check(ring == want and scatter == 0,
+              f"flagship {aligned}: {ring} ring and {scatter} scatter "
+              f"launches in {TIMED_STEPS} steps, want {want} and 0")
+        pairs = b * cfg.datasets.num_pairs
+        print(f"flagship {aligned}: {TIMED_STEPS} steps of {b} windows x "
+              f"{cfg.datasets.sequence_size} frames x "
+              f"{cfg.datasets.projection.max_points} points at "
+              f"{cfg.datasets.projection.height}x"
+              f"{cfg.datasets.projection.width} in {cfg.model.compute_dtype}"
+              f" (pair-split stem, stride-fold pool): {ms:.2f} ms/step, "
+              f"{pairs / ms * 1e3:.1f} pairs/s; ring launches {ring}, "
+              f"scatter {scatter}; loss {vals[0]['loss']:.5g} -> "
+              f"{vals[-1]['loss']:.5g}; batch built in {build_s:.1f} s "
+              f"[{gpu}]")
+        if aligned == "halves":
+            share = phase_train_profile(state, train_step, raw, gpu, ms,
+                                        kernel=("ring_project",
+                                                RING_KERNELS))
+            check(share in (None, 0.0), "the halves step ran a ring kernel")
+        out[aligned] = (ms, ring, raw)
+        del state, model, train_step
+        torch.cuda.empty_cache()
+    # the ring kernel on the off step's 144 scans, bit-equal
+    raw = out["off"][2]
+    n_pix = H * W
+    planes = [raw[k] for k in ("points_x", "points_y", "points_z",
+                               "points_rem")]
+    words = ring_prologue(*planes, raw["points_valid"], H, W, FU, FD)
+    got = ring_select(*words, n_pix)
+    ref = ring_select_reference(*words, n_pix)
+    torch.cuda.synchronize()
+    worst = max(int((a.long() - r.long()).abs().max())
+                for a, r in zip(got, ref))
+    check(worst == 0, f"flagship off: the ring kernel differs from its "
+          f"plain version by {worst} on the step's scans")
+    print(f"flagship off: the ring kernel bit-equal to its plain version "
+          f"on the step's {planes[0].shape[0]} scans "
+          f"({int((got[0] != SENTINEL_RING).sum())} of "
+          f"{got[0].numel()} pixels landed) [{gpu}]")
+    return out["halves"][0], out["off"][0], out["off"][1], worst, planes, \
+        raw["points_valid"]
+
+
+def phase_flagship_vs_cpu(dev, over=None):
+    """Item 1's float32 step on the card against the CPU, at full width
+    with FLAG_CPU_B windows of 9 frames of the flagship's batch."""
+    cfg = flagship_config(over, f32=True, kernel_aligned="halves")
+    phase_train_vs_cpu(dev, cfg, "flagship halves",
+                       host=flagship_raw_batch(cfg, FLAG_CPU_B, seed=1))
+
+
+def phase_flagship_routes(dev, gpu, planes, valid):
+    """Item 3: the routes on the flagship's 144 grid scans against the
+    ring kernel's route, then on the same scans shifted one slot; each
+    timed. Returns the ring launches of the misaligned calls."""
+    from deeplio_tpu_torch.ops import projection as tproj
+    n = planes[0].shape[1]
+
+    def ring_route(x, y, z, rem, v):
+        return project_batch_ring_planes(x, y, z, rem, v, H, W, FU, FD)
+
+    def route(check_mode, ps, v):
+        return tproj.project_batch_ring_aligned_planes(
+            *ps, v, H, W, FU, FD, check=check_mode, fallback=ring_route)
+
+    def same_bits(a, b):
+        return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(a, b))
+
+    want = ring_route(*planes, valid)
+    _zero_counts()
+    on = route("cond", planes, valid)
+    trust = route("assert-off", planes, valid)
+    torch.cuda.synchronize()
+    check(ring_select.launches == 0, f"on/trust on grid scans launched "
+          f"{ring_select.launches} ring kernels")
+    check(same_bits(on, want) and same_bits(trust, want),
+          "on/trust differ from the ring kernel route on grid scans")
+    perm = torch.from_numpy(tproj.halves_permutation(n, H, W)).to(dev)
+    hp = [p.index_select(1, perm) for p in planes]
+    hv = valid.index_select(1, perm)
+    halves = tproj.project_batch_ring_halves_planes(*hp, hv, H, W, FU, FD)
+    cpu = tproj.project_batch_ring_halves_planes(
+        *(p.cpu() for p in hp), hv.cpu(), H, W, FU, FD)
+    check(same_bits([t.cpu() for t in halves], cpu),
+          "halves on the card differs from the CPU")
+    landed = int(want[1].sum())
+    print(f"flagship routes B={planes[0].shape[0]}: on and trust bit-equal "
+          f"to the ring kernel route with no ring launch ({landed} of "
+          f"{want[1].numel()} pixels landed); halves on the card bit-equal "
+          f"to the CPU [{gpu}]")
+    shifted = [torch.roll(p, 1, dims=1) for p in planes]
+    want_s = ring_route(*shifted, valid)
+    launches = 0
+    for name in ("auto", "on"):
+        _zero_counts()
+        got = route("cond", shifted, valid)
+        torch.cuda.synchronize()
+        launches += ring_select.launches
+        check(ring_select.launches == 1 and same_bits(got, want_s),
+              f"{name} on shifted scans: {ring_select.launches} ring "
+              f"launches, bit-equal {same_bits(got, want_s)}")
+    print(f"flagship routes, scans shifted one slot: auto and on launch the "
+          f"ring kernel once each and equal its route bit for bit [{gpu}]")
+
+    aligned = tproj.slot_pixel(n, H, W, dev)
+
+    def predicate():
+        u, v, r = tproj.spherical_uv_planes(*planes[:3], H, W, FU, FD)
+        ok = valid & (r > 1e-6)
+        return torch.where(ok, (v * W + u) == aligned, True).all()
+
+    times = {"ring route": graph_ms(lambda: ring_route(*planes, valid)),
+             "trust": graph_ms(lambda: route("assert-off", planes, valid)),
+             "halves": graph_ms(lambda: tproj.project_batch_ring_halves_planes(
+                 *hp, hv, H, W, FU, FD)),
+             "predicate": graph_ms(predicate)}
+    walls = {"on": cuda_ms(lambda: route("cond", planes, valid)),
+             "trust": cuda_ms(lambda: route("assert-off", planes, valid))}
+    read_us = host_call_us(lambda: bool(predicate()), calls=50)
+    print(f"flagship routes timing B={planes[0].shape[0]}: device (graph "
+          f"replay) {', '.join(f'{k} {v:.4f} ms' for k, v in times.items())}"
+          f"; one call between CUDA events: on {walls['on']:.4f} ms, trust "
+          f"{walls['trust']:.4f} ms; the predicate computed and read on the "
+          f"host {read_us:.1f} us a call [{gpu}]")
+    del hp, hv, shifted, want, want_s
+    torch.cuda.empty_cache()
+    return launches
+
+
+class _Recorded:
+    """``cli.train``'s ``Trainer`` with each instance kept, to read the
+    prefetcher's timings after ``main`` returns."""
+
+    made = []
+
+    def __new__(cls, *a, **k):
+        t = Trainer(*a, **k)
+        cls.made.append(t)
+        return t
+
+
+def flagship_kitti_dict(root, over=None, **ds):
+    """The flagship on phase 11's tree (phase 12's splits), logging every
+    step, prefetch 2, no periodic checkpoint; ``ds`` sets ``datasets``
+    keys."""
+    d = flagship_dict()
+    over = dict(over or {})
+    if "compute_dtype" in over:
+        d["compute-dtype"] = over.pop("compute_dtype")
+    d["datasets"]["synthetic"] = False
+    d["datasets"]["kitti"] = {"root-path": str(root), "train": KITTI_TRAIN,
+                              "validation": KITTI_VAL, "test": KITTI_TEST}
+    d["datasets"].update({k.replace("_", "-"): v
+                          for k, v in {**over, **ds}.items()})
+    d["train"].update({"log-every": 1, "prefetch": 2,
+                       "checkpoint-every-steps": 1000})
+    return d
+
+
+def _flagship_cli_train(dev, gpu, root, label, over, **ds):
+    """``cli.train --epochs 1`` on the tree; (cfg, common args, ms/step in
+    fit, ring launches, scatter launches)."""
+    from deeplio_tpu_torch.cli import train as train_cli
+    cfg_path = root / f"flagship_{label}.yaml"
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(flagship_kitti_dict(root, over, **ds), f)
+    cfg = load_config(cfg_path)
+    wd = str(root / f"flagship_{label}")
+    common = ["-c", str(cfg_path), "--workdir", wd, "--device", dev.type]
+    _Recorded.made.clear()
+    real, train_cli.Trainer = train_cli.Trainer, _Recorded
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        train_cli.main(common + ["--epochs", "1"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ring, scatter = ring_select.launches, scatter_select.launches
+    finally:
+        train_cli.Trainer = real
+    (trainer,) = _Recorded.made
+    records = _records(wd)
+    steps = [r["step"] for r in records if r["split"] == "train"]
+    check(steps == [1, 2] and all(np.isfinite(r["loss"]) for r in records),
+          f"flagship cli train {label}: steps {steps}")
+    gaps = _step_gaps(records, range(1, len(steps)), len(steps), every=1000)
+    med = float(np.median(gaps))
+    bs = cfg.train.batch_size
+    pairs = bs * cfg.datasets.num_pairs
+    print(f"flagship cli train {label}: 1 epoch ({len(steps)} steps of {bs} "
+          f"windows x {cfg.datasets.sequence_size} frames, 1 validation "
+          f"batch) in {secs:.2f} s; {med:.2f} ms/step in fit (step 1 to "
+          f"2), {pairs / med * 1e3:.1f} pairs/s; ring launches {ring}, "
+          f"scatter {scatter} [{gpu}]")
+    _data_line(trainer, len(steps), gpu, f"flagship {label}")
+    return cfg, common, wd, med, ring, scatter
+
+
+def phase_flagship_cli(dev, gpu, root, over=None):
+    """Item 4: the command lines on phase 11's tree. ``auto``: the tree's
+    compacted ring-ordered scans break the slot contract, so every train
+    step and validation batch falls back to the ring kernel at B = 144;
+    ``slot-bin`` + ``halves``: the loader's threads bin each scan natively,
+    no launch; native binning against the oracle on one scan; ``cli.stream``
+    on a binned drive; the binned run's artifact against the eager step.
+    Returns the ring launches of the ``auto`` run."""
+    from deeplio_tpu_torch import native
+    from deeplio_tpu_torch.cli import stream as stream_cli
+    from deeplio_tpu_torch.data import synthetic as syn
+    _, _, _, _, ring, scatter = _flagship_cli_train(
+        dev, gpu, root, "auto", over, kernel_aligned="auto")
+    check(ring == 3 and scatter == 0, f"flagship cli train auto: {ring} "
+          f"ring and {scatter} scatter launches, want 3 (2 steps and 1 "
+          f"validation batch on compacted KITTI scans) and 0")
+    auto_ring = ring
+
+    check(native.lib() is not None,
+          f"the native slot-binning library did not build: "
+          f"{native.build_error()}")
+    cfg, common, wd, _, ring, scatter = _flagship_cli_train(
+        dev, gpu, root, "slot-bin", over, slot_bin=True,
+        kernel_aligned="halves")
+    check(ring == 0 and scatter == 0, f"flagship cli train slot-bin: {ring} "
+          f"ring and {scatter} scatter launches, want 0")
+    # native binning against its numpy oracle on one scan of the tree
+    path = sorted((pathlib.Path(root) / KITTI_DATE).rglob("*.bin"))[0]
+    scan = np.fromfile(path, dtype=np.float32).reshape(-1, 4)
+    ones = np.ones(len(scan), bool)
+    pj = cfg.datasets.projection
+    spp = pj.max_points // (pj.height * pj.width)
+    args = (scan, ones, pj.height, pj.width, spp, pj.fov_up_deg,
+            pj.fov_down_deg, "halves")
+    secs = {}
+    for name, fn in (("native", syn.slot_bin_scan),
+                     ("numpy", syn.slot_bin_scan_np)):
+        fn(*args)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            got = fn(*args)
+        secs[name] = (time.perf_counter() - t0) / 5
+        secs[name + "_out"] = got
+    a, b = secs.pop("native_out"), secs.pop("numpy_out")
+    check(np.array_equal(a[0].view(np.int32), b[0].view(np.int32))
+          and np.array_equal(a[1], b[1]),
+          "native slot binning differs from the numpy oracle")
+    print(f"slot binning one tree scan ({len(scan)} points, {spp} slots a "
+          f"pixel, halves layout): native {secs['native'] * 1e3:.2f} ms, "
+          f"numpy oracle {secs['numpy'] * 1e3:.2f} ms, bit-equal [{gpu}]")
+
+    _zero_counts()
+    scores = stream_cli.main(common + ["--chunk", "16"])
+    (name, s), = scores.items()
+    check(ring_select.launches == 0 and np.isfinite(s["ate_m"]),
+          f"flagship cli stream: {ring_select.launches} ring launches")
+    print(f"flagship cli stream (slot-binned {name}, halves, B = 1): "
+          f"{s['frames']} frames at {s['frames_per_sec']:.1f} frames/s, "
+          f"real-time factor {s['real_time_factor']:.2f}, ATE "
+          f"{s['ate_m']:.4f} m, ring launches 0 [{gpu}]")
+    phase_cli_export(dev, gpu, common, cfg, wd, per_tick=0)
+    return auto_ring
+
+
+def phase_flagship_stems(dev, gpu, over=None):
+    """Item 5: the pair-split stem against the classic stem on the same
+    weights, full width, bfloat16: the stem alone and the step, in
+    turns."""
+    cfg = flagship_config(over, kernel_aligned="halves")
+    ccfg = flagship_config(over, stem="classic", kernel_aligned="halves")
+    split = build_model(cfg, device=dev, seed=0)
+    classic = build_model(ccfg, device=dev, seed=None)
+    classic.load_state_dict(split.state_dict())
+    raw = batch_to_device(flagship_raw_batch(cfg, TRAIN_B, seed=2), dev)
+    from deeplio_tpu_torch.train.step import make_model_batch
+    projector = make_projector(cfg.datasets.projection, cfg.datasets.channels,
+                               cfg.datasets.mean, cfg.datasets.std,
+                               out_dtype=torch.bfloat16, layout="planes")
+    with torch.no_grad():
+        mb = make_model_batch(cfg, projector, raw)
+    enc = split.lidar_feat.pointseg.encoder.eval()
+    x = mb["images"].flatten(0, 1).permute(0, 3, 1, 2)
+    pads = enc._fold_pads(x)
+    stem = enc.ConvBN_0
+
+    def nchw(t):
+        return t.flatten(0, 1).permute(0, 3, 1, 2)
+
+    def split_stem():
+        return stem((nchw(mb["images"]), nchw(mb["images2"])), pads)
+
+    def classic_stem():
+        return stem(nchw(torch.cat([mb["images"], mb["images2"]], -1)),
+                    pads)
+
+    stem_ms = {}
+    with torch.no_grad(), torch.autocast(dev.type, dtype=torch.bfloat16):
+        for name, fn in (("pair-split", split_stem),
+                         ("classic", classic_stem)) * 2:
+            stem_ms.setdefault(name, []).append(cuda_ms(fn))
+    step_ms = {}
+    for name, model, c in (("pair-split", split, cfg),
+                           ("classic", classic, ccfg)) * 2:
+        state = create_train_state(c, model)
+        train_step, _ = build_train_step(c)
+        ms, *_ = _timed_steps(state, train_step, raw)
+        step_ms.setdefault(name, []).append(ms)
+    print(f"flagship stems, same weights, B = {TRAIN_B} x 8 pairs at "
+          f"{H}x{W}, bfloat16 (in turns): the stem with its input copies "
+          f"(CUDA events) pair-split "
+          f"{' / '.join(f'{v:.4f}' for v in stem_ms['pair-split'])} ms, "
+          f"classic {' / '.join(f'{v:.4f}' for v in stem_ms['classic'])} "
+          f"ms; the step pair-split "
+          f"{' / '.join(f'{v:.2f}' for v in step_ms['pair-split'])} "
+          f"ms/step, classic "
+          f"{' / '.join(f'{v:.2f}' for v in step_ms['classic'])} ms/step "
+          f"[{gpu}]")
+    del split, classic, raw, mb
+    torch.cuda.empty_cache()
+
+
+def phase_flagship(dev, gpu, root, over=None):
+    """Phase 15: the JAX package's benchmark configuration as shipped.
+    Returns (ring launches on its main paths, worst difference, halves
+    ms/step, off ms/step)."""
+    halves_ms, off_ms, off_ring, worst, planes, valid = \
+        phase_flagship_steps(dev, gpu, over)
+    phase_flagship_vs_cpu(dev, over)
+    phase_flagship_routes(dev, gpu, planes, valid)
+    del planes, valid
+    torch.cuda.empty_cache()
+    cli_ring = phase_flagship_cli(dev, gpu, root, over)
+    phase_flagship_stems(dev, gpu, over)
+    print(f"flagship: halves {halves_ms:.2f} ms/step, "
+          f"{TRAIN_PAIRS / halves_ms * 1e3:.1f} pairs/s; off (ring kernel) "
+          f"{off_ms:.2f} ms/step, {TRAIN_PAIRS / off_ms * 1e3:.1f} pairs/s "
+          f"[{gpu}]")
+    return off_ring + cli_ring, worst, halves_ms, off_ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one GPU",
@@ -2484,17 +2919,25 @@ def main() -> int:
         v_launches, v_worst, v_times, v_step_ms = phase_variants(dev, gpu,
                                                                  root)
         print(f"variants phase: {time.perf_counter() - t0:.1f} s [{gpu}]")
+        # slice 8: the JAX package's flagship as shipped (halves, no
+        # kernel), its tower through the ring kernel at B = 144 (off,
+        # and auto on the tree's scans)
+        t0 = time.perf_counter()
+        f_ring, f_worst, f_halves_ms, f_off_ms = phase_flagship(dev, gpu,
+                                                                root)
+        print(f"flagship phase: {time.perf_counter() - t0:.1f} s [{gpu}]")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"kernels: ring_project (ported, launches={k_launches} on the "
           f"KITTI training paths, {c_launches} on the command lines' paths, "
-          f"{p_ring} on pretraining's, {launches} in the slice-1 stream, "
+          f"{p_ring} on pretraining's, {f_ring} on the flagship's, "
+          f"{launches} in the slice-1 stream, "
           f"bit-exact), proj_scatter (ported, launches={s_launches}: the "
           f"training step's and the fit's, {p_scatter} on pretraining's "
           f"and {v_launches} on the model zoo's, bit-exact)")
     s_launches += p_scatter + v_launches
     k_ms, p_ms, bound_ms, k_worst = k_times[TRAIN_B * TRAIN_S]
-    worst = max(worst, k_worst, k_times[PREFILL_CHUNK][3])
+    worst = max(worst, k_worst, k_times[PREFILL_CHUNK][3], f_worst)
     # the scatter kernel on configs/deeplio_kitti.yaml's path (B = 96,
     # index payloads), where one library call finds the same winners
     sk_ms, sp_ms, s_bound_ms, s_lib_ms = v_times
@@ -2507,7 +2950,7 @@ def main() -> int:
         "route": "cuda",
         "source": "deeplio_tpu_torch/csrc/ring_project.cu",
         "replaces": "deeplio_tpu/ops/projection_pallas_ring.py:62",
-        "launches": k_launches + c_launches + p_ring,
+        "launches": k_launches + c_launches + p_ring + f_ring,
         "max_abs_err": float(worst),
         "ms": k_ms,
         "plain_ms": p_ms,

@@ -10,8 +10,11 @@ stack and its normalization, the window (``sequence-size``,
 ...]}`` or ``{sequences: ["00", ...]}``), the synthetic drives and their
 world, the segmentation labels of PointSeg pretraining (``labels-path``,
 ``label-map``, ``labels-num-classes``), the LiDAR towers (PointSeg with
-its ``classic``, ``cheap`` and ``stride`` pools, ``lidar-feat-simple-0``
-and ``-1``), their dropout and warm starts, the pose loss, the optimizer
+its ``classic``, ``cheap``, ``stride`` and ``stride-fold`` pools and its
+``classic`` and ``pair-split`` stems, ``lidar-feat-simple-0`` and
+``-1``), their dropout and warm starts, the slot-aligned projection
+routes (``kernel-aligned: auto | on | trust | halves``) and host slot
+binning (``slot-bin``), the pose loss, the optimizer
 with its plateau schedule, and the ``train`` block of the training loop
 with its projection cache and device-resident dataset.
 
@@ -48,7 +51,8 @@ _LATER_PROJECTION = "a later projection slice (ROADMAP.md Queue 1 item 5)"
 _LATER_VARIANTS = "the model-variants slice (ROADMAP.md Queue 1 item 5)"
 _LATER_DP = "the data-parallel slice (ROADMAP.md Queue 1 item 6)"
 BACKENDS = ("pallas-ring", "pallas", "sort")
-POOLS = ("classic", "cheap", "stride")
+POOLS = ("classic", "cheap", "stride", "stride-fold")
+STEMS = ("classic", "pair-split")
 LIDAR_NETS = ("lidar-feat-pointseg", "lidar-feat-simple-0",
               "lidar-feat-simple-1")
 ARCHS = ("deepio", "deeplo", "deeplio")
@@ -111,6 +115,10 @@ class ProjectionConfig:
     # port, whose CUDA kernel has one schedule.
     kernel_spb: int = 1
     kernel_packed: str = "auto"
+    # pallas-ring only: ``off`` runs the ring kernel; ``auto`` and ``on``
+    # take the slot-aligned route when every valid point sits on its
+    # slot's pixel and the ring kernel otherwise; ``trust`` takes it
+    # unchecked; ``halves`` takes the dual-half route (ops/projection.py)
     kernel_aligned: str = "off"
 
 
@@ -162,6 +170,10 @@ class DatasetConfig:
     synthetic_train_drives: int = 2
     synthetic_eval_drives: int = 1
     synthetic_world: str = "origin"
+    # bin every KITTI scan on the host onto the slot grid the aligned
+    # routes read (data/synthetic.py::slot_bin_scan): each pixel keeps its
+    # best max_points / (H * W) points, the winner first
+    slot_bin: bool = False
     # SemanticKITTI-format per-point labels for PointSeg pretraining
     # (train/pretrain.py): <labels-path>/<drive name>/<frame>.label, one
     # uint32 a point, the low 16 bits the semantic id; empty = geometric
@@ -214,11 +226,27 @@ class DatasetConfig:
         if proj.backend not in BACKENDS:
             raise _unsupported(f"projection backend {proj.backend!r}",
                                _LATER_PROJECTION)
-        if proj.kernel_aligned != "off":
-            raise _unsupported(f"kernel-aligned={proj.kernel_aligned}",
-                               _LATER_PROJECTION)
-        if bool(_get(d, "slot-bin", False)):
-            raise _unsupported("slot-bin", _LATER_VARIANTS)
+        slot_bin = bool(_get(d, "slot-bin", False))
+        if slot_bin and proj.max_points % (proj.height * proj.width):
+            raise ConfigError(
+                f"slot-bin needs max-points ({proj.max_points}) to be a "
+                f"multiple of H*W ({proj.height * proj.width})")
+        if proj.kernel_aligned in ("trust", "halves"):
+            # no runtime check on these routes: the data must sit on the
+            # slot grid by construction
+            if not bool(_get(d, "synthetic", False)) and not slot_bin:
+                raise ConfigError(
+                    f"kernel-aligned={proj.kernel_aligned} requires "
+                    "grid-aligned data by construction: set "
+                    "datasets.synthetic or datasets.slot-bin (or use "
+                    "kernel-aligned=auto, which keeps the runtime "
+                    "predicate)")
+            if bool(_get(d, "augment-yaw", False)):
+                # the rotation moves points off their azimuth slots
+                raise ConfigError(
+                    f"kernel-aligned={proj.kernel_aligned} is "
+                    "incompatible with augment-yaw (rotation breaks the "
+                    "slot grid); use kernel-aligned=auto or off")
         world = str(_get(d, "synthetic-world", "origin"))
         if world not in ("origin", "corridor"):
             raise ConfigError(f"synthetic-world must be origin|corridor, "
@@ -270,6 +298,7 @@ class DatasetConfig:
             synthetic_train_drives=int(_get(d, "synthetic-train-drives", 2)),
             synthetic_eval_drives=int(_get(d, "synthetic-eval-drives", 1)),
             synthetic_world=world,
+            slot_bin=slot_bin,
             labels_path=str(_get(d, "labels-path", "")),
             label_map={int(k): int(v)
                        for k, v in (_get(d, "label-map", {}) or {}).items()},
@@ -287,11 +316,14 @@ class LidarFeatConfig:
     w_stride: int = 2
     se: bool = True
     el_squeeze: int = 0
+    # pair-split: the stem conv takes frames i and j apart, its kernel
+    # split along the input channels (models/blocks.py::SplitInputConv)
     stem: str = "classic"
     fire: str = "classic"
     # classic: 3x3 max-pools at stride (1, 2) after the stem and the first
     # two Fire stages; cheap: (1, 2) windows; stride: no pools, the
-    # stages' entry Fires carry the stride (models/pointseg.py)
+    # stages' entry Fires carry the stride; stride-fold: stride with the
+    # first entry's stride folded into the stem (models/pointseg.py)
     pool: str = "classic"
     dropout: float = 0.0       # after the tower's Dense, training only
     # warm start of the PointSeg encoder from a snapshot
@@ -310,16 +342,35 @@ class LidarFeatConfig:
         stem = str(_get(d, "stem", "classic"))
         fire = str(_get(d, "fire", "classic"))
         pool = str(_get(d, "pool", "classic"))
-        for what, got, want in (("part", part, "encoder"),
-                                ("stem", stem, "classic"),
-                                ("fire", fire, "classic")):
-            if got != want:
-                raise _unsupported(f"lidar {what}={got!r}", _LATER_VARIANTS)
-        if pool == "stride-fold":
-            raise _unsupported("lidar pool='stride-fold'", _LATER_VARIANTS)
+        if part not in ("encoder", "encoder+decoder"):
+            raise ConfigError(
+                f"part must be encoder|encoder+decoder, got {part!r}")
+        if stem not in STEMS + ("s2d", "s2d-pre", "factorized"):
+            raise ConfigError(
+                "stem must be classic|pair-split|s2d|s2d-pre|factorized, "
+                f"got {stem!r}")
+        if stem == "pair-split" and part != "encoder":
+            raise ConfigError(
+                "stem=pair-split is encoder-only (the seg decoder reads "
+                "the concatenated pair input the split never builds)")
+        if fire not in ("classic", "fused", "mixed"):
+            raise ConfigError(
+                f"fire must be classic|fused|mixed, got {fire!r}")
         if pool not in POOLS:
             raise ConfigError(f"pool must be classic|cheap|stride|"
                               f"stride-fold, got {pool!r}")
+        if pool == "stride-fold" and (part != "encoder"
+                                      or stem not in STEMS):
+            # the fold is exact only while the skips are unused and the
+            # stem is the (maybe input-split) strided 3x3
+            raise ConfigError(
+                "pool=stride-fold requires part=encoder and a classic or "
+                f"pair-split stem (got part={part!r}, stem={stem!r})")
+        for what, got, want in (("part", part, ("encoder",)),
+                                ("stem", stem, STEMS),
+                                ("fire", fire, ("classic",))):
+            if got not in want:
+                raise _unsupported(f"lidar {what}={got!r}", _LATER_VARIANTS)
         return LidarFeatConfig(
             name=name,
             part=part,

@@ -24,7 +24,8 @@ import numpy as np
 
 from deeplio_tpu_torch.config.schema import Config, DatasetConfig
 from deeplio_tpu_torch.data import np_spatial as nsp
-from deeplio_tpu_torch.data.drives import Drive, KittiRawDrive, SyntheticDrive
+from deeplio_tpu_torch.data.drives import (Drive, KittiRawDrive,
+                                           PermutedDrive, SyntheticDrive)
 
 # channel planes of the raw scans, flat [B*S, N]: the step projects per
 # frame
@@ -194,9 +195,19 @@ def build_drives(cfg: Config, split: str) -> List[Drive]:
     KITTI raw drives the split lists under ``root-path``, each a number or
     ``{drive, start, end}``; with ``datasets.synthetic``, deterministic
     synthetic drives with the JAX package's seeds and lengths (train seeds
-    0.., validation 100.., test 200..)."""
+    0.., validation 100.., test 200..).
+
+    The slot grid, as in the JAX package: KITTI drives are binned under
+    ``slot-bin``; synthetic drives under ``slot-bin`` or ``kernel-aligned:
+    trust | halves`` (their scans are compacted, not on the grid). Under
+    ``halves`` binned drives bin straight into the dual-half layout, and
+    the others are wrapped in a ``PermutedDrive``."""
     ds = cfg.datasets
-    n_pts = ds.projection.max_points
+    proj = ds.projection
+    n_pts = proj.max_points
+    halves = proj.kernel_aligned == "halves"
+    grid = (proj.height, proj.width, proj.fov_up_deg, proj.fov_down_deg)
+    binned = dict(slot_layout="halves" if halves else "slots")
     if ds.synthetic:
         seeds = {"train": range(ds.synthetic_train_drives),
                  "validation": range(100, 100 + ds.synthetic_eval_drives),
@@ -204,23 +215,40 @@ def build_drives(cfg: Config, split: str) -> List[Drive]:
         n_frames = ds.synthetic_frames
         if split != "train" and ds.synthetic_eval_frames:
             n_frames = ds.synthetic_eval_frames
-        return [SyntheticDrive(n_frames=n_frames, max_points=n_pts, seed=sd,
-                               world_mode=ds.synthetic_world)
-                for sd in seeds]
+        on_grid = ds.slot_bin or proj.kernel_aligned in ("trust", "halves")
+        drives: List[Drive] = [
+            SyntheticDrive(n_frames=n_frames, max_points=n_pts, seed=sd,
+                           world_mode=ds.synthetic_world,
+                           slot_grid=grid if on_grid else None, **binned)
+            for sd in seeds]
+        return _layout(drives, halves, proj)
+    binned["slot_grid"] = grid if ds.slot_bin else None
     split_map = {"train": ds.train, "validation": ds.validation,
                  "test": ds.test}
-    drives: List[Drive] = []
+    drives = []
     for date, ids in split_map[split].items():
         for drive in ids:
             if isinstance(drive, dict):
                 drives.append(KittiRawDrive(
                     ds.root_path, date, int(drive["drive"]),
                     max_points=n_pts, start=int(drive.get("start", 0)),
-                    end=int(drive.get("end", -1))))
+                    end=int(drive.get("end", -1)), **binned))
             else:
                 drives.append(KittiRawDrive(ds.root_path, date, int(drive),
-                                            max_points=n_pts))
-    return drives
+                                            max_points=n_pts, **binned))
+    return _layout(drives, halves, proj)
+
+
+def _layout(drives: List[Drive], halves: bool, proj) -> List[Drive]:
+    """Under ``halves``, a ``PermutedDrive`` around each drive with no
+    slot grid (a binned one is in the layout already)."""
+    if not halves:
+        return drives
+    from deeplio_tpu_torch.ops.projection import halves_permutation
+
+    perm = halves_permutation(proj.max_points, proj.height, proj.width)
+    return [d if getattr(d, "slot_grid", None) is not None
+            else PermutedDrive(d, perm) for d in drives]
 
 
 def build_dataset(cfg: Config, split: str,

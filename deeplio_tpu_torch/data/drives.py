@@ -1,10 +1,15 @@
 """Drive abstractions (counterpart of ``deeplio_tpu/data/drives.py``: the
-``Drive`` interface, ``KittiRawDrive`` for KITTI raw drives on disk and
-``SyntheticDrive``).
+``Drive`` interface, ``KittiRawDrive`` for KITTI raw drives on disk,
+``SyntheticDrive`` and ``PermutedDrive``).
 
 Scans are padded/truncated to a static ``max_points`` with a validity
 mask; poses are float64 on the host, normalised to a drive-local origin.
-Projection does not happen here: it runs on the device.
+Projection does not happen here: it runs on the device. With a
+``slot_grid`` ``(H, W, fov_up_deg, fov_down_deg)`` a drive bins every scan
+onto the slot grid the slot-aligned projection routes read
+(``data/synthetic.py::slot_bin_scan``), in the ``slots`` or ``halves``
+layout; per-point labels are then refused, since they index the raw
+order.
 """
 
 from __future__ import annotations
@@ -50,6 +55,53 @@ class Drive:
         raise NotImplementedError
 
 
+_LABELS_SLOT_BIN = ("per-point labels are incompatible with slot-bin "
+                    "(points are re-ordered onto the slot grid)")
+
+
+def _check_grid(slot_grid, max_points: int) -> None:
+    if slot_grid is not None and max_points % (slot_grid[0] * slot_grid[1]):
+        raise ValueError(f"slot_grid {tuple(slot_grid[:2])} needs "
+                         f"max_points ({max_points}) to be a multiple of H*W")
+
+
+class PermutedDrive(Drive):
+    """A drive whose every scan is permuted by one fixed ``perm``: the
+    dual-half layout of ``kernel-aligned: halves``
+    (``ops/projection.py::halves_permutation``) for a drive with no slot
+    grid, so every consumer (windows, streaming, the projection cache)
+    sees the layout the route reads. Labels are refused."""
+
+    def __init__(self, inner: Drive, perm: np.ndarray):
+        self.inner = inner
+        self.perm = np.asarray(perm)
+        self.name = inner.name
+
+    def __len__(self) -> int:
+        return len(self.inner)
+
+    def points(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
+        p, v = self.inner.points(i)
+        return p[self.perm], v[self.perm]
+
+    def points_planes(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
+        p, v = self.inner.points_planes(i)
+        return np.ascontiguousarray(p[:, self.perm]), v[self.perm]
+
+    def labels(self, i: int, labels_path: str):
+        raise ValueError("per-point labels are incompatible with the "
+                         "halves point layout (points are re-ordered)")
+
+    def frame_time(self, i: int) -> float:
+        return self.inner.frame_time(i)
+
+    def pose(self, i: int) -> np.ndarray:
+        return self.inner.pose(i)
+
+    def imu_between(self, t0: float, t1: float) -> np.ndarray:
+        return self.inner.imu_between(t0, t1)
+
+
 class KittiRawDrive(Drive):
     """One KITTI raw synced drive, ``<root>/<date>/<date>_drive_%04d_sync``,
     frames ``start`` to ``end`` (inclusive; ``-1``: to the last):
@@ -59,9 +111,10 @@ class KittiRawDrive(Drive):
     - ``velodyne_points/timestamps.txt`` and ``oxts/timestamps.txt``;
     - ``oxts/data/%010d.txt``: one 30-field GPS/IMU record a file.
 
-    Scans are read from disk on every access. The OXTS records are parsed
-    on the first pose or IMU access, once. Same outputs as the JAX
-    package's ``KittiRawDrive`` on the same tree, bit for bit.
+    Scans are read from disk on every access (and binned, under a
+    ``slot_grid``, every scan whole). The OXTS records are parsed on the
+    first pose or IMU access, once. Same outputs as the JAX package's
+    ``KittiRawDrive`` on the same tree, bit for bit.
     """
 
     # 0-based fields of an OXTS record
@@ -71,12 +124,10 @@ class KittiRawDrive(Drive):
 
     def __init__(self, root: str, date: str, drive: int,
                  max_points: int = 131072, start: int = 0, end: int = -1,
-                 slot_grid=None):
-        if slot_grid is not None:
-            raise ValueError(
-                "slot-binned KITTI scans are not supported by the PyTorch "
-                "port yet; the model-variants slice (ROADMAP.md Queue 1 "
-                "item 5) adds them")
+                 slot_grid=None, slot_layout: str = "slots"):
+        _check_grid(slot_grid, max_points)
+        self.slot_grid = slot_grid
+        self.slot_layout = slot_layout
         self.root = root
         self.date = date
         self.drive = drive
@@ -150,6 +201,11 @@ class KittiRawDrive(Drive):
         raw = np.fromfile(
             os.path.join(self.velo_dir, f"{self.start + i:010d}.bin"),
             dtype=np.float32).reshape(-1, 4)
+        if self.slot_grid is not None:
+            H, W, fu, fd = self.slot_grid
+            return syn.slot_bin_scan(raw, np.ones(raw.shape[0], bool), H, W,
+                                     self.max_points // (H * W), fu, fd,
+                                     layout=self.slot_layout)
         n = min(raw.shape[0], self.max_points)
         pts = np.zeros((self.max_points, 4), np.float32)
         pts[:n] = raw[:n]
@@ -164,7 +220,10 @@ class KittiRawDrive(Drive):
 
         The file holds one uint32 a point: the low 16 bits are the
         semantic id, the high 16 the instance id, which is dropped.
+        Raises under a slot grid.
         """
+        if self.slot_grid is not None:
+            raise ValueError(_LABELS_SLOT_BIN)
         path = os.path.join(labels_path, self.name,
                             f"{self.start + i:010d}.label")
         if not os.path.exists(path):
@@ -206,12 +265,18 @@ class SyntheticDrive(Drive):
     trajectory; ``world_points`` unused). ``rings > 0`` (an addition of
     the port) emits each scan in spinning-sensor order, as KITTI's .bin
     files are, so the ring projection sees the ordering it is built for.
+    The scans are compacted, not on a slot grid: the asserted aligned
+    routes need ``slot_grid``, which bins them.
     """
 
     def __init__(self, n_frames: int = 64, max_points: int = 16384,
                  seed: int = 0, world_points: int = 30000,
                  name: str = "synth", rings: int = 0,
-                 world_mode: str = "origin"):
+                 world_mode: str = "origin", slot_grid=None,
+                 slot_layout: str = "slots"):
+        _check_grid(slot_grid, max_points)
+        self.slot_grid = slot_grid
+        self.slot_layout = slot_layout
         self.max_points = max_points
         self.seed = seed
         self.rings = rings
@@ -243,12 +308,27 @@ class SyntheticDrive(Drive):
 
     @lru_cache(maxsize=None)
     def points(self, i: int):
-        return syn.synthetic_scan(self._world, self._Ts[i], self.max_points,
-                                  seed=self.seed * 1000 + i, rings=self.rings)
+        pts, valid = syn.synthetic_scan(self._world, self._Ts[i],
+                                        self.max_points,
+                                        seed=self.seed * 1000 + i,
+                                        rings=self.rings)
+        if self.slot_grid is not None:
+            H, W, fu, fd = self.slot_grid
+            return syn.slot_bin_scan(pts, valid, H, W,
+                                     self.max_points // (H * W), fu, fd,
+                                     layout=self.slot_layout)
+        return pts, valid
 
     @lru_cache(maxsize=None)
     def points_planes(self, i: int):
         return super().points_planes(i)
+
+    def labels(self, i: int, labels_path: str):
+        """None (no label files; geometric labels), or raises under a slot
+        grid, as ``KittiRawDrive.labels`` does."""
+        if self.slot_grid is not None:
+            raise ValueError(_LABELS_SLOT_BIN)
+        return None
 
     def frame_time(self, i: int) -> float:
         return float(self._times[i])

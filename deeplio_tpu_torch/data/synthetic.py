@@ -2,7 +2,9 @@
 ``deeplio_tpu/data/synthetic.py`` that the port needs:
 ``synthetic_world``, ``synthetic_world_corridor``,
 ``synthetic_trajectory``, ``synthetic_oxts``,
-``synthetic_scan``, ``ring_order`` and ``synthetic_ring_batch``).
+``synthetic_scan``, ``ring_order``, ``synthetic_ring_batch``, and the
+host slot binning of the slot-aligned projection routes,
+``slot_bin_scan`` and its numpy oracle ``slot_bin_scan_np``).
 
 A static world point cloud observed from a smooth trajectory, 100 Hz
 OXTS-style records consistent with it, and 10 Hz scans. Host-side numpy in
@@ -306,3 +308,117 @@ def synthetic_ring_batch(rng: np.ndarray, batch: int, n_points: int,
                     rr * np.sin(pitch)[None, :, None],
                     rng.uniform(0, 1, (batch, rings, per))], -1)
     return pts.reshape(batch, n_points, 4).astype(np.float32)
+
+
+def _slot_key_layout(H: int, W: int, spp: int):
+    """(n_pix, capacity, rq_scale, rq ceiling) of a slot grid: the device
+    key layout of ``ops/projection.py::idx_key_layout``, whose ``rq_max``
+    marks an invalid point, so a valid one stops at ``rq_max - 1``."""
+    from deeplio_tpu_torch.ops.projection import idx_key_layout
+
+    n_pix = H * W
+    cap = n_pix * spp
+    _, rq_bits, rq_scale = idx_key_layout(cap, n_pix)
+    return n_pix, cap, rq_scale, (1 << rq_bits) - 2
+
+
+def slot_bin_scan(pts: np.ndarray, valid: np.ndarray, H: int, W: int,
+                  spp: int, fov_up_deg: float = 3.0,
+                  fov_down_deg: float = -25.0, layout: str = "slots",
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """Bin a raw scan [n, 4] onto the fixed grid of H rings x W * spp
+    azimuth slots that the slot-aligned projection routes read: (points
+    [H * W * spp, 4] float32, valid [H * W * spp] bool).
+
+    Runs the native op (``deeplio_tpu_torch/native``, the GIL released for
+    the call); where it cannot be built, :func:`slot_bin_scan_np`, which
+    gives the same bins. The native pass's yaw and pitch may differ from
+    numpy's by a few ulp, which moves a point only when it lies on a
+    pixel boundary; every operation that feeds an integer decision is
+    exact on both.
+
+    ``layout``: ``slots`` (position ``pixel * spp + rank``) or ``halves``
+    (position ``rank * H * W + pixel``, the layout ``kernel-aligned:
+    halves`` reads, so no separate permutation is paid).
+    """
+    if layout not in ("slots", "halves"):
+        raise ValueError(f"layout must be slots|halves, got {layout!r}")
+    from deeplio_tpu_torch import native
+
+    lib = native.lib()
+    if lib is None:
+        return slot_bin_scan_np(pts, valid, H, W, spp, fov_up_deg,
+                                fov_down_deg, layout)
+    import ctypes
+
+    _, cap, rq_scale, rq_hi = _slot_key_layout(H, W, spp)
+    pts4 = np.ascontiguousarray(pts[:, :4], np.float32)
+    vld = np.ascontiguousarray(np.asarray(valid, bool).view(np.uint8))
+    out = np.empty((cap, 4), np.float32)
+    out_valid = np.empty(cap, np.uint8)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.dlt_slot_bin_scan(
+        pts4.ctypes.data_as(f32p), vld.ctypes.data_as(u8p), pts4.shape[0],
+        H, W, spp, float(fov_up_deg), float(fov_down_deg), float(rq_scale),
+        rq_hi, 1 if layout == "halves" else 0, out.ctypes.data_as(f32p),
+        out_valid.ctypes.data_as(u8p))
+    return out, out_valid.view(bool)
+
+
+def slot_bin_scan_np(pts: np.ndarray, valid: np.ndarray, H: int, W: int,
+                     spp: int, fov_up_deg: float = 3.0,
+                     fov_down_deg: float = -25.0, layout: str = "slots",
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Numpy slot binning: the oracle of the native op, and its stand-in
+    where no C++ compiler is found.
+
+    Each pixel keeps its ``spp`` best points by (quantized range, index),
+    the winner rule of every projection route, placed best first in its
+    slots, so the aligned route's per-pixel minimum finds the same winner;
+    points past ``spp`` a pixel could never win and are dropped, and empty
+    slots come back invalid. Ranges past the key ceiling tie there, as the
+    device's clipped keys do. Pixels come from float32 host trig with the
+    projection's formulas, which can differ from the device's by an ulp on
+    a pixel boundary: binned real scans run with ``kernel-aligned: trust``
+    or ``halves``. Returns ([H*W*spp, 4] f32, [H*W*spp] bool) in
+    ``layout`` order (:func:`slot_bin_scan`).
+    """
+    if layout not in ("slots", "halves"):
+        raise ValueError(f"layout must be slots|halves, got {layout!r}")
+    n_pix, cap, rq_scale, rq_hi = _slot_key_layout(H, W, spp)
+    x = pts[:, 0].astype(np.float32)
+    y = pts[:, 1].astype(np.float32)
+    z = pts[:, 2].astype(np.float32)
+    r = np.sqrt(x * x + y * y + z * z)
+    ok = np.asarray(valid, bool) & (r > 1e-6)
+    yaw = np.arctan2(y, x)
+    pitch = np.arcsin(np.clip(z / np.maximum(r, np.float32(1e-9)), -1, 1))
+    fov_down = np.float32(np.deg2rad(fov_down_deg))
+    fov = np.float32(np.deg2rad(fov_up_deg - fov_down_deg))
+    u = np.clip(np.floor(0.5 * (1.0 - yaw / np.float32(np.pi)) * W),
+                0, W - 1).astype(np.int64)
+    v = np.clip(np.floor((1.0 - (pitch - fov_down) / fov) * H),
+                0, H - 1).astype(np.int64)
+    pix = v * W + u
+    rq = np.clip((r * np.float32(rq_scale)).astype(np.int64), 0, rq_hi)
+
+    sel = np.flatnonzero(ok)
+    # within a pixel: quantized range, then index (lexsort's last key is
+    # the primary one; sel ascends, so the stable sort breaks ties by it)
+    order = sel[np.lexsort((rq[sel], pix[sel]))]
+    p_sorted = pix[order]
+    first = np.concatenate([[True], p_sorted[1:] != p_sorted[:-1]])
+    starts = np.flatnonzero(first)
+    rank = np.arange(len(order)) - np.repeat(starts, np.diff(
+        np.concatenate([starts, [len(order)]])))
+    keep = rank < spp
+    if layout == "halves":
+        slot = rank[keep] * n_pix + p_sorted[keep]
+    else:
+        slot = p_sorted[keep] * spp + rank[keep]
+    out = np.zeros((cap, 4), np.float32)
+    out_valid = np.zeros(cap, bool)
+    out[slot] = pts[order[keep], :4]
+    out_valid[slot] = True
+    return out, out_valid

@@ -66,7 +66,12 @@ class StreamingStep(nn.Module):
             with record_function("stream.project"):
                 img, _ = self.projector(points[j:j + 1], valid[j:j + 1])
             img = img[0]
-            batch = {"images": torch.cat([prev_img, img], -1)[None, None]}
+            if self.model.pair_split:     # the two frames apart
+                batch = {"images": prev_img[None, None],
+                         "images2": img[None, None]}
+            else:
+                batch = {"images":
+                         torch.cat([prev_img, img], -1)[None, None]}
             if imu is not None:
                 batch["imu"] = imu[j][None, None]
                 batch["imu_mask"] = imu_mask[j][None, None]

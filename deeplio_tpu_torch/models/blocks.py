@@ -1,6 +1,6 @@
 """PointSeg building blocks (counterpart of ``deeplio_tpu/models/blocks.py``:
-``ConvBN``, ``SELayer``, classic ``Fire``, ``FireDeconv`` and ``ASPP``,
-and flax's SAME max-pool).
+``SplitInputConv``, ``ConvBN``, ``SELayer``, classic ``Fire``,
+``FireDeconv`` and ``ASPP``, and flax's SAME max-pool).
 
 Modules take NCHW tensors. Submodules carry the names flax gives the
 matching parameters (``Conv_0``, ``BatchNorm_0``, ``Dense_0``...), so
@@ -15,13 +15,17 @@ Transposed convolutions follow flax's ``ConvTranspose(padding="SAME")``
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 Pair = Tuple[int, int]
+# explicit ((top, bottom), (left, right)) padding of a conv
+Pads = Tuple[Pair, Pair]
+# a conv's input: one NCHW tensor, or the (a, b) halves of its channels
+ConvInput = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
 def _pair(v) -> Pair:
@@ -51,7 +55,9 @@ def same_max_pool(x: torch.Tensor, kernel: Pair, stride: Pair
 
 
 class SameConv2d(nn.Conv2d):
-    """``nn.Conv2d`` with flax's SAME padding for any stride/dilation."""
+    """``nn.Conv2d`` with flax's SAME padding for any stride/dilation, or
+    an explicit ``((top, bottom), (left, right))`` padding given to
+    ``forward``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel=(3, 3),
                  stride=(1, 1), dilation=(1, 1), bias: bool = True):
@@ -59,17 +65,44 @@ class SameConv2d(nn.Conv2d):
                          stride=_pair(stride), dilation=_pair(dilation),
                          padding=0, bias=bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        ph = same_pads(x.shape[-2], self.kernel_size[0], self.stride[0],
-                       self.dilation[0])
-        pw = same_pads(x.shape[-1], self.kernel_size[1], self.stride[1],
-                       self.dilation[1])
-        if ph[0] == ph[1] and pw[0] == pw[1]:
-            return F.conv2d(x, self.weight, self.bias, self.stride,
-                            (ph[0], pw[0]), self.dilation)
-        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, self.weight, self.bias, self.stride, 0,
-                        self.dilation)
+    def _conv(self, x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor], pads: Optional[Pads]
+              ) -> torch.Tensor:
+        if pads is None:
+            pads = tuple(same_pads(x.shape[-2 + i], self.kernel_size[i],
+                                   self.stride[i], self.dilation[i])
+                         for i in range(2))
+        (pt, pb), (pl, pr) = pads
+        if pt == pb and pl == pr:
+            return F.conv2d(x, weight, bias, self.stride, (pt, pl),
+                            self.dilation)
+        x = F.pad(x, (pl, pr, pt, pb))
+        return F.conv2d(x, weight, bias, self.stride, 0, self.dilation)
+
+    def forward(self, x: torch.Tensor,
+                pads: Optional[Pads] = None) -> torch.Tensor:
+        return self._conv(x, self.weight, self.bias, pads)
+
+
+class SplitInputConv(SameConv2d):
+    """A :class:`SameConv2d` that also takes its input as two tensors
+    ``(a, b)``, the halves of its channels: ``conv(cat(a, b), W)`` computed
+    as ``conv(a, W[:, :Ca]) + conv(b, W[:, Ca:])``, the weight split along
+    its input channels (dim 1 of ``[O, I, kh, kw]``), so the channel
+    concat is never built. The parameters are those of ``nn.Conv2d``, so
+    a checkpoint of a one-input conv loads unchanged."""
+
+    def forward(self, x: ConvInput,
+                pads: Optional[Pads] = None) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return super().forward(x, pads)
+        a, b = x
+        ca = a.shape[1]
+        y = (self._conv(a, self.weight[:, :ca], None, pads)
+             + self._conv(b, self.weight[:, ca:], None, pads))
+        if self.bias is None:
+            return y
+        return y + self.bias.to(y.dtype)[:, None, None]
 
 
 def transpose_pads(kernel: int, stride: int) -> Pair:
@@ -138,17 +171,20 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
 
 class ConvBN(nn.Module):
     """SAME conv without bias -> BatchNorm (flax semantics) -> ReLU,
-    with flax's epsilon 1e-5."""
+    with flax's epsilon 1e-5. The input is one tensor or the ``(a, b)``
+    halves of its channels (:class:`SplitInputConv`); ``pads`` replaces
+    SAME by an explicit ``((top, bottom), (left, right))`` padding."""
 
     def __init__(self, in_channels: int, features: int, kernel=(3, 3),
                  strides=(1, 1)):
         super().__init__()
-        self.Conv_0 = SameConv2d(in_channels, features, kernel, strides,
-                                 bias=False)
+        self.Conv_0 = SplitInputConv(in_channels, features, kernel, strides,
+                                     bias=False)
         self.BatchNorm_0 = FlaxBatchNorm2d(features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.BatchNorm_0(self.Conv_0(x)))
+    def forward(self, x: ConvInput,
+                pads: Optional[Pads] = None) -> torch.Tensor:
+        return F.relu(self.BatchNorm_0(self.Conv_0(x, pads)))
 
 
 class SELayer(nn.Module):

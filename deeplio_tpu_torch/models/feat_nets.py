@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deeplio_tpu_torch.models.blocks import ConvBN
+from deeplio_tpu_torch.models.blocks import ConvBN, ConvInput
 from deeplio_tpu_torch.models.pointseg import PointSegNet
 from deeplio_tpu_torch.ops.rnn import MaskedRNN
 
@@ -38,7 +38,8 @@ def inverted_dropout(x: torch.Tensor, rate: float, training: bool,
 
 
 class LidarPointSegFeat(nn.Module):
-    """PointSeg encoder over pair-stacked images [B, 2C, H, W] -> two
+    """PointSeg encoder over pair-stacked images [B, 2C, H, W] (or, for
+    the ``pair-split`` stem, the pair's two [B, C, H, W] frames) -> two
     strided 3x3 ConvBNs -> spatial mean -> Dense -> ReLU -> dropout ->
     [B, F]."""
 
@@ -55,7 +56,7 @@ class LidarPointSegFeat(nn.Module):
         self.ConvBN_1 = ConvBN(256, 256, (3, 3), (2, 2))
         self.Dense_0 = nn.Linear(256, feature_size)
 
-    def forward(self, x: torch.Tensor,
+    def forward(self, x: ConvInput,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         feat = self.ConvBN_1(self.ConvBN_0(self.pointseg(x)))
         feat = F.relu(self.Dense_0(feat.mean(dim=(-2, -1))))

@@ -1,13 +1,23 @@
 """PointSeg (counterpart of ``deeplio_tpu/models/pointseg.py``:
-``PointSegEncoder`` at ``stem=classic`` with the ``classic``, ``cheap``
-and ``stride`` pools, the ``PointSegDecoder`` and ``PointSegNet``).
+``PointSegEncoder`` with the ``classic`` and ``pair-split`` stems and the
+``classic``, ``cheap``, ``stride`` and ``stride-fold`` pools, the
+``PointSegDecoder`` and ``PointSegNet``).
 
 The pools halve the azimuth three times after the stem, as in JAX:
 ``classic`` with 3x3 max-pools at stride (1, 2) after ``c1``, ``f3`` and
 ``f5``; ``cheap`` with (1, 2) windows there; ``stride`` with no pooling
 op, each stage's entry Fire downsampling with a (1, 2)-strided squeeze
 conv. All three give the same parameters and the skips at the same
-widths. NCHW in, NCHW out.
+widths. ``stride-fold`` is ``stride`` with the first entry's (1, 2)
+folded into the stem: a (1, 2)-strided 1x1 conv after the stem reads only
+its even columns, so the stem at the composed stride (h, 2 w), padded as
+the unfolded stem's SAME pads, computes the same function without the odd
+columns. Its skip ``c1`` is at half the width, so it serves the encoder
+alone (``part="encoder"``); its parameters are those of ``stride``.
+
+The input is one NCHW tensor, or for the ``pair-split`` stem the ``(a,
+b)`` frames of each pair, whose channel concat the stem's
+``SplitInputConv`` never builds. NCHW out.
 
 ``PointSegNet`` is used two ways, as in the JAX package: as the odometry
 model's LiDAR encoder (``part="encoder"``, no classes: the bottleneck
@@ -27,18 +37,20 @@ from torch import nn
 from deeplio_tpu_torch.models.blocks import (
     ASPP,
     ConvBN,
+    ConvInput,
     Fire,
     FireDeconv,
     SameConv2d,
     SameConvTranspose2d,
     SELayer,
     same_max_pool,
+    same_pads,
 )
 
 PARTS = ("encoder", "encoder+decoder")
 # pool -> (max-pool window or None, the stage-entry Fires' strides)
 POOLS = {"classic": ((3, 3), (1, 1)), "cheap": ((1, 2), (1, 1)),
-         "stride": (None, (1, 2))}
+         "stride": (None, (1, 2)), "stride-fold": (None, (1, 2))}
 
 
 class PointSegEncoder(nn.Module):
@@ -55,9 +67,13 @@ class PointSegEncoder(nn.Module):
         if pool not in POOLS:
             raise ValueError(f"pool must be {'|'.join(POOLS)}, got {pool!r}")
         self.pool_window, entry = POOLS[pool]
-        self.ConvBN_0 = ConvBN(in_channels, 64, (3, 3), (h_stride, w_stride))
+        self.fold = pool == "stride-fold"
+        self.strides = (h_stride, w_stride)
+        self.ConvBN_0 = ConvBN(in_channels, 64, (3, 3),
+                               (h_stride, (1 + self.fold) * w_stride))
         spec = [  # (squeeze, expand1, expand3, strides)
-            (16, 64, 64, entry), (16, 64, 64, (1, 1)),
+            (16, 64, 64, (1, 1) if self.fold else entry),
+            (16, 64, 64, (1, 1)),
             (32, 128, 128, entry), (32, 128, 128, (1, 1)),
             (48, 192, 192, entry), (48, 192, 192, (1, 1)),
             (64, 256, 256, (1, 1)), (64, 256, 256, (1, 1)),
@@ -77,9 +93,22 @@ class PointSegEncoder(nn.Module):
             return x          # the stage-entry Fires downsample instead
         return same_max_pool(x, self.pool_window, (1, 2))
 
-    def forward(self, x: torch.Tensor
+    def _fold_pads(self, x: ConvInput):
+        """The unfolded stem's SAME pads, for the stem at the composed
+        stride; raises where the composed stride changes the width."""
+        ref = x if isinstance(x, torch.Tensor) else x[0]
+        (hs, ws), (h, w) = self.strides, ref.shape[-2:]
+        pads = (same_pads(h, 3, hs), same_pads(w, 3, ws))
+        want = -(-(-(-w // ws)) // 2)          # ceil(ceil(W / w) / 2)
+        got = (w + sum(pads[1]) - 3) // (2 * ws) + 1
+        if got != want:
+            raise ValueError(f"stride-fold width mismatch: W={w}, w_stride="
+                             f"{ws} -> {got} != {want}; use pool=stride")
+        return pads
+
+    def forward(self, x: ConvInput
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-        c1 = self.ConvBN_0(x)
+        c1 = self.ConvBN_0(x, self._fold_pads(x) if self.fold else None)
         f2 = self.Fire_0(self._pool(c1))
         f3 = self.Fire_1(f2)
         if self.with_se:
@@ -143,6 +172,9 @@ class PointSegNet(nn.Module):
         super().__init__()
         if part not in PARTS:
             raise ValueError(f"part must be {'|'.join(PARTS)}, got {part!r}")
+        if pool == "stride-fold" and (part != "encoder" or num_classes):
+            raise ValueError("pool=stride-fold serves the encoder alone: "
+                             "its skip c1 is at half the decoder's width")
         self.part, self.num_classes = part, num_classes
         self.encoder = PointSegEncoder(in_channels, h_stride, w_stride,
                                        with_se, el_squeeze, pool)
@@ -155,7 +187,7 @@ class PointSegNet(nn.Module):
                 (h_stride, w_stride))
             self.Conv_0 = SameConv2d(64, num_classes, (1, 1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: ConvInput) -> torch.Tensor:
         feat, skips = self.encoder(x)
         if self.part == "encoder" and self.num_classes is None:
             return feat

@@ -1,14 +1,17 @@
 """The model zoo and its factory (counterpart of
 ``deeplio_tpu/models/zoo.py``: ``DeepIO``, ``DeepLO``, ``DeepLIO``, the
-classic-stem path of ``_lidar_features`` and ``build_model``).
+classic and pair-split paths of ``_lidar_features`` and
+``build_model``).
 
 Forward contract, as in the JAX package::
 
     model(batch) -> (x_pred [B, P, 3], q_pred [B, P, 4])
 
 with ``batch`` holding ``images`` [B, P, H, W, 2C] (NHWC pair stacks) for
-the LiDAR archs (DeepLO, DeepLIO) and ``imu`` [B, P, T, 6] and
-``imu_mask`` [B, P, T] for the IMU archs (DeepIO, DeepLIO).
+the LiDAR archs (DeepLO, DeepLIO), or under ``stem: pair-split`` the
+frame-i and frame-j stacks ``images`` and ``images2`` [B, P, H, W, C],
+and ``imu`` [B, P, T, 6] and ``imu_mask`` [B, P, T] for the IMU archs
+(DeepIO, DeepLIO).
 
 Layout: the images stay NHWC in memory. The tower sees them through a
 permuted view, NCHW by shape and channels-last by strides, so cuDNN runs
@@ -71,6 +74,10 @@ class _Odometry(nn.Module):
     over the window's pairs and the pose heads (registered last, after
     the feature nets, in the JAX package's order)."""
 
+    # the LiDAR archs' ``stem: pair-split``: the tower takes each pair's
+    # two frames apart (``images``, ``images2``)
+    pair_split = False
+
     def _tail(self, cfg: ModelConfig, feature_size: int) -> None:
         self.compute_dtype = DTYPES[cfg.compute_dtype]
         self.odom_feat = OdomFeatRNN(feature_size, cfg.odom.hidden_size,
@@ -84,8 +91,14 @@ class _Odometry(nn.Module):
 
     def _lidar(self, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator]) -> torch.Tensor:
-        """The LiDAR tower on the pair images: [B * P, F]."""
-        x = batch["images"].flatten(0, 1).permute(0, 3, 1, 2)  # NCHW view
+        """The LiDAR tower on the pair images: [B * P, F]. Under
+        ``pair-split`` the stem takes the two frames of each pair apart."""
+        def nchw(key):                                        # NCHW view
+            return batch[key].flatten(0, 1).permute(0, 3, 1, 2)
+
+        x = nchw("images")
+        if self.pair_split:
+            x = (x, nchw("images2"))
         return self.lidar_feat(x, generator)
 
     def _imu(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -125,6 +138,7 @@ class DeepLO(_Odometry):
     def __init__(self, cfg: ModelConfig, image_channels: int):
         super().__init__()
         self.lidar_feat = _lidar_net(cfg, image_channels)
+        self.pair_split = cfg.lidar.stem == "pair-split"
         self._tail(cfg, cfg.lidar.feature_size)
 
     def forward(self, batch: Dict[str, torch.Tensor],
@@ -142,6 +156,7 @@ class DeepLIO(_Odometry):
         super().__init__()
         lc, ic = cfg.lidar, cfg.imu
         self.lidar_feat = _lidar_net(cfg, image_channels)
+        self.pair_split = lc.stem == "pair-split"
         self.imu_feat = ImuFeatRnn(ic.input_size, ic.hidden_size,
                                    ic.num_layers)
         self.fusion = FusionLayer(lc.feature_size, ic.hidden_size,

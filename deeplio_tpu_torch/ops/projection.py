@@ -1,7 +1,7 @@
 """Device-side spherical ("range-image") projection of LiDAR scans
 (counterpart of ``deeplio_tpu/ops/projection.py``, restricted to what the
-``pallas-ring``, ``pallas`` and ``sort`` backends with ``kernel-aligned:
-off`` run).
+``pallas-ring``, ``pallas`` and ``sort`` backends run, with the
+slot-aligned routes of ``kernel-aligned: auto | on | trust | halves``).
 
 Projection convention (SqueezeSeg), as in the JAX package:
 
@@ -18,11 +18,31 @@ libraries and move a boundary point by one pixel.
 
 Layout: images are NHWC (..., H, W, C) at this module's public functions,
 as in the JAX package.
+
+The slot-aligned routes (``pallas-ring`` with ``kernel-aligned`` other than
+``off``) are plain PyTorch, as they are plain XLA in the JAX package. They
+read scans laid out on a fixed grid of ``n = H * W * spp`` slots, ring-major,
+``spp`` slots a pixel, every valid point on its slot's pixel
+(``data/synthetic.py::synthetic_ring_batch``, or ``slot_bin_scan``):
+
+- :func:`project_batch_ring_aligned_planes` (``auto``, ``on``, ``trust``):
+  each pixel's winner is the minimum ``rq << idx_bits | idx`` key of its
+  ``spp`` slots, with packed-f16 payloads and depth from the quantized
+  range, the ring kernel's output. ``auto`` and ``on`` check on the device
+  that every valid point sits on its slot's pixel and run the ring kernel
+  (``ops/projection_ring.py``) when one does not: the check is read on the
+  host, one synchronisation a projection (``torch.cond`` under
+  ``torch.export``). ``trust`` skips the check.
+- :func:`project_batch_ring_halves_planes` (``halves``): the same grid
+  permuted by :func:`halves_permutation` so each residue's candidates form
+  one contiguous block; exact float32 payloads, depth the winner's true
+  range. No check: the configuration allows it only for data on the grid
+  by construction.
 """
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Dict, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +71,16 @@ def spherical_uv_planes(
     return u.clamp(0, W - 1), v.clamp(0, H - 1), r
 
 
+def sqrt_rn(v: torch.Tensor) -> torch.Tensor:
+    """float32 square root, correctly rounded. PyTorch's CPU float32 sqrt
+    is not (torch 2.13: about 1% of results 1 ulp off); its float64 sqrt
+    is, and rounding that to float32 is exact. On the card ``torch.sqrt``
+    is IEEE's."""
+    if v.device.type == "cpu":
+        return torch.sqrt(v.double()).float()
+    return torch.sqrt(v)
+
+
 def pack_f16x2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Two float32 tensors -> one int32 tensor of f16(a) | f16(b) << 16.
 
@@ -71,10 +101,11 @@ def unpack_f16x2(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def rq_to_depth(rq: torch.Tensor, rq_scale: float) -> torch.Tensor:
     """Quantized range key -> metres, by MULTIPLYING with the float32
     reciprocal (never dividing), as ``deeplio_tpu`` does to stay bit-exact
-    across compilation regimes. The reciprocal is a float32 tensor, so no
-    double-precision scalar enters the computation."""
-    inv = torch.tensor(np.float32(1.0 / rq_scale))
-    return rq.to(torch.float32) * inv
+    across compilation regimes. The reciprocal is a float32 value, so the
+    float32 product is the same as with a float32 tensor; a Python scalar
+    keeps tensor constants out of ``torch.cond``'s branches, which
+    ``torch.export`` cannot save."""
+    return rq.to(torch.float32) * float(np.float32(1.0 / rq_scale))
 
 
 def rq_bits_for(n_pix: int) -> int:
@@ -121,6 +152,146 @@ def normalize_channels(img: torch.Tensor, mask: torch.Tensor,
     return (img - mean) / std * mask[..., None]
 
 
+def aligned_route_feasible(n: int, H: int, W: int) -> bool:
+    """Whether a scan capacity ``n`` is a whole number of slots a pixel."""
+    n_pix = H * W
+    return n_pix > 0 and n % n_pix == 0 and n // n_pix >= 1
+
+
+def slot_pixel(n: int, H: int, W: int, device=None) -> torch.Tensor:
+    """int32 [n]: the pixel each slot of the aligned grid belongs to. Slot
+    ``s`` of ``H`` rings of ``W * spp`` azimuth slots covers pixel
+    ``(s // (W * spp)) * W + (s % (W * spp)) // spp``."""
+    spp = n // (H * W)
+    slot = torch.arange(n, dtype=torch.int32, device=device)
+    return (slot // (W * spp)) * W + (slot % (W * spp)) // spp
+
+
+def project_batch_ring_aligned_planes(
+    x: torch.Tensor, y: torch.Tensor, z: torch.Tensor, rem: torch.Tensor,
+    valid: torch.Tensor, H: int, W: int,
+    fov_up_deg: float, fov_down_deg: float,
+    check: str = "cond", fallback: Optional[Callable] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The slot-aligned route: planes [B, n] on the slot grid (``n = H * W
+    * spp``) -> (img [B, H, W, 5], mask [B, H, W]) float32, the ring
+    kernel's output on such scans.
+
+    Each pixel's winner is the minimum key ``rq << idx_bits | idx`` of its
+    ``spp`` consecutive slots (keys are unique, so any exact minimum picks
+    JAX's winner); invalid slots carry ``rq_max`` and lose. Payloads round
+    trip through f16 and depth comes from the quantized range; a pixel
+    whose winner is invalid is masked, its payload zeroed first.
+
+    ``check="cond"``: when some valid point is off its slot's pixel, the
+    result is ``fallback(x, y, z, rem, valid)`` (the ring kernel's route)
+    instead; the predicate is read on the host (``torch.cond`` while
+    exporting). ``check="assert-off"`` trusts the grid: an off-grid valid
+    point then lands on its slot's pixel.
+    """
+    b, n = x.shape
+    n_pix = H * W
+    if not aligned_route_feasible(n, H, W):
+        raise ValueError(f"aligned ring route needs n % (H*W) == 0, got "
+                         f"n={n}, H*W={n_pix}")
+    if check not in ("cond", "assert-off"):
+        raise ValueError(f"check must be cond|assert-off, got {check!r}")
+    if check == "cond" and fallback is None:
+        raise ValueError("check='cond' requires a fallback projector")
+    spp = n // n_pix
+    idx_bits, rq_bits, rq_scale = idx_key_layout(n, n_pix)
+    rq_max = (1 << rq_bits) - 1
+    u, v, r = spherical_uv_planes(x, y, z, H, W, fov_up_deg, fov_down_deg)
+    ok = valid & (r > 1e-6)
+
+    def direct(x, y, z, rem, ok, r):
+        # clamp in float first: a huge range saturates to the key ceiling
+        rq = torch.clamp(r * rq_scale, max=rq_max - 1).to(torch.int32)
+        rqv = torch.where(ok, rq.clamp_min(0), rq_max)
+        idx = torch.arange(n, dtype=torch.int32, device=x.device)
+        wk = ((rqv << idx_bits) | idx).view(b, n_pix, spp).amin(-1)
+        win = (wk & ((1 << idx_bits) - 1)).long()
+        rq_out = wk >> idx_bits
+        live = rq_out < rq_max
+        maskf = live.to(torch.float32)
+        # losing payloads are zeroed: the mask multiply would keep a NaN
+        ch = [torch.where(live, a.gather(1, win).to(torch.float16)
+                          .to(torch.float32), 0.0) for a in (x, y, z, rem)]
+        img = torch.stack(ch + [rq_to_depth(rq_out, rq_scale)], -1)
+        img = img * maskf[..., None]
+        return img.reshape(b, H, W, 5), maskf.reshape(b, H, W)
+
+    if check == "assert-off":
+        return direct(x, y, z, rem, ok, r)
+    on_slot = (v * W + u) == slot_pixel(n, H, W, x.device)
+    aligned = torch.where(ok, on_slot, True).all()
+
+    def other(x, y, z, rem, ok, r):
+        return fallback(x, y, z, rem, valid)
+
+    if torch.compiler.is_exporting():
+        # torch.cond refuses operands that alias one another, as planes
+        # cut from one [B, N, 4] tensor do
+        ops = tuple(t.clone() for t in (x, y, z, rem, ok, r))
+        return torch.cond(aligned, direct, other, ops)
+    if bool(aligned):            # one host read of the device's predicate
+        return direct(x, y, z, rem, ok, r)
+    return fallback(x, y, z, rem, valid)
+
+
+def halves_permutation(n: int, H: int, W: int) -> np.ndarray:
+    """Host permutation of a slot-grid scan into the dual-half layout
+    :func:`project_batch_ring_halves_planes` reads: slot ``s`` (pixel ``s
+    // spp``, residue ``s % spp``) moves to ``(s % spp) * H * W + s //
+    spp``. Returns ``idx`` with ``new_plane = plane[idx]``."""
+    spp = n // (H * W)
+    s = np.arange(n, dtype=np.int64)
+    out = np.empty(n, np.int64)
+    out[(s % spp) * (H * W) + s // spp] = s
+    return out
+
+
+def project_batch_ring_halves_planes(
+    x: torch.Tensor, y: torch.Tensor, z: torch.Tensor, rem: torch.Tensor,
+    valid: torch.Tensor, H: int, W: int,
+    fov_up_deg: float, fov_down_deg: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dual-half route: planes [B, n] in the :func:`halves_permutation`
+    layout (position ``k * H * W + p`` holds pixel ``p``'s residue-``k``
+    candidate) -> (img [B, H, W, 5], mask [B, H, W]) float32.
+
+    A fold over the ``spp`` contiguous blocks: a candidate takes the pixel
+    when its quantized range is strictly smaller (the earlier residue, the
+    smaller original index, wins ties). Payloads are exact float32 and
+    depth is the winner's range, JAX's ``carry`` output even under
+    ``packed``. A masked pixel keeps its last candidate's coordinates times
+    0, so a negative one gives -0.0, as in JAX. No check: the fov arguments
+    are unused, the grid holds by construction.
+    """
+    b, n = x.shape
+    n_pix = H * W
+    if not aligned_route_feasible(n, H, W):
+        raise ValueError(f"halves ring route needs n % (H*W) == 0, got "
+                         f"n={n}, H*W={n_pix}")
+    spp = n // n_pix
+    _, rq_bits, rq_scale = idx_key_layout(n, n_pix)
+    rq_max = (1 << rq_bits) - 1
+    r = sqrt_rn(x * x + y * y + z * z)
+    ok = valid & (r > 1e-6)
+    rq = torch.clamp(r * rq_scale, max=rq_max - 1).to(torch.int32)
+    rqv = torch.where(ok, rq.clamp_min(0), rq_max)
+    blocks = [a.view(b, spp, n_pix) for a in (rqv, x, y, z, rem, r, ok)]
+    wk, *win = (a[:, 0] for a in blocks)
+    for i in range(1, spp):
+        ki = blocks[0][:, i]
+        take = ki < wk
+        wk = torch.where(take, ki, wk)
+        win = [torch.where(take, a[:, i], w) for a, w in zip(blocks[1:], win)]
+    maskf = win[-1].to(torch.float32)
+    img = torch.stack(win[:-1], -1) * maskf[..., None]
+    return img.reshape(b, H, W, 5), maskf.reshape(b, H, W)
+
+
 def make_projector(cfg_proj: ProjectionConfig, channels: Sequence[str],
                    mean: Sequence[float] = (), std: Sequence[float] = (),
                    out_dtype: Optional[torch.dtype] = None,
@@ -141,28 +312,62 @@ def make_projector(cfg_proj: ProjectionConfig, channels: Sequence[str],
     ``carry-f16``). Each runs its CUDA kernel on the card and its plain
     PyTorch version on the CPU, the whole batch in one launch (JAX's
     ``projection-chunk`` only schedules its work).
+
+    Under ``pallas-ring``, ``kernel-aligned`` picks the route, as JAX's
+    ``_aligned_check_mode`` does: ``auto`` takes the checked slot-aligned
+    route when the scan capacity is a multiple of H*W and the ring kernel
+    otherwise; ``on`` and ``trust`` (unchecked) and ``halves`` raise
+    ``ValueError`` at the call on a capacity that is not.
     """
     import functools
 
     from deeplio_tpu_torch.ops import projection_ring, projection_scatter
 
+    H, W = cfg_proj.height, cfg_proj.width
+    fu, fd = cfg_proj.fov_up_deg, cfg_proj.fov_down_deg
+    aligned = cfg_proj.kernel_aligned
+    if aligned not in ("auto", "on", "off", "trust", "halves"):
+        raise ValueError(f"kernel-aligned must be auto|on|off|trust|halves, "
+                         f"got {aligned!r}")
+
+    def ring_planes(x, y, z, rem, vld, *geom):
+        n = x.shape[-1]
+        if aligned == "off":
+            mode = None
+        elif aligned_route_feasible(n, H, W):
+            mode = {"halves": "halves", "trust": "assert-off"}.get(aligned,
+                                                                  "cond")
+        elif aligned in ("on", "trust", "halves"):
+            raise ValueError(f"kernel-aligned={aligned} infeasible: scan "
+                             f"capacity {n} is not a multiple of H*W={H * W}")
+        else:
+            mode = None            # auto: no shape can meet the contract
+        if mode is None:
+            return projection_ring.project_batch_ring_planes(
+                x, y, z, rem, vld, *geom)
+        if mode == "halves":
+            return project_batch_ring_halves_planes(x, y, z, rem, vld, *geom)
+        return project_batch_ring_aligned_planes(
+            x, y, z, rem, vld, *geom, check=mode,
+            fallback=functools.partial(
+                projection_ring.project_batch_ring_planes, H=H, W=W,
+                fov_up_deg=fu, fov_down_deg=fd))
+
     planes_fn = {
-        "pallas-ring": projection_ring.project_batch_ring_planes,
+        "pallas-ring": ring_planes,
         "pallas": projection_scatter.project_batch_scatter_planes,
         "sort": functools.partial(
             projection_scatter.project_batch_sorted_planes,
             payload="carry-f16" if cfg_proj.packed else "carry"),
     }.get(cfg_proj.backend)
-    if planes_fn is None or cfg_proj.kernel_aligned != "off":
+    if planes_fn is None:
         raise ValueError("the port projects with backend=pallas-ring, "
-                         "pallas or sort and kernel-aligned=off only")
+                         "pallas or sort only")
     if layout not in ("aos", "planes"):
         raise ValueError(f"layout must be aos|planes, got {layout!r}")
     if bool(mean) != bool(std):
         raise ValueError(
             "normalization requires both mean and std (or neither)")
-    H, W = cfg_proj.height, cfg_proj.width
-    fu, fd = cfg_proj.fov_up_deg, cfg_proj.fov_down_deg
     c = len(channels)
     norm = ((np.asarray(mean, np.float32), np.asarray(std, np.float32))
             if mean else None)

@@ -188,14 +188,17 @@ def label_image(planes: Sequence[torch.Tensor], valid: torch.Tensor,
 def build_pointseg(cfg: Config, num_classes: int) -> PointSegNet:
     """The segmentation net with the odometry encoder's tower settings, so
     its encoder grafts: ``part=encoder+decoder``, ``num_classes`` logits,
-    the pair-stacked input width, the config's pool. (The JAX package
-    pretrains ``pool: stride-fold`` as ``stride``; the port has no
-    ``stride-fold``.)"""
+    the pair-stacked input width, the config's pool, ``stride-fold`` as
+    ``stride`` (its parameters are the same, and the folded stem has no
+    skip the decoder can read), as the JAX package pretrains it. The
+    input is the pair concat also for a ``pair-split`` stem, whose
+    parameters are the classic stem's."""
     lc = cfg.model.lidar
     return PointSegNet(2 * cfg.datasets.num_image_channels,
                        part="encoder+decoder", num_classes=num_classes,
                        h_stride=lc.h_stride, w_stride=lc.w_stride,
-                       with_se=lc.se, el_squeeze=lc.el_squeeze, pool=lc.pool)
+                       with_se=lc.se, el_squeeze=lc.el_squeeze,
+                       pool={"stride-fold": "stride"}.get(lc.pool, lc.pool))
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:

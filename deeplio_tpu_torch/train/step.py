@@ -1,6 +1,7 @@
 """The training and eval steps (counterpart of
 ``deeplio_tpu/train/step.py``: ``make_model_batch`` on the classic
-pair-concat path and ``build_train_step`` on one device).
+pair-concat and the pair-split paths and ``build_train_step`` on one
+device).
 
 Raw batch contract (``data/dataset.py`` output, on the device):
 
@@ -61,8 +62,10 @@ def batch_to_device(host: Dict[str, np.ndarray],
 def make_model_batch(cfg: Config, projector: Callable, raw: Batch) -> Batch:
     """Raw planes (or cached images) and IMU -> the model's batch: for the
     LiDAR archs ``images`` [B, P, H, W, 2C], the channel concat of frames
-    i and j of each configured pair; for the IMU archs the IMU windows.
-    DeepIO projects nothing."""
+    i and j of each configured pair, or under ``stem: pair-split`` the
+    frame-i and frame-j stacks ``images`` and ``images2`` [B, P, H, W, C]
+    (slices of the frames for consecutive pairs, else gathers); for the
+    IMU archs the IMU windows. DeepIO projects nothing."""
     mb: Batch = {}
     if cfg.model.uses_lidar:
         if "images" in raw:
@@ -75,9 +78,16 @@ def make_model_batch(cfg: Config, projector: Callable, raw: Batch) -> Batch:
             b = raw["x_gt"].shape[0]
             imgs = imgs.reshape((b, -1) + tuple(imgs.shape[1:]))
         combos = cfg.datasets.effective_combinations
-        first = imgs[:, [i for i, _ in combos]]
-        second = imgs[:, [j for _, j in combos]]
-        mb["images"] = torch.cat([first, second], -1)
+        p = len(combos)
+        if all(c == (k, k + 1) for k, c in enumerate(combos)):
+            first, second = imgs[:, :p], imgs[:, 1:p + 1]
+        else:
+            first = imgs[:, [i for i, _ in combos]]
+            second = imgs[:, [j for _, j in combos]]
+        if cfg.model.lidar.stem == "pair-split":
+            mb["images"], mb["images2"] = first, second
+        else:
+            mb["images"] = torch.cat([first, second], -1)
     if cfg.model.uses_imu:
         mb["imu"], mb["imu_mask"] = raw["imu"], raw["imu_mask"]
     return mb

@@ -56,17 +56,17 @@ def _set(d, path, value):
 
 
 @pytest.mark.parametrize("path,value", [
-    (("lidar-feat-pointseg", "pool"), "stride-fold"),
-    (("lidar-feat-pointseg", "stem"), "pair-split"),
+    (("lidar-feat-pointseg", "stem"), "s2d"),
+    (("lidar-feat-pointseg", "stem"), "s2d-pre"),
     (("lidar-feat-pointseg", "fire"), "fused"),
     (("lidar-feat-pointseg", "part"), "encoder+decoder"),
     (("imu-feat-rnn", "type"), "gru"),
     (("odom-feat-rnn", "type"), "gru"),
     (("imu-feat-rnn", "bidirectional"), True),
     (("datasets", "channels"), ["x", "y", "z", "depth", "normals"]),
-    (("datasets", "kernel-aligned"), "halves"),
+    (("lidar-feat-pointseg", "fire"), "mixed"),
     (("datasets", "backend"), "ring"),
-    (("datasets", "slot-bin"), True),
+    (("datasets", "backend"), "sort-sentinel"),
     (("deeplio", "imu-feat-net"), {"name": "imu-feat-fc"}),
     (("deeplio", "odom-feat-net"), {"name": "odom-feat-fc"}),
 ])
@@ -134,19 +134,49 @@ def test_training_blocks_match_jax_parse(kitti):
 @pytest.mark.parametrize("path,value", [
     (("optimizer", "name"), "sgd"),
     (("optimizer", "weight-decay"), 0.1),
-    (("datasets", "kernel-aligned"), "auto"),
+    (("lidar-feat-pointseg", "stem"), "factorized"),
     (("param-dtype",), "bfloat16"),
     (("train", "data-parallel"), 2),
     (("datasets", "backend"), "sort-sentinel"),
-    (("datasets", "kernel-aligned"), "trust"),
+    (("lidar-feat-pointseg", "fire"), "mixed"),
     (("train", "data-parallel"), 4),
-    (("datasets", "slot-bin"), True),
+    (("datasets", "backend"), "ring"),
 ])
 def test_untrained_settings_raise_naming_their_queue(kitti, path, value):
     d = copy.deepcopy(kitti)
     _set(d, path, value)
     with pytest.raises(ConfigError, match=r"PyTorch port yet; .*Queue 1"):
         load_config_dict(d)
+
+
+@pytest.mark.parametrize("path,value", [
+    (("lidar-feat-pointseg", "pool"), "stride-fold"),
+    (("lidar-feat-pointseg", "stem"), "pair-split"),
+    (("datasets", "kernel-aligned"), "auto"),
+    (("datasets", "kernel-aligned"), "on"),
+    (("datasets", "kernel-aligned"), "trust"),
+    (("datasets", "kernel-aligned"), "halves"),
+    (("datasets", "slot-bin"), True),
+])
+def test_ported_settings_match_jax_parse(kitti, path, value):
+    """The settings the flagship slice ported parse as the JAX package
+    parses them (``trust`` and ``halves`` with the slot binning that their
+    gate asks for on KITTI drives)."""
+    d = copy.deepcopy(kitti)
+    _set(d, path, value)
+    if value in ("trust", "halves"):
+        d["datasets"]["slot-bin"] = True
+    port, ref = load_config_dict(d), jax_load_dict(d)
+    assert port.datasets.slot_bin == ref.datasets.slot_bin
+    assert (port.datasets.projection.kernel_aligned
+            == ref.datasets.projection.kernel_aligned)
+    for f in ("stem", "pool", "part"):
+        assert getattr(port.model.lidar, f) == getattr(ref.model.lidar, f)
+    got = (port.datasets if path[0] == "datasets" else port.model.lidar)
+    field = path[-1].replace("-", "_")
+    got = getattr(got.projection if field == "kernel_aligned" else got,
+                  field)
+    assert got == value
 
 
 def test_loop_keys_match_jax_parse(kitti):

@@ -809,3 +809,137 @@ def test_deeplo_step_on_the_card(cuda):
         torch.backends.cudnn.allow_tf32 = tf32
     assert np.isfinite(loss["cuda"])
     assert abs(loss["cuda"] - loss["cpu"]) <= 1e-3 * abs(loss["cpu"])
+
+
+# ------------------------------------------------------ the flagship's routes
+
+def _route_planes(pts, valid, dev):
+    p = torch.from_numpy(pts).to(dev)
+    return ([p[..., c].contiguous() for c in range(4)],
+            torch.from_numpy(valid).to(dev))
+
+
+def _ring_route(x, y, z, rem, v):
+    return tring.project_batch_ring_planes(x, y, z, rem, v, H, W, FU, FD)
+
+
+@pytest.mark.parametrize("spp", [1, 2, 3])
+def test_aligned_routes_equal_the_ring_kernel_route(cuda, spp):
+    """On grid scans ``cond`` (``on``/``auto``) and ``assert-off``
+    (``trust``) give the ring kernel route's image and mask bit for bit,
+    launching no ring kernel; off the grid ``cond`` launches it once."""
+    from deeplio_tpu_torch.ops import projection as tproj
+
+    rng = np.random.default_rng(spp)
+    pts = synthetic_ring_batch(rng, 3, spp * H * W, rings=H)
+    planes, v = _route_planes(pts, np.ones(pts.shape[:2], bool), cuda)
+    want = _ring_route(*planes, v)
+    tring.ring_select.launches = 0
+    for check in ("cond", "assert-off"):
+        got = tproj.project_batch_ring_aligned_planes(
+            *planes, v, H, W, FU, FD, check=check, fallback=_ring_route)
+        for a, b in zip(got, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert tring.ring_select.launches == 0
+    planes, v = _route_planes(np.roll(pts, 1, axis=1),
+                              np.ones(pts.shape[:2], bool), cuda)
+    got = tproj.project_batch_ring_aligned_planes(
+        *planes, v, H, W, FU, FD, check="cond", fallback=_ring_route)
+    assert tring.ring_select.launches == 1
+    for a, b in zip(got, _ring_route(*planes, v)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_halves_route_on_the_card_equals_the_cpu(cuda):
+    """The dual-half route is plain PyTorch: the card's result equals the
+    CPU's bit for bit (depth is each side's correctly rounded sqrt)."""
+    from deeplio_tpu_torch.ops import projection as tproj
+
+    rng = np.random.default_rng(7)
+    n = 2 * H * W
+    pts = synthetic_ring_batch(rng, 3, n, rings=H)
+    valid = rng.uniform(size=(3, n)) >= 0.2
+    idx = tproj.halves_permutation(n, H, W)
+    pts, valid = np.ascontiguousarray(pts[:, idx]), valid[:, idx]
+    planes, v = _route_planes(pts, valid, cuda)
+    tring.ring_select.launches = 0
+    got = tproj.project_batch_ring_halves_planes(*planes, v, H, W, FU, FD)
+    cpu = tproj.project_batch_ring_halves_planes(
+        *(p.cpu() for p in planes), v.cpu(), H, W, FU, FD)
+    assert tring.ring_select.launches == 0
+    for a, b in zip(got, cpu):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("aligned,launches", [("halves", 0), ("off", 1),
+                                              ("auto", 1)])
+def test_flagship_step_launches(cuda, aligned, launches):
+    """The flagship tower at 32x128 for one bf16 step: no ring kernel
+    under ``halves`` (grid scans in the halves layout), one under ``off``
+    and under ``auto`` on compacted ring-ordered scans."""
+    from deeplio_tpu_torch.bench.flagship import flagship_dict, raw_batch
+    from deeplio_tpu_torch.config import load_config_dict
+    from deeplio_tpu_torch.models.zoo import build_model
+    from deeplio_tpu_torch.train.state import create_train_state
+    from deeplio_tpu_torch.train.step import batch_to_device, build_train_step
+
+    d = flagship_dict()
+    d["datasets"].update({"image-height": H, "image-width": W,
+                          "max-points": 2 * H * W, "sequence-size": 3,
+                          "window-stride": 2, "kernel-aligned": aligned})
+    cfg = load_config_dict(d)
+    host = raw_batch(cfg, 2, seed=1)
+    if aligned == "auto":           # compacted: drop points, keep the order
+        keep = host["points_valid"].copy()
+        keep[:, ::3] = False
+        for k in ("points_x", "points_y", "points_z", "points_rem"):
+            a = host[k]
+            host[k] = np.stack([np.pad(r[m], (0, len(r) - m.sum()))
+                                for r, m in zip(a, keep)])
+        host["points_valid"] = np.arange(a.shape[1]) < keep.sum(1)[:, None]
+    state = create_train_state(cfg, build_model(cfg, device=cuda, seed=0))
+    step, _ = build_train_step(cfg)
+    tring.ring_select.launches = tsc.scatter_select.launches = 0
+    state, m = step(state, batch_to_device(host, cuda))
+    torch.cuda.synchronize()
+    assert tring.ring_select.launches == launches
+    assert tsc.scatter_select.launches == 0
+    assert all(bool(torch.isfinite(v)) for v in m.values())
+
+
+def test_auto_artifact_on_the_card_serves_both_branches(cuda, tmp_path):
+    """``auto``'s check exported as a ``torch.cond`` around the
+    ``deeplio::ring_select`` operator on the card: bit-equal to the eager
+    step on a grid scan (no launch) and on one shifted a slot (one)."""
+    from deeplio_tpu_torch.bench.flagship import flagship_dict
+    from deeplio_tpu_torch.config import load_config_dict
+    from deeplio_tpu_torch.eval.export import (export_streaming,
+                                               load_streaming_artifact)
+    from deeplio_tpu_torch.eval.streaming import StreamingOdometry
+    from deeplio_tpu_torch.models.zoo import build_model
+
+    d = flagship_dict()
+    d["datasets"].update({"image-height": H, "image-width": W,
+                          "max-points": 2 * H * W, "kernel-aligned": "auto"})
+    cfg = load_config_dict(d)
+    model = build_model(cfg, device=cuda, seed=0)
+    export_streaming(cfg, model, str(tmp_path), chunk=1, device="cuda")
+    step, init_carry, _ = load_streaming_artifact(str(tmp_path))
+    so = StreamingOdometry(cfg, model, chunk=1, device=cuda)
+    grid = synthetic_ring_batch(np.random.default_rng(0), 1, 2 * H * W,
+                                rings=H)
+    for pts, launches in ((grid, 0), (np.roll(grid, 1, axis=1), 1)):
+        chunk = {"points": torch.from_numpy(pts).to(cuda),
+                 "valid": torch.ones(pts.shape[:2], dtype=torch.bool,
+                                     device=cuda),
+                 "imu": torch.zeros(1, 16, 6, device=cuda),
+                 "imu_mask": torch.ones(1, 16, device=cuda)}
+        tring.ring_select.launches = 0
+        _, got = step(init_carry(), chunk)
+        torch.cuda.synchronize()
+        assert tring.ring_select.launches == launches
+        with torch.no_grad():
+            *_, poses, dx, dq = so.step(*so.init_carry(),
+                                        *(chunk[k] for k in so.keys))
+        for a, b in zip(got, (poses, dx, dq)):
+            assert torch.equal(a, b)

@@ -74,10 +74,12 @@ def test_port_has_its_modules():
                  "bench/kitti_tree.py", "eval/metrics.py",
                  "eval/trajectory.py", "eval/plot.py", "eval/runner.py",
                  "eval/export.py", "utils/timing.py", "cli/train.py",
-                 "cli/test.py", "cli/stream.py", "cli/export.py"):
+                 "cli/test.py", "cli/stream.py", "cli/export.py",
+                 "native/__init__.py", "bench/flagship.py"):
         assert want in mods, want
-    for src in ("ring_project.cu", "proj_scatter.cu"):
-        assert (ROOT / "deeplio_tpu_torch" / "csrc" / src).exists()
+    for src in ("csrc/ring_project.cu", "csrc/proj_scatter.cu",
+                "native/slot_bin_core.cpp", "native/slot_bin_trig.cpp"):
+        assert (ROOT / "deeplio_tpu_torch" / src).exists()
 
 
 @pytest.fixture

@@ -94,13 +94,27 @@ def test_truncation_and_drive_local_origin(tree):
 
 
 def test_labels_and_slot_grid_raise_naming_their_items(tree):
-    """Slot binning still raises naming its item; labels, ported with
-    pretraining, no longer raise: a frame with no label file gives None,
-    as in the JAX package."""
+    """Labels, ported with pretraining: a frame with no label file gives
+    None, as in the JAX package. Slot binning, ported with the flagship
+    slice: a slot-gridded drive's scans equal JAX's bit for bit in both
+    layouts, its labels raise, and a capacity that is no multiple of H*W
+    raises before any read, as in JAX."""
     d = KittiRawDrive(tree, DATE, 27, max_points=1024)
     assert d.labels(0, str(tree)) is None
-    with pytest.raises(ValueError, match="Queue 1 item 5"):
-        KittiRawDrive(tree, DATE, 27, slot_grid=(64, 1024, 3.0, -25.0))
+    grid = (8, 64, 3.0, -25.0)
+    for layout in ("slots", "halves"):
+        got = KittiRawDrive(tree, DATE, 27, max_points=1024,
+                            slot_grid=grid, slot_layout=layout)
+        want = JaxKittiRawDrive(tree, DATE, 27, max_points=1024,
+                              slot_grid=grid, slot_layout=layout)
+        for i in (0, 3):
+            (gp, gv), (wp, wv) = got.points(i), want.points(i)
+            assert _same(gp, wp) and np.array_equal(gv, wv)
+        with pytest.raises(ValueError, match="slot-bin"):
+            got.labels(0, str(tree))
+    with pytest.raises(ValueError, match="multiple"):
+        KittiRawDrive("/nonexistent", DATE, 27, max_points=1023,
+                      slot_grid=grid)
 
 
 @pytest.mark.parametrize("span", [(0, -1), (2, 4)])

@@ -159,6 +159,32 @@ pair-split stem, stride-fold pool, ``kernel-aligned: halves``):
     Then the pair-split stem against the classic stem on the same
     weights: the stem alone and the step, in turns.
 
+Slice 9, every projection backend and channel and the rest of the
+reference zoo (``backend: ring`` and ``sort-sentinel`` with exact
+payloads, the normals channel, GRU and bidirectional RNNs, the FC nets,
+the decoder-bearing tower, exact-z pretraining) on the same tree:
+
+16. the new routes on 144 of the tree's scans (``ring`` also at B = 1):
+    ``ring`` exact (the winner's index in the key, the payload words
+    zero) and packed, ``sort-sentinel`` exact (index payloads) and
+    packed, each one launch, the kernel's words and the route's image and
+    mask bit-equal to the plain version's; each backend's projector one
+    launch, ``ring`` packed equal to ``pallas-ring``; both kernels timed
+    with index payloads beside bound, plain version and (scatter)
+    ``scatter_reduce_``. The slice's configuration (the file with
+    ``backend: ring``, ``packed: false``, ``normals``, a bidirectional GRU
+    IMU net, a GRU odometry net, ``part: encoder+decoder``): 3 + 10 bf16
+    steps at B = 144 on a tree batch (one ring launch a step), beside
+    slice 2's step; ``imu-feat-fc``, ``odom-feat-fc`` and ``bypass: true``
+    on ``sort-sentinel``: 3 steps (one scatter launch a step); one float32
+    step of each against the CPU on 2 windows. ``cli.train --epochs 1``
+    (one ring launch per step and validation batch), ``cli.test`` of its
+    checkpoint on ``sort-sentinel`` (one scatter launch per eval batch of
+    144 scans), ``cli.stream`` on ``ring`` (one launch a tick);
+    ``cli.pretrain_pointseg`` with ``packed: false`` and no labels, 4
+    steps of 16 scans: one ring launch (the input) and one scatter launch
+    (the exact-z label image, index payloads) a step.
+
 After phase 4, the cost of the operator binding: a stream with the ring
 kernel behind ``torch.ops.deeplio.ring_select`` and with its CUDA
 implementation called directly, in turns (frames/s each way).
@@ -2200,34 +2226,62 @@ def synth_dict(name, over=None):
 
 
 def _sort_route_check(label, planes, valid, gpu):
-    """The sort route in both payload modes on card tensors: the kernel's
-    selected words bit-equal to the plain version's on the same words, and
-    the whole route's image and mask bit-equal to the plain route's.
-    Returns the largest difference (0) and the index-payload words."""
-    worst, words = 0, None
+    """The sort route in both payload modes on card tensors
+    (:func:`_route_check`). Returns the largest difference (0) and the
+    index-payload words."""
+    words = None
     for payload in ("carry", "carry-f16"):
-        spy = FirstCall(scatter_select)
-        got = project_batch_sorted_planes(*planes, valid, H, W, FU, FD,
-                                          payload=payload, select=spy)
-        want = project_batch_sorted_planes(
-            *planes, valid, H, W, FU, FD, payload=payload,
-            select=scatter_select_reference)
-        args, outs = spy.first
-        ref = scatter_select_reference(*args)
-        w = max(int((a.long() - r.long()).abs().max())
-                for a, r in zip(outs, ref))
-        same = all(torch.equal(a, b) for a, b in zip(got, want))
-        landed = int(got[1].sum())
-        check(w == 0 and same, f"sort route {label} {payload}: words differ "
-              f"by {w}, image and mask equal {same}")
-        print(f"sort route {label}, payload {payload}: selected words and "
-              f"the projected image and mask bit-equal to the plain "
-              f"version's ({landed} of {got[1].numel()} pixels landed) "
-              f"[{gpu}]")
-        worst = max(worst, w)
+        args = _route_check(f"sort route {label} {payload}",
+                            _sort_route(payload), planes, valid,
+                            scatter_select, scatter_select_reference, gpu)
         if payload == "carry":
             words = args
-    return worst, words
+    return 0, words
+
+
+def _bits_equal(a, b) -> bool:
+    return all(torch.equal(x.contiguous().view(torch.int32),
+                           y.contiguous().view(torch.int32))
+               for x, y in zip(a, b))
+
+
+def _ring_route(payload):
+    def route(x, y, z, rem, v, select):
+        return project_batch_ring_planes(x, y, z, rem, v, H, W, FU, FD,
+                                         select=select, payload=payload)
+    return route
+
+
+def _sort_route(payload):
+    def route(x, y, z, rem, v, select):
+        return project_batch_sorted_planes(x, y, z, rem, v, H, W, FU, FD,
+                                           payload=payload, select=select)
+    return route
+
+
+def _route_check(label, route, planes, valid, spy_op, reference, gpu):
+    """``route(*planes, valid, select=...)`` with the kernel (spied) and
+    with its plain version on the same card tensors: the kernel's words
+    bit-equal to the plain version's on the same inputs, image and mask
+    bit-equal, exactly one launch. Returns the first call's arguments."""
+    spy = FirstCall(spy_op)
+    _zero_counts()
+    got = route(*planes, valid, select=spy)
+    torch.cuda.synchronize()
+    launches = ring_select.launches + scatter_select.launches
+    want = route(*planes, valid, select=reference)
+    args, outs = spy.first
+    worst = max(int((a.long() - r.long()).abs().max())
+                for a, r in zip(outs, reference(*args)))
+    same = _bits_equal(got, want)
+    landed = int(got[1].sum())
+    check(worst == 0 and same and launches == 1,
+          f"{label}: words differ by {worst}, image and mask bit-equal "
+          f"{same}, {launches} launches (want 1)")
+    print(f"{label}: one launch, selected words and the projected image "
+          f"and mask bit-equal to the plain version's ({landed} of "
+          f"{got[1].numel()} pixels landed) [{gpu}]")
+    return args
 
 
 def phase_sort_route(dev, gpu, root, over=None):
@@ -2563,10 +2617,6 @@ def phase_flagship_routes(dev, gpu, planes, valid):
         return tproj.project_batch_ring_aligned_planes(
             *ps, v, H, W, FU, FD, check=check_mode, fallback=ring_route)
 
-    def same_bits(a, b):
-        return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
-                   for x, y in zip(a, b))
-
     want = ring_route(*planes, valid)
     _zero_counts()
     on = route("cond", planes, valid)
@@ -2574,7 +2624,7 @@ def phase_flagship_routes(dev, gpu, planes, valid):
     torch.cuda.synchronize()
     check(ring_select.launches == 0, f"on/trust on grid scans launched "
           f"{ring_select.launches} ring kernels")
-    check(same_bits(on, want) and same_bits(trust, want),
+    check(_bits_equal(on, want) and _bits_equal(trust, want),
           "on/trust differ from the ring kernel route on grid scans")
     perm = torch.from_numpy(tproj.halves_permutation(n, H, W)).to(dev)
     hp = [p.index_select(1, perm) for p in planes]
@@ -2582,7 +2632,7 @@ def phase_flagship_routes(dev, gpu, planes, valid):
     halves = tproj.project_batch_ring_halves_planes(*hp, hv, H, W, FU, FD)
     cpu = tproj.project_batch_ring_halves_planes(
         *(p.cpu() for p in hp), hv.cpu(), H, W, FU, FD)
-    check(same_bits([t.cpu() for t in halves], cpu),
+    check(_bits_equal([t.cpu() for t in halves], cpu),
           "halves on the card differs from the CPU")
     landed = int(want[1].sum())
     print(f"flagship routes B={planes[0].shape[0]}: on and trust bit-equal "
@@ -2597,9 +2647,9 @@ def phase_flagship_routes(dev, gpu, planes, valid):
         got = route("cond", shifted, valid)
         torch.cuda.synchronize()
         launches += ring_select.launches
-        check(ring_select.launches == 1 and same_bits(got, want_s),
+        check(ring_select.launches == 1 and _bits_equal(got, want_s),
               f"{name} on shifted scans: {ring_select.launches} ring "
-              f"launches, bit-equal {same_bits(got, want_s)}")
+              f"launches, bit-equal {_bits_equal(got, want_s)}")
     print(f"flagship routes, scans shifted one slot: auto and on launch the "
           f"ring kernel once each and equal its route bit for bit [{gpu}]")
 
@@ -2837,6 +2887,316 @@ def phase_flagship(dev, gpu, root, over=None):
     return off_ring + cli_ring, worst, halves_ms, off_ms
 
 
+# ------------------------------------------------------------- slice 9
+
+def slice9_dict(root, over=None, fc=False):
+    """Phase 11's configuration on its tree (:func:`kitti_dict`) with the
+    slice's settings: ``backend: ring`` with ``packed: false``, the
+    normals channel (``mean``/``std`` extended by 0/1 for its three
+    components), a bidirectional GRU IMU net, a GRU odometry net and the
+    decoder-bearing tower (``part: encoder+decoder``). ``fc``: the second
+    configuration, ``imu-feat-fc``, ``odom-feat-fc`` and ``bypass: true``
+    on ``sort-sentinel`` (still exact payloads and normals)."""
+    d = kitti_dict(root, over)
+    ds = d["datasets"]
+    ds.update({"backend": "ring", "packed": False,
+               "channels": list(ds["channels"]) + ["normals"],
+               "mean": list(ds["mean"]) + [0.0] * 3,
+               "std": list(ds["std"]) + [1.0] * 3})
+    d["imu-feat-rnn"].update({"type": "gru", "bidirectional": True})
+    d["odom-feat-rnn"]["type"] = "gru"
+    d["lidar-feat-pointseg"]["part"] = "encoder+decoder"
+    if fc:
+        ds["backend"] = "sort-sentinel"
+        d["deeplio"]["imu-feat-net"] = {"name": "imu-feat-fc"}
+        d["deeplio"]["odom-feat-net"] = {"name": "odom-feat-fc"}
+        d["imu-feat-fc"] = {"hidden-size": 128, "num-layers": 2}
+        d["odom-feat-fc"] = {"hidden-size": 256, "num-layers": 2}
+        lp = d["lidar-feat-pointseg"]
+        del lp["part"]
+        lp["bypass"] = True
+    return d
+
+
+def phase_slice9_routes(dev, gpu, root, over=None):
+    """Item 1: the new routes on 144 of the tree's scans (72 frames of
+    each drive, a training batch's count), ``ring`` also at B = 1: the
+    kernels against their plain versions, each route through its
+    projector with one launch, timed beside bounds and plain versions.
+    Returns (worst difference, {route: (ms, plain ms, bound ms, library
+    ms)})."""
+    from deeplio_tpu_torch.data.dataset import build_drives
+    cfg = load_config_dict(slice9_dict(root, over))
+    drives = build_drives(cfg, "train")
+    b = TRAIN_B * TRAIN_S
+    per = b // len(drives)
+    planes, valid = zip(*(d.points_planes(k) for d in drives
+                          for k in range(per)))
+    planes = torch.from_numpy(np.stack(planes)).to(dev)
+    valid = torch.from_numpy(np.stack(valid)).to(dev)
+    cols = [planes[:, c].contiguous() for c in range(4)]
+    n = cols[0].shape[1]
+    n_pix = H * W
+    words = {}
+    for label, route, op, ref in (
+            ("ring carry", _ring_route("carry"), ring_select,
+             ring_select_reference),
+            ("ring carry-f16", _ring_route("carry-f16"), ring_select,
+             ring_select_reference),
+            ("sort-sentinel carry", _sort_route("carry"), scatter_select,
+             scatter_select_reference),
+            ("sort-sentinel carry-f16", _sort_route("carry-f16"),
+             scatter_select, scatter_select_reference)):
+        words[label] = _route_check(f"slice9 route {label} B={b}", route,
+                                    cols, valid, op, ref, gpu)
+    _route_check("slice9 route ring carry B=1", _ring_route("carry"),
+                 [c[:1] for c in cols], valid[:1], ring_select,
+                 ring_select_reference, gpu)
+    zero = words["ring carry"][2]
+    check(not zero.any(), "ring carry: payload words not zero")
+
+    # each backend through make_projector: one launch a projection, and
+    # ring packed equal to the pallas-ring projector
+    ds = cfg.datasets
+    outs = {}
+    for backend, packed, kind in (("ring", False, "ring"),
+                                  ("ring", True, "ring"),
+                                  ("pallas-ring", True, "ring"),
+                                  ("sort-sentinel", False, "scatter"),
+                                  ("sort-sentinel", True, "scatter")):
+        proj = dataclasses.replace(ds.projection, backend=backend,
+                                   packed=packed)
+        fn = make_projector(proj, ds.channels, ds.mean, ds.std,
+                            layout="planes")
+        _zero_counts()
+        outs[backend, packed] = fn(cols, valid)
+        torch.cuda.synchronize()
+        counts = {"ring": ring_select.launches,
+                  "scatter": scatter_select.launches}
+        check(counts.pop(kind) == 1 and list(counts.values()) == [0],
+              f"slice9 projector {backend} packed={packed}: launches "
+              f"{ring_select.launches} ring, {scatter_select.launches} "
+              f"scatter")
+    check(_bits_equal(outs["ring", True], outs["pallas-ring", True]),
+          "ring packed differs from the pallas-ring projector")
+    img = outs["ring", False][0]
+    check(img.shape == (b, H, W, ds.num_image_channels)
+          and bool(torch.isfinite(img).all()),
+          f"slice9 projector: image {tuple(img.shape)}, finite "
+          f"{bool(torch.isfinite(img).all())}")
+    print(f"slice9 projectors B={b}: one launch each for ring (exact, "
+          f"packed), pallas-ring, sort-sentinel (exact, packed); ring packed "
+          f"bit-equal to pallas-ring; the {ds.num_image_channels}-channel "
+          f"image (normals included) finite [{gpu}]")
+
+    times = {}
+    rk, sk = words["ring carry"], words["sort-sentinel carry"]
+    landed = int((ring_select(*rk)[0] != SENTINEL_RING).sum())
+    nbytes = 8 * b * n + 8 * landed + 12 * b * n_pix
+    times["ring carry"] = (graph_ms(lambda: ring_select(*rk)),
+                           graph_ms(lambda: ring_select_reference(*rk)),
+                           nbytes / HBM_BYTES_PER_S * 1e3, None, nbytes,
+                           landed)
+    key, *_, rq_bits = sk
+    slot_pix = key >> rq_bits
+    live = (key != SENTINEL) & (slot_pix < n_pix)
+    slot = torch.where(live, slot_pix, n_pix).long()
+    comp = ((key & ((1 << rq_bits) - 1)).long() << 32) | torch.arange(
+        n, dtype=torch.int64, device=dev)
+    best = torch.full((b, n_pix + 1), 2**63 - 1, dtype=torch.int64,
+                      device=dev)
+    landed = int((scatter_select(*sk)[0] != SENTINEL).sum())
+    nbytes = 4 * b * n + 8 * landed + 12 * b * n_pix
+    times["sort-sentinel carry"] = (
+        graph_ms(lambda: scatter_select(*sk)),
+        graph_ms(lambda: scatter_select_reference(*sk)),
+        nbytes / HBM_BYTES_PER_S * 1e3,
+        graph_ms(lambda: best.scatter_reduce_(1, slot, comp, reduce="amin",
+                                              include_self=True)),
+        nbytes, landed)
+    for label, (k_ms, p_ms, bound, lib, nb, ld) in times.items():
+        print(f"timing slice9 {label} B={b} (the tree's scans, index "
+              f"payloads): device (graph replay) kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms"
+              + (f", scatter_reduce_ amin on the int64 composite "
+                 f"{lib:.4f} ms" if lib is not None else "")
+              + f"; bound {bound * 1e3:.3f} us ({nb} B at 3.35 TB/s, {ld} "
+              f"pixels landed) [{gpu}]")
+    del planes, valid, cols, words, rk, sk, slot, comp, best, outs
+    torch.cuda.empty_cache()
+    return 0, {k: v[:4] for k, v in times.items()}
+
+
+def phase_slice9_steps(dev, gpu, root, step_ms, over=None):
+    """Items 2 and 4: the slice's configuration, 3 + 10 bf16 steps at B =
+    144 on the tree's first training batch (one ring launch a step), and
+    the second configuration, 3 steps (one scatter launch a step); one
+    float32 step of each on the card against the CPU on 2 windows.
+    Returns (ms/step, ring launches, scatter launches)."""
+    from deeplio_tpu_torch.data.dataset import build_dataset
+    out = {}
+    for label, fc in (("slice9", False), ("slice9 fc", True)):
+        cfg = load_config_dict(slice9_dict(root, over, fc=fc))
+        host = next(build_dataset(cfg, "train").iter_batches(
+            cfg.train.batch_size, shuffle=False))
+        model = build_model(cfg, device=dev, seed=0)
+        state = create_train_state(cfg, model)
+        train_step, _ = build_train_step(cfg)
+        raw = batch_to_device(host, dev)
+        steps = 3 if fc else TIMED_STEPS
+        ms, ring, scatter, vals = _timed_steps(state, train_step, raw, steps)
+        want = (0, steps) if fc else (steps, 0)
+        check((ring, scatter) == want, f"{label}: {ring} ring and {scatter} "
+              f"scatter launches in {steps} steps, want {want}")
+        pairs = cfg.train.batch_size * cfg.datasets.num_pairs
+        print(f"{label} ({cfg.datasets.projection.backend} exact, channels "
+              f"{'+'.join(cfg.datasets.channels)}, imu "
+              f"{cfg.model.imu.name}/{cfg.model.imu.rnn_type}"
+              f"{' bidirectional' if cfg.model.imu.bidirectional else ''}, "
+              f"odom {cfg.model.odom.name}/{cfg.model.odom.rnn_type}, "
+              f"tower part {cfg.model.lidar.part}): {steps} steps of "
+              f"{cfg.train.batch_size} windows x "
+              f"{cfg.datasets.sequence_size} tree frames in "
+              f"{cfg.model.compute_dtype}: {ms:.2f} ms/step, "
+              f"{pairs / ms * 1e3:.1f} pairs/s (slice 2's step, same call: "
+              f"{step_ms:.2f} ms/step); ring launches {ring}, scatter "
+              f"{scatter}; loss {vals[0]['loss']:.5g} -> "
+              f"{vals[-1]['loss']:.5g} [{gpu}]")
+        out[label] = (ms, ring, scatter)
+        del state, model, train_step, raw
+        torch.cuda.empty_cache()
+        f32 = slice9_dict(root, over, fc=fc)
+        f32["compute-dtype"] = "float32"
+        f32["deeplio"]["dropout"] = 0.0
+        f32 = load_config_dict(f32)
+        seq = cfg.datasets.sequence_size        # scans are [B * S, N]
+        small = {k: v[:2 * seq] if k.startswith("points_") else v[:2]
+                 for k, v in host.items()}
+        phase_train_vs_cpu(dev, f32, f"{label} f32",
+                           host=_projected_on_card(dev, gpu, f32, small))
+    return out
+
+
+def _projected_on_card(dev, gpu, cfg, host):
+    """``host`` with its scans replaced by their images projected on the
+    card (``images`` [B, S, H, W, C] float32, the projection cache's
+    contract), so that the card's and the CPU's steps see the same input.
+    The CPU's projection differs from the card's where ``atan2``/``asin``
+    round a boundary point into the next pixel, and the normals turn each
+    such flip into changes of order 1 in its neighbours' normals: both
+    are measured and printed here."""
+    ds = cfg.datasets
+    fn = make_projector(ds.projection, ds.channels, ds.mean, ds.std,
+                        layout="planes")
+    keys = ("points_x", "points_y", "points_z", "points_rem")
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        img, mask = fn([torch.from_numpy(host[k]).to(d) for k in keys],
+                       torch.from_numpy(host["points_valid"]).to(d))
+        out[d.type] = (img.cpu(), mask.cpu())
+    (gi, gm), (ci, cm) = out[dev.type], out["cpu"]
+    flips = int((gm != cm).sum())
+    other = int((gi[..., :-3] != ci[..., :-3]).any(-1).sum())
+    nrm = float((gi[..., -3:] - ci[..., -3:]).abs().max()) \
+        if "normals" in ds.channels else 0.0
+    check(flips <= MAX_FLIP_FRACTION * host["points_valid"].size,
+          f"projection card vs CPU: {flips} mask pixels differ")
+    print(f"projection card vs CPU ({gm.shape[0]} scans, "
+          f"{ds.projection.backend}): {flips} mask pixels and {other} "
+          f"pixels of the other channels differ (trig ulps move boundary "
+          f"points), the normals by up to {nrm:.3g}; the float32 step "
+          f"below feeds both sides the card's images [{gpu}]")
+    b = host["x_gt"].shape[0]
+    images = gi.reshape((b, -1) + tuple(gi.shape[1:])).numpy()
+    return {"images": images, **{k: v for k, v in host.items()
+                                 if not k.startswith("points_")}}
+
+
+def phase_slice9_cli(dev, gpu, root, over=None):
+    """Item 3: ``cli.train --epochs 1`` with the slice's configuration on
+    the tree (one ring launch per step and validation batch), ``cli.test``
+    of its checkpoint with ``backend: sort-sentinel`` (one scatter launch
+    per eval batch of 144 scans), ``cli.stream`` with ``backend: ring``
+    (one ring launch a tick). Returns (ring launches, scatter launches,
+    ms/step in fit)."""
+    from deeplio_tpu_torch.cli import stream as stream_cli
+    from deeplio_tpu_torch.cli import train as train_cli
+    d = slice9_dict(root, over)
+    cfg_path = root / "slice9.yaml"
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(d, f)
+    wd = str(root / "slice9_run")
+    common = ["-c", str(cfg_path), "--workdir", wd, "--device", dev.type]
+    _zero_counts()
+    t0 = time.perf_counter()
+    train_cli.main(common + ["--epochs", "1"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ring, scatter = ring_select.launches, scatter_select.launches
+    records = _records(wd)
+    steps = [r["step"] for r in records if r["split"] == "train"]
+    n_val = sum(1 for r in records if r["split"] == "val")
+    check(ring == len(steps) + n_val and scatter == 0 and steps == [1, 2]
+          and all(np.isfinite(r["loss"]) for r in records),
+          f"slice9 cli train: steps {steps}, {n_val} validations, {ring} "
+          f"ring and {scatter} scatter launches")
+    gaps = _step_gaps(records, range(1, len(steps)), len(steps), every=1000)
+    med = float(np.median(gaps))
+    print(f"slice9 cli train: 1 epoch ({len(steps)} steps, {n_val} "
+          f"validation batch) in {secs:.2f} s; {med:.2f} ms/step in fit "
+          f"(step 1 to 2); ring launches {ring} [{gpu}]")
+
+    d["datasets"]["backend"] = "sort-sentinel"
+    eval_path = root / "slice9_sentinel.yaml"
+    with open(eval_path, "w") as f:
+        yaml.safe_dump(d, f)
+    scat = phase_cli_eval(
+        gpu, ["-c", str(eval_path), "--workdir", wd, "--device", dev.type],
+        load_config(eval_path), "slice9 sort-sentinel exact",
+        ["--out", str(root / "slice9_eval")], kernel="scatter")
+
+    _zero_counts()
+    scores = stream_cli.main(common + ["--chunk", "16"])
+    launches = ring_select.launches
+    (name, s), = scores.items()
+    check(launches == s["frames"] and np.isfinite(s["ate_m"])
+          and scatter_select.launches == 0,
+          f"slice9 cli stream: {launches} ring launches for {s['frames']} "
+          f"frames")
+    print(f"slice9 cli stream (ring exact, B = 1): {name}, {s['frames']} "
+          f"frames at {s['frames_per_sec']:.1f} frames/s, ATE "
+          f"{s['ate_m']:.4f} m, ring launches {launches} [{gpu}]")
+    return ring + launches, scat, med
+
+
+def phase_slice9(dev, gpu, root, step_ms, over=None):
+    """Phase 16 on phase 11's tree: every backend and channel and the rest
+    of the zoo. Returns (ring launches, scatter launches, worst
+    difference, route timings)."""
+    worst, times = phase_slice9_routes(dev, gpu, root, over)
+    steps = phase_slice9_steps(dev, gpu, root, step_ms, over)
+    c_ring, c_scatter, fit_ms = phase_slice9_cli(dev, gpu, root, over)
+    cfg_path = root / "slice9_pretrain.yaml"
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(slice9_dict(root, over), f)
+    _, p_ms, p_launches, spy, _ = _pretrain_run(
+        dev, gpu, cfg_path, root / "slice9_pretrained", PRETRAIN_GEO_STEPS,
+        1, "exact-z geometric labels (ring exact input)")
+    key, idx = spy.first[0][:2]
+    check(torch.equal(idx[0], torch.arange(key.shape[1], dtype=torch.int32,
+                                           device=dev)),
+          "exact-z labels: the scatter launch carried no index payloads")
+    ring = (steps["slice9"][1] + steps["slice9 fc"][1] + c_ring
+            + p_launches[0])
+    scatter = (steps["slice9"][2] + steps["slice9 fc"][2] + c_scatter
+               + p_launches[1])
+    print(f"slice9: bare step {steps['slice9'][0]:.2f} ms/step, fc "
+          f"{steps['slice9 fc'][0]:.2f}, fit {fit_ms:.2f}, exact-z "
+          f"pretraining {p_ms:.2f} ms/step; launches ring {ring}, scatter "
+          f"{scatter} [{gpu}]")
+    return ring, scatter, worst, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one GPU",
@@ -2926,31 +3286,41 @@ def main() -> int:
         f_ring, f_worst, f_halves_ms, f_off_ms = phase_flagship(dev, gpu,
                                                                 root)
         print(f"flagship phase: {time.perf_counter() - t0:.1f} s [{gpu}]")
+        # slice 9: every backend and channel and the rest of the zoo on
+        # the same tree, both kernels with index payloads at B = 144
+        t0 = time.perf_counter()
+        n_ring, n_scatter, n_worst, n_times = phase_slice9(dev, gpu, root,
+                                                           step_ms)
+        print(f"slice9 phase: {time.perf_counter() - t0:.1f} s [{gpu}]")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"kernels: ring_project (ported, launches={k_launches} on the "
           f"KITTI training paths, {c_launches} on the command lines' paths, "
           f"{p_ring} on pretraining's, {f_ring} on the flagship's, "
-          f"{launches} in the slice-1 stream, "
+          f"{n_ring} on slice 9's, {launches} in the slice-1 stream, "
           f"bit-exact), proj_scatter (ported, launches={s_launches}: the "
-          f"training step's and the fit's, {p_scatter} on pretraining's "
-          f"and {v_launches} on the model zoo's, bit-exact)")
-    s_launches += p_scatter + v_launches
+          f"training step's and the fit's, {p_scatter} on pretraining's, "
+          f"{v_launches} on the model zoo's and {n_scatter} on slice 9's, "
+          f"bit-exact)")
+    s_launches += p_scatter + v_launches + n_scatter
     k_ms, p_ms, bound_ms, k_worst = k_times[TRAIN_B * TRAIN_S]
-    worst = max(worst, k_worst, k_times[PREFILL_CHUNK][3], f_worst)
+    worst = max(worst, k_worst, k_times[PREFILL_CHUNK][3], f_worst, n_worst)
     # the scatter kernel on configs/deeplio_kitti.yaml's path (B = 96,
     # index payloads), where one library call finds the same winners
     sk_ms, sp_ms, s_bound_ms, s_lib_ms = v_times
     s_worst = max(s_worst, v_worst)
     print(f"deeplio_kitti.yaml: {v_step_ms:.2f} ms/step in fit; the scatter "
           f"kernel at B = 96 {sk_ms:.4f} ms, B = 144 (slice 2) "
-          f"{s_times[TRAIN_B * TRAIN_S][0]:.4f} ms [{gpu}]")
+          f"{s_times[TRAIN_B * TRAIN_S][0]:.4f} ms, B = 144 sort-sentinel "
+          f"exact (slice 9) {n_times['sort-sentinel carry'][0]:.4f} ms; "
+          f"the ring kernel at B = 144 ring exact (slice 9) "
+          f"{n_times['ring carry'][0]:.4f} ms [{gpu}]")
     print(json.dumps({"kernels": [{
         "name": "ring_project",
         "route": "cuda",
         "source": "deeplio_tpu_torch/csrc/ring_project.cu",
         "replaces": "deeplio_tpu/ops/projection_pallas_ring.py:62",
-        "launches": k_launches + c_launches + p_ring + f_ring,
+        "launches": k_launches + c_launches + p_ring + f_ring + n_ring,
         "max_abs_err": float(worst),
         "ms": k_ms,
         "plain_ms": p_ms,

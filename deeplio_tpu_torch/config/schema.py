@@ -3,16 +3,20 @@
 
 Reads the same YAML keys as the JAX package (hyphenated or underscored)
 for the settings the port computes: the three model archs (``deepio``,
-``deeplo``, ``deeplio``) with their blocks, the projection, the channel
-stack and its normalization, the window (``sequence-size``,
+``deeplo``, ``deeplio``) with their blocks, the projection with every
+backend (``pallas-ring``, ``pallas``, ``ring``, ``sort``,
+``sort-sentinel``), the channel stack with its surface normals and its
+normalization, the window (``sequence-size``,
 ``combinations``, ``window-stride``), yaw augmentation, the KITTI
 ``root-path`` and split lists (``{date: [drive | {drive, start, end},
 ...]}`` or ``{sequences: ["00", ...]}``), the synthetic drives and their
 world, the segmentation labels of PointSeg pretraining (``labels-path``,
 ``label-map``, ``labels-num-classes``), the LiDAR towers (PointSeg with
-its ``classic``, ``cheap``, ``stride`` and ``stride-fold`` pools and its
-``classic`` and ``pair-split`` stems, ``lidar-feat-simple-0`` and
-``-1``), their dropout and warm starts, the slot-aligned projection
+its ``classic``, ``cheap``, ``stride`` and ``stride-fold`` pools, its
+``classic`` and ``pair-split`` stems and its ``encoder+decoder`` part,
+``lidar-feat-simple-0`` and ``-1``), the IMU and odometry nets (LSTM or
+GRU, the IMU one also bidirectional, or the FC nets), their dropout and
+warm starts, the slot-aligned projection
 routes (``kernel-aligned: auto | on | trust | halves``) and host slot
 binning (``slot-bin``), the pose loss, the optimizer
 with its plateau schedule, and the ``train`` block of the training loop
@@ -47,15 +51,17 @@ ODOMETRY_SEQUENCES: Dict[str, Tuple[str, int, int, int]] = {
 }
 
 # Later slices, as ROADMAP.md orders them.
-_LATER_PROJECTION = "a later projection slice (ROADMAP.md Queue 1 item 5)"
 _LATER_VARIANTS = "the model-variants slice (ROADMAP.md Queue 1 item 5)"
 _LATER_DP = "the data-parallel slice (ROADMAP.md Queue 1 item 6)"
-BACKENDS = ("pallas-ring", "pallas", "sort")
+BACKENDS = ("pallas-ring", "pallas", "ring", "sort", "sort-sentinel")
 POOLS = ("classic", "cheap", "stride", "stride-fold")
 STEMS = ("classic", "pair-split")
 LIDAR_NETS = ("lidar-feat-pointseg", "lidar-feat-simple-0",
               "lidar-feat-simple-1")
 ARCHS = ("deepio", "deeplo", "deeplio")
+IMU_NETS = ("imu-feat-rnn", "imu-feat-fc")
+ODOM_NETS = ("odom-feat-rnn", "odom-feat-fc")
+RNN_CELLS = ("lstm", "gru")
 
 
 class ConfigError(ValueError):
@@ -89,6 +95,11 @@ def _unsupported(what: str, later: str) -> ConfigError:
                        f"{later} adds it")
 
 
+def num_channels(channels) -> int:
+    """Image channels of a channel list: ``normals`` counts 3."""
+    return sum(3 if c == "normals" else 1 for c in channels)
+
+
 @dataclass(frozen=True)
 class ProjectionConfig:
     """Spherical range-image projection (SqueezeSeg convention)."""
@@ -99,11 +110,12 @@ class ProjectionConfig:
     max_points: int = 131072
     # The pallas and pallas-ring routes always carry packed-f16 payloads,
     # so ``packed`` does not change their result (as in the JAX package);
-    # ``sort`` carries packed-f16 words when it is set, exact float32
-    # channels when not.
+    # ``ring``, ``sort`` and ``sort-sentinel`` carry packed-f16 words when
+    # it is set, exact float32 channels when not.
     packed: bool = False
-    # pallas-ring: ring-ordered scans (ops/projection_ring.py);
-    # pallas and sort: scans in any order (ops/projection_scatter.py).
+    # pallas-ring and ring: ring-ordered scans (ops/projection_ring.py);
+    # pallas, sort and sort-sentinel: scans in any order
+    # (ops/projection_scatter.py).
     backend: str = "sort"
     # scans per chunk of the JAX package's batched projector: it only
     # schedules the work (the winners are the same), so the port projects
@@ -185,7 +197,7 @@ class DatasetConfig:
 
     @property
     def num_image_channels(self) -> int:
-        return len(self.channels)
+        return num_channels(self.channels)
 
     @property
     def effective_combinations(self) -> Tuple[Tuple[int, int], ...]:
@@ -224,8 +236,8 @@ class DatasetConfig:
                 f"kernel-aligned must be auto|on|off|trust|halves, got "
                 f"{proj.kernel_aligned!r}")
         if proj.backend not in BACKENDS:
-            raise _unsupported(f"projection backend {proj.backend!r}",
-                               _LATER_PROJECTION)
+            raise ConfigError(f"projection backend must be "
+                              f"{'|'.join(BACKENDS)}, got {proj.backend!r}")
         slot_bin = bool(_get(d, "slot-bin", False))
         if slot_bin and proj.max_points % (proj.height * proj.width):
             raise ConfigError(
@@ -256,17 +268,16 @@ class DatasetConfig:
         for c in channels:
             if c not in CHANNEL_ORDER:
                 raise ConfigError(f"unknown projection channel '{c}'")
-            if c == "normals":
-                raise _unsupported("the normals channel", _LATER_PROJECTION)
         mean = tuple(float(x) for x in (_get(d, "mean", []) or []))
         std = tuple(float(x) for x in (_get(d, "std", []) or []))
         if bool(mean) != bool(std):
             raise ConfigError(
                 "normalization requires both mean and std (or neither)")
         for name, vals in (("mean", mean), ("std", std)):
-            if vals and len(vals) != len(channels):
+            if vals and len(vals) != num_channels(channels):
                 raise ConfigError(f"normalization {name} has {len(vals)} "
-                                  f"entries for {len(channels)} channels")
+                                  f"entries for {num_channels(channels)} "
+                                  f"channels (normals count 3)")
         if any(v == 0 for v in std):
             raise ConfigError("normalization std contains a zero")
         seq = int(_get(d, "sequence-size", 2))
@@ -309,7 +320,11 @@ class DatasetConfig:
 @dataclass(frozen=True)
 class LidarFeatConfig:
     name: str = "lidar-feat-pointseg"
+    # encoder: the bottleneck map feeds the tower's head; encoder+decoder
+    # (also ``bypass: true``, as in the JAX package) runs the PointSeg
+    # decoder and feeds its per-pixel map
     part: str = "encoder"
+    bypass: bool = False
     feature_size: int = 512
     base_channels: int = 64    # the simple towers' first width
     h_stride: int = 1
@@ -366,14 +381,14 @@ class LidarFeatConfig:
             raise ConfigError(
                 "pool=stride-fold requires part=encoder and a classic or "
                 f"pair-split stem (got part={part!r}, stem={stem!r})")
-        for what, got, want in (("part", part, ("encoder",)),
-                                ("stem", stem, STEMS),
+        for what, got, want in (("stem", stem, STEMS),
                                 ("fire", fire, ("classic",))):
             if got not in want:
                 raise _unsupported(f"lidar {what}={got!r}", _LATER_VARIANTS)
         return LidarFeatConfig(
             name=name,
             part=part,
+            bypass=bypass,
             feature_size=int(_get(d, "feature-size", 512)),
             base_channels=int(_get(d, "base-channels", 64)),
             h_stride=int(_get(d, "h-stride", 1)),
@@ -389,32 +404,49 @@ class LidarFeatConfig:
         )
 
 
-def _rnn_checks(kind: str, name: str, want: str, d: Dict[str, Any]) -> None:
-    if name != want:
-        raise _unsupported(f"{kind} {name!r}", _LATER_VARIANTS)
+def _net_checks(kind: str, name: str, names: Tuple[str, ...],
+                d: Dict[str, Any]) -> str:
+    """The net's name among ``names`` and its cell among ``RNN_CELLS``
+    (the JAX package reads the cell for the FC nets too, and ignores
+    it); returns the cell."""
+    if name not in names:
+        raise ConfigError(f"{kind} must be {'|'.join(names)}, got {name!r}")
     cell = str(_get(d, "type", "lstm"))
-    if cell != "lstm":
-        raise _unsupported(f"{kind} type={cell!r} (GRU)", _LATER_VARIANTS)
-    if bool(_get(d, "bidirectional", False)):
-        raise _unsupported(f"bidirectional {kind}", _LATER_VARIANTS)
+    if cell not in RNN_CELLS:
+        raise ConfigError(f"{kind} type must be {'|'.join(RNN_CELLS)}, "
+                          f"got {cell!r}")
+    return cell
 
 
 @dataclass(frozen=True)
 class ImuFeatConfig:
+    # imu-feat-rnn: a masked LSTM or GRU, optionally bidirectional, over
+    # each pair's IMU window (its final state, both directions'
+    # concatenated); imu-feat-fc: the zero-masked window flattened through
+    # num-layers Dense + ReLU
     name: str = "imu-feat-rnn"
     rnn_type: str = "lstm"
     input_size: int = 6
     hidden_size: int = 128
     num_layers: int = 2
+    bidirectional: bool = False
+
+    @property
+    def feature_size(self) -> int:
+        """Width of the net's output feature."""
+        if self.name == "imu-feat-rnn" and self.bidirectional:
+            return 2 * self.hidden_size
+        return self.hidden_size
 
     @staticmethod
     def from_dict(name: str, d: Dict[str, Any]) -> "ImuFeatConfig":
-        _rnn_checks("imu-feat-net", name, "imu-feat-rnn", d)
         return ImuFeatConfig(
             name=name,
+            rnn_type=_net_checks("imu-feat-net", name, IMU_NETS, d),
             input_size=int(_get(d, "input-size", 6)),
             hidden_size=int(_get(d, "hidden-size", 128)),
             num_layers=int(_get(d, "num-layers", 2)),
+            bidirectional=bool(_get(d, "bidirectional", False)),
         )
 
 
@@ -432,6 +464,9 @@ class FusionConfig:
 
 @dataclass(frozen=True)
 class OdomFeatConfig:
+    # odom-feat-rnn: a masked LSTM or GRU over the window's pairs, one
+    # direction (the JAX package reads no ``bidirectional`` here);
+    # odom-feat-fc: num-layers Dense + ReLU per pair
     name: str = "odom-feat-rnn"
     rnn_type: str = "lstm"
     hidden_size: int = 256
@@ -439,9 +474,9 @@ class OdomFeatConfig:
 
     @staticmethod
     def from_dict(name: str, d: Dict[str, Any]) -> "OdomFeatConfig":
-        _rnn_checks("odom-feat-net", name, "odom-feat-rnn", d)
         return OdomFeatConfig(
             name=name,
+            rnn_type=_net_checks("odom-feat-net", name, ODOM_NETS, d),
             hidden_size=int(_get(d, "hidden-size", 256)),
             num_layers=int(_get(d, "num-layers", 2)),
         )

@@ -1,7 +1,7 @@
 """Feature nets of the model zoo (counterpart of
 ``deeplio_tpu/models/feat_nets.py``: ``LidarPointSegFeat``,
-``LidarSimpleFeat0``, ``LidarSimpleFeat1``, ``ImuFeatRnn``,
-``FusionLayer``, ``OdomFeatRNN``, ``PoseHeads``).
+``LidarSimpleFeat0``, ``LidarSimpleFeat1``, ``ImuFeatRnn``, ``ImuFeatFC``,
+``FusionLayer``, ``OdomFeatRNN``, ``OdomFeatFC``, ``PoseHeads``).
 
 Dropout (the LiDAR towers after their Dense, ``PoseHeads`` before its
 layers) acts in training mode only, draws its masks from the generator
@@ -38,21 +38,25 @@ def inverted_dropout(x: torch.Tensor, rate: float, training: bool,
 
 
 class LidarPointSegFeat(nn.Module):
-    """PointSeg encoder over pair-stacked images [B, 2C, H, W] (or, for
-    the ``pair-split`` stem, the pair's two [B, C, H, W] frames) -> two
+    """PointSeg over pair-stacked images [B, 2C, H, W] (or, for the
+    ``pair-split`` stem, the pair's two [B, C, H, W] frames) -> two
     strided 3x3 ConvBNs -> spatial mean -> Dense -> ReLU -> dropout ->
-    [B, F]."""
+    [B, F]. ``part="encoder"`` reads the bottleneck map (512 channels),
+    ``"encoder+decoder"`` the decoder's per-pixel map (64 channels, at
+    the stem's resolution)."""
 
     def __init__(self, in_channels: int, feature_size: int = 512,
                  h_stride: int = 1, w_stride: int = 2, se: bool = True,
                  el_squeeze: int = 0, dropout: float = 0.0,
-                 pool: str = "stride"):
+                 pool: str = "stride", part: str = "encoder"):
         super().__init__()
         self.dropout = dropout
-        self.pointseg = PointSegNet(in_channels, h_stride=h_stride,
-                                    w_stride=w_stride, with_se=se,
-                                    el_squeeze=el_squeeze, pool=pool)
-        self.ConvBN_0 = ConvBN(512, 256, (3, 3), (2, 2))
+        self.pointseg = PointSegNet(in_channels, part=part,
+                                    h_stride=h_stride, w_stride=w_stride,
+                                    with_se=se, el_squeeze=el_squeeze,
+                                    pool=pool)
+        width = 512 if part == "encoder" else 64
+        self.ConvBN_0 = ConvBN(width, 256, (3, 3), (2, 2))
         self.ConvBN_1 = ConvBN(256, 256, (3, 3), (2, 2))
         self.Dense_0 = nn.Linear(256, feature_size)
 
@@ -125,16 +129,38 @@ class LidarSimpleFeat1(nn.Module):
 
 
 class ImuFeatRnn(nn.Module):
-    """Masked LSTM over each pair's padded IMU window -> final hidden."""
+    """Masked LSTM or GRU over each pair's padded IMU window -> final
+    hidden, both directions' when bidirectional."""
 
     def __init__(self, input_size: int = 6, hidden_size: int = 128,
-                 num_layers: int = 2):
+                 num_layers: int = 2, cell: str = "lstm",
+                 bidirectional: bool = False):
         super().__init__()
-        self.MaskedRNN_0 = MaskedRNN(input_size, hidden_size, num_layers)
+        self.MaskedRNN_0 = MaskedRNN(input_size, hidden_size, num_layers,
+                                     cell, bidirectional)
 
     def forward(self, imu: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """imu [B, T, 6], mask [B, T] -> [B, H]."""
+        """imu [B, T, 6], mask [B, T] -> [B, H * dirs]."""
         return self.MaskedRNN_0(imu, mask)[1]
+
+
+class ImuFeatFC(nn.Module):
+    """The IMU window with its masked samples zeroed, flattened, through
+    ``num_layers`` Dense + ReLU: [B, T, 6], [B, T] -> [B, H]."""
+
+    def __init__(self, window: int, input_size: int = 6,
+                 hidden_size: int = 128, num_layers: int = 2):
+        super().__init__()
+        self.num_layers = num_layers
+        for k in range(num_layers):
+            setattr(self, f"Dense_{k}", nn.Linear(
+                window * input_size if k == 0 else hidden_size, hidden_size))
+
+    def forward(self, imu: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        x = (imu * mask[..., None]).flatten(1)
+        for k in range(self.num_layers):
+            x = F.relu(getattr(self, f"Dense_{k}")(x))
+        return x
 
 
 class FusionLayer(nn.Module):
@@ -160,15 +186,35 @@ class FusionLayer(nn.Module):
 
 
 class OdomFeatRNN(nn.Module):
-    """LSTM over the window's pair sequence: [B, P, F] -> [B, P, H]."""
+    """LSTM or GRU over the window's pair sequence: [B, P, F] -> [B, P,
+    H]."""
+
+    def __init__(self, input_size: int, hidden_size: int = 256,
+                 num_layers: int = 2, cell: str = "lstm"):
+        super().__init__()
+        self.MaskedRNN_0 = MaskedRNN(input_size, hidden_size, num_layers,
+                                     cell)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.MaskedRNN_0(x, None)[0]
+
+
+class OdomFeatFC(nn.Module):
+    """Per pair, ``num_layers`` Dense + ReLU, no recurrence: [B, P, F] ->
+    [B, P, H]."""
 
     def __init__(self, input_size: int, hidden_size: int = 256,
                  num_layers: int = 2):
         super().__init__()
-        self.MaskedRNN_0 = MaskedRNN(input_size, hidden_size, num_layers)
+        self.num_layers = num_layers
+        for k in range(num_layers):
+            setattr(self, f"Dense_{k}", nn.Linear(
+                input_size if k == 0 else hidden_size, hidden_size))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.MaskedRNN_0(x, None)[0]
+        for k in range(self.num_layers):
+            x = F.relu(getattr(self, f"Dense_{k}")(x))
+        return x
 
 
 class PoseHeads(nn.Module):

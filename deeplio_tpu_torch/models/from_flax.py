@@ -14,6 +14,12 @@ module of ``deeplio_tpu_torch.models`` does). The layouts:
     BN ``scale`` / ``bias``             -> ``weight`` / ``bias``
     BN stats ``mean`` / ``var``         -> ``running_mean`` / ``running_var``
     LSTM ``w_ih`` / ``w_hh`` / ``b``    -> kept as they are
+    GRU ``w_ih`` / ``w_hh`` / ``b_ih`` / ``b_hh``
+                                        -> kept as they are
+
+(an RNN's directions are its modules ``l{k}_fwd`` and ``l{k}_bwd``, the
+FC nets' layers Dense ``Dense_{k}``, the decoder-bearing tower's decoder
+``pointseg/decoder``: each is its own module on both sides).
 
 The bridge is strict on both sides, as ``deeplio_tpu/models/
 import_torch.py`` is: a flax entry with no matching module or tensor, a
@@ -34,7 +40,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from deeplio_tpu_torch.ops.rnn import LstmCellScan
+from deeplio_tpu_torch.ops.rnn import GruCellScan, LstmCellScan
+
+# the masked RNN cells' leaves, the same in both layouts
+RNN_LEAVES = {LstmCellScan: ("w_ih", "w_hh", "b"),
+              GruCellScan: ("w_ih", "w_hh", "b_ih", "b_hh")}
 
 
 def _leaves(tree: Mapping[str, Any],
@@ -72,9 +82,8 @@ def _target(mod: nn.Module, collection: str, leaf: str,
         elif isinstance(mod, nn.BatchNorm2d):
             if leaf in ("scale", "bias"):
                 return {"scale": "weight", "bias": "bias"}[leaf], value
-        elif isinstance(mod, LstmCellScan):
-            if leaf in ("w_ih", "w_hh", "b"):
-                return leaf, value
+        elif leaf in RNN_LEAVES.get(type(mod), ()):
+            return leaf, value
     elif isinstance(mod, nn.BatchNorm2d) and leaf in ("mean", "var"):
         return {"mean": "running_mean", "var": "running_var"}[leaf], value
     raise KeyError(f"no {type(mod).__name__} tensor for flax "
@@ -145,7 +154,7 @@ def _source(mod: nn.Module, name: str, value: np.ndarray
                 "running_var": ("batch_stats", "var")}
         if name in flax:
             return flax[name] + (value,)
-    elif isinstance(mod, LstmCellScan) and name in ("w_ih", "w_hh", "b"):
+    elif name in RNN_LEAVES.get(type(mod), ()):
         return "params", name, value
     raise KeyError(f"no flax leaf for {type(mod).__name__} tensor {name!r}")
 

@@ -19,12 +19,18 @@ Layout conversions (torch -> flax), the JAX package's:
                            running stats   -> mean / var (batch_stats)
     LSTM weight_ih_l{k}    [4H, D]         -> l{k}_fwd/w_ih [D, 4H]
          bias_ih + bias_hh (summed)        -> l{k}_fwd/b    [4H]
+    GRU  weight_ih_l{k}    [3H, D]         -> l{k}_fwd/w_ih [D, 3H]
+         bias_ih / bias_hh (kept apart: the reset gate scales the hidden
+         side's n bias)                    -> b_ih / b_hh
+    *_l{k}_reverse (bidirectional)         -> l{k}_bwd/...
 
-The port has no GRU and no bidirectional RNN yet: a state dict that holds
-either where the template has a masked RNN raises ``ConfigError`` naming
-the slice that adds them. The matcher is always strict, as the JAX
-package's is by default: a torch key left over, a template module with no
-torch tensors or a shape mismatch is an error, and nothing is loaded.
+A template RNN's layers, cell and directions are read from the template,
+as the JAX package reads them: the layer count from its ``l{k}_fwd``
+modules, a reverse direction from its ``l{k}_bwd``, the cell from the gate
+ratio of ``w_ih`` to ``w_hh`` (4 an LSTM, 3 a GRU). The matcher is always
+strict, as the JAX package's is by default: a torch key left over, a
+template module with no torch tensors or a shape mismatch is an error, and
+nothing is loaded.
 
 The reference's own layer names are not known (no reference checkpoint is
 in the repository), so ``name_map`` (template path -> torch module prefix)
@@ -39,7 +45,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from deeplio_tpu_torch.config.schema import _LATER_VARIANTS, _unsupported
 from deeplio_tpu_torch.models.from_flax import (
     load_flax_variables,
     to_flax_variables,
@@ -101,30 +106,37 @@ def convert_batchnorm(weight, bias, running_mean, running_var
             {"mean": _np(running_mean), "var": _np(running_var)})
 
 
-def _rnn_keys(prefix: str, num_layers: int):
-    return [f"{prefix}{t}_l{k}" for k in range(num_layers)
+def _directions(bidirectional: bool):
+    return (("fwd", ""), ("bwd", "_reverse")) if bidirectional else \
+        (("fwd", ""),)
+
+
+def _rnn_keys(prefix: str, num_layers: int, bidirectional: bool = False):
+    return [f"{prefix}{t}_l{k}{suffix}" for k in range(num_layers)
+            for _, suffix in _directions(bidirectional)
             for t in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
 
 
 def convert_rnn(sd: Mapping[str, Any], prefix: str, num_layers: int,
                 cell: str = "lstm", bidirectional: bool = False
                 ) -> Dict[str, Dict[str, np.ndarray]]:
-    """An ``nn.LSTM``'s tensors under ``prefix`` -> ``{"l{k}_fwd": {w_ih,
-    w_hh, b}}`` (``ops/rnn.py::MaskedRNN``). The port's cell adds one bias,
-    torch's two: ``b = bias_ih + bias_hh``."""
-    if cell == "gru":
-        raise _unsupported("importing a GRU", _LATER_VARIANTS)
-    if cell != "lstm":
+    """An ``nn.LSTM``'s or ``nn.GRU``'s tensors under ``prefix`` ->
+    ``{"l{k}_fwd": {...}, ["l{k}_bwd": {...}]}``
+    (``ops/rnn.py::MaskedRNN``). The port's LSTM cell adds one bias,
+    torch's two: ``b = bias_ih + bias_hh``; the GRU keeps both."""
+    if cell not in ("lstm", "gru"):
         raise ValueError(f"unknown rnn cell {cell!r}")
-    if bidirectional:
-        raise _unsupported("importing a bidirectional RNN", _LATER_VARIANTS)
     out: Dict[str, Dict[str, np.ndarray]] = {}
     for k in range(num_layers):
-        out[f"l{k}_fwd"] = {
-            "w_ih": _np(sd[f"{prefix}weight_ih_l{k}"]).T,
-            "w_hh": _np(sd[f"{prefix}weight_hh_l{k}"]).T,
-            "b": _np(sd[f"{prefix}bias_ih_l{k}"])
-            + _np(sd[f"{prefix}bias_hh_l{k}"])}
+        for side, suffix in _directions(bidirectional):
+            def t(name):
+                return _np(sd[f"{prefix}{name}_l{k}{suffix}"])
+            p = {"w_ih": t("weight_ih").T, "w_hh": t("weight_hh").T}
+            if cell == "lstm":
+                p["b"] = t("bias_ih") + t("bias_hh")
+            else:
+                p.update(b_ih=t("bias_ih"), b_hh=t("bias_hh"))
+            out[f"l{k}_{side}"] = p
     return out
 
 
@@ -163,17 +175,16 @@ def _put(tree: Tree, path: Tuple[str, ...], value: Any) -> None:
     node[path[-1]] = value
 
 
-def _rnn_meta(module: Mapping[str, Any], sd: Mapping[str, Any],
-              dot: str) -> Tuple[int, str, bool]:
-    """(layers, cell, bidirectional) of the torch RNN under ``dot`` that
-    fills the template RNN ``module``: the layer count is the template's,
-    the cell and the direction are the state dict's (``weight_hh_l0`` is
-    [3H, H] for a GRU, [4H, H] for an LSTM; a bidirectional RNN adds
-    ``*_reverse``)."""
-    layers = sum(k.endswith("_fwd") for k in module)
-    rows, hidden = np.shape(sd[dot + "weight_hh_l0"])
-    return (layers, "gru" if rows == 3 * hidden else "lstm",
-            dot + "weight_ih_l0_reverse" in sd)
+def _rnn_meta(module: Mapping[str, Any]) -> Tuple[int, str, bool]:
+    """(layers, cell, bidirectional) of the template RNN ``module``: its
+    ``l{k}_fwd`` count, the gate ratio of its first layer's ``w_ih`` [D,
+    gates * H] to ``w_hh`` [H, gates * H], and whether it has an
+    ``l{k}_bwd``."""
+    fwd = sorted(k for k in module if k.endswith("_fwd"))
+    first = module[fwd[0]]
+    gates = np.shape(first["w_ih"])[1] // np.shape(first["w_hh"])[0]
+    return (len(fwd), {4: "lstm", 3: "gru"}[gates],
+            any(k.endswith("_bwd") for k in module))
 
 
 def import_state_dict(state_dict: Mapping[str, Any],
@@ -233,10 +244,11 @@ def import_state_dict(state_dict: Mapping[str, Any],
                 _put(new_params, path, p)
                 _put(new_stats, path, s)
             else:
-                layers, cell, bidi = _rnn_meta(module, sd, dot)
+                layers, cell, bidi = _rnn_meta(module)
                 sub = convert_rnn(sd, dot, layers, cell, bidi)
-                # exactly the keys read: extra layers stay leftovers
-                consumed.update(_rnn_keys(dot, layers))
+                # exactly the keys read: extra layers or directions stay
+                # leftovers
+                consumed.update(_rnn_keys(dot, layers, bidi))
                 _put(new_params, path, sub)
         except KeyError as e:
             unmatched.append(f"{'/'.join(path)} <- {dot}* (missing {e})")

@@ -1,7 +1,7 @@
 """The model zoo and its factory (counterpart of
-``deeplio_tpu/models/zoo.py``: ``DeepIO``, ``DeepLO``, ``DeepLIO``, the
-classic and pair-split paths of ``_lidar_features`` and
-``build_model``).
+``deeplio_tpu/models/zoo.py``: ``DeepIO``, ``DeepLO``, ``DeepLIO`` with
+every IMU and odometry net (LSTM, GRU, bidirectional, FC), the classic and
+pair-split paths of ``_lidar_features`` and ``build_model``).
 
 Forward contract, as in the JAX package::
 
@@ -41,14 +41,16 @@ from deeplio_tpu_torch.config.schema import Config, ModelConfig
 from deeplio_tpu_torch.device import DeviceLike, resolve_device
 from deeplio_tpu_torch.models.feat_nets import (
     FusionLayer,
+    ImuFeatFC,
     ImuFeatRnn,
     LidarPointSegFeat,
     LidarSimpleFeat0,
     LidarSimpleFeat1,
+    OdomFeatFC,
     OdomFeatRNN,
     PoseHeads,
 )
-from deeplio_tpu_torch.ops.rnn import LstmCellScan
+from deeplio_tpu_torch.ops.rnn import GruCellScan, LstmCellScan
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -60,13 +62,23 @@ def _lidar_net(cfg: ModelConfig, image_channels: int) -> nn.Module:
     if lc.name == "lidar-feat-pointseg":
         return LidarPointSegFeat(
             2 * image_channels, lc.feature_size, lc.h_stride, lc.w_stride,
-            lc.se, lc.el_squeeze, lc.dropout, lc.pool)
+            lc.se, lc.el_squeeze, lc.dropout, lc.pool, lc.part)
     simple = {"lidar-feat-simple-0": LidarSimpleFeat0,
               "lidar-feat-simple-1": LidarSimpleFeat1}.get(lc.name)
     if simple is None:
         raise ValueError(f"unknown lidar feat net {lc.name!r}")
     return simple(2 * image_channels, lc.feature_size, lc.base_channels,
                   lc.dropout)
+
+
+def _imu_net(cfg: ModelConfig, window: int) -> nn.Module:
+    """The IMU net a config names, over windows of ``window`` samples."""
+    ic = cfg.imu
+    if ic.name == "imu-feat-fc":
+        return ImuFeatFC(window, ic.input_size, ic.hidden_size,
+                         ic.num_layers)
+    return ImuFeatRnn(ic.input_size, ic.hidden_size, ic.num_layers,
+                      ic.rnn_type, ic.bidirectional)
 
 
 class _Odometry(nn.Module):
@@ -80,9 +92,14 @@ class _Odometry(nn.Module):
 
     def _tail(self, cfg: ModelConfig, feature_size: int) -> None:
         self.compute_dtype = DTYPES[cfg.compute_dtype]
-        self.odom_feat = OdomFeatRNN(feature_size, cfg.odom.hidden_size,
-                                     cfg.odom.num_layers)
-        self.heads = PoseHeads(cfg.odom.hidden_size, cfg.dropout)
+        oc = cfg.odom
+        if oc.name == "odom-feat-fc":
+            self.odom_feat = OdomFeatFC(feature_size, oc.hidden_size,
+                                        oc.num_layers)
+        else:
+            self.odom_feat = OdomFeatRNN(feature_size, oc.hidden_size,
+                                         oc.num_layers, oc.rnn_type)
+        self.heads = PoseHeads(oc.hidden_size, cfg.dropout)
 
     def _autocast(self, device: torch.device):
         low = self.compute_dtype != torch.float32
@@ -117,12 +134,11 @@ class _Odometry(nn.Module):
 class DeepIO(_Odometry):
     """IMU-only: imu-feat -> odom-feat -> pose heads."""
 
-    def __init__(self, cfg: ModelConfig, image_channels: int = 0):
+    def __init__(self, cfg: ModelConfig, image_channels: int = 0,
+                 imu_window: int = 16):
         super().__init__()
-        ic = cfg.imu
-        self.imu_feat = ImuFeatRnn(ic.input_size, ic.hidden_size,
-                                   ic.num_layers)
-        self._tail(cfg, ic.hidden_size)
+        self.imu_feat = _imu_net(cfg, imu_window)
+        self._tail(cfg, cfg.imu.feature_size)
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None
@@ -135,7 +151,8 @@ class DeepIO(_Odometry):
 class DeepLO(_Odometry):
     """LiDAR-only: lidar-feat -> odom-feat -> pose heads."""
 
-    def __init__(self, cfg: ModelConfig, image_channels: int):
+    def __init__(self, cfg: ModelConfig, image_channels: int,
+                 imu_window: int = 16):
         super().__init__()
         self.lidar_feat = _lidar_net(cfg, image_channels)
         self.pair_split = cfg.lidar.stem == "pair-split"
@@ -152,16 +169,16 @@ class DeepLO(_Odometry):
 class DeepLIO(_Odometry):
     """lidar-feat (+) imu-feat -> fusion -> odom-feat -> pose heads."""
 
-    def __init__(self, cfg: ModelConfig, image_channels: int):
+    def __init__(self, cfg: ModelConfig, image_channels: int,
+                 imu_window: int = 16):
         super().__init__()
         lc, ic = cfg.lidar, cfg.imu
         self.lidar_feat = _lidar_net(cfg, image_channels)
         self.pair_split = lc.stem == "pair-split"
-        self.imu_feat = ImuFeatRnn(ic.input_size, ic.hidden_size,
-                                   ic.num_layers)
-        self.fusion = FusionLayer(lc.feature_size, ic.hidden_size,
+        self.imu_feat = _imu_net(cfg, imu_window)
+        self.fusion = FusionLayer(lc.feature_size, ic.feature_size,
                                   cfg.fusion.kind)
-        self._tail(cfg, lc.feature_size + ic.hidden_size)
+        self._tail(cfg, lc.feature_size + ic.feature_size)
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None
@@ -178,8 +195,10 @@ ARCHS = {"deepio": DeepIO, "deeplo": DeepLO, "deeplio": DeepLIO}
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded from-scratch init in flax's families: lecun-normal kernels
-    (truncated at two sigma), zero biases, unit BatchNorm, LSTM uniform
-    +-1/sqrt(H), and the ``q_out`` bias at the identity quaternion."""
+    (truncated at two sigma), zero biases, unit BatchNorm, LSTM and GRU
+    uniform +-1/sqrt(H), and the ``q_out`` bias at the identity
+    quaternion. The FC nets' Dense layers are Linears: flax's Dense init
+    too."""
     with torch.no_grad():
         for name, mod in model.named_modules():
             if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
@@ -195,9 +214,9 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                     mod.bias.zero_()
             elif isinstance(mod, nn.BatchNorm2d):
                 mod.reset_parameters()
-            elif isinstance(mod, LstmCellScan):
+            elif isinstance(mod, (LstmCellScan, GruCellScan)):
                 k = 1.0 / math.sqrt(mod.hidden_size)
-                for prm in (mod.w_ih, mod.w_hh, mod.b):
+                for prm in mod.parameters():
                     nn.init.uniform_(prm, -k, k, generator=generator)
             if name.endswith("heads.q_out"):
                 mod.bias.copy_(torch.tensor([1.0, 0.0, 0.0, 0.0]))
@@ -213,7 +232,8 @@ def build_model(cfg: Config, device: DeviceLike = None,
     uninitialised for a caller that loads a checkpoint."""
     dev = resolve_device(device)
     model = ARCHS[cfg.model.arch](cfg.model,
-                                  cfg.datasets.num_image_channels)
+                                  cfg.datasets.num_image_channels,
+                                  cfg.datasets.max_imu_per_pair)
     if seed is not None:
         init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

@@ -1,2 +1,17 @@
-"""Device ops: ring and point-scatter projection (each a CUDA kernel and
-its plain version), yaw augmentation, masked LSTM."""
+"""Device ops: spherical projection through the ring and point-scatter
+selections (each a CUDA kernel and its plain version), surface normals,
+yaw augmentation, masked LSTM/GRU. The projection API is the JAX
+package's ``deeplio_tpu/ops/__init__.py``'s."""
+
+from deeplio_tpu_torch.ops.projection import (
+    assemble_channels,
+    compute_normals,
+    make_projector,
+    normalize_channels,
+    project_scan_np,
+    spherical_uv,
+)
+from deeplio_tpu_torch.ops.projection_scatter import (
+    project_batch,
+    project_scan,
+)

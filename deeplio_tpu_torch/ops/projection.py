@@ -1,7 +1,9 @@
 """Device-side spherical ("range-image") projection of LiDAR scans
-(counterpart of ``deeplio_tpu/ops/projection.py``, restricted to what the
-``pallas-ring``, ``pallas`` and ``sort`` backends run, with the
-slot-aligned routes of ``kernel-aligned: auto | on | trust | halves``).
+(counterpart of ``deeplio_tpu/ops/projection.py``: every backend,
+``pallas-ring``, ``pallas``, ``ring``, ``sort`` and ``sort-sentinel``,
+the slot-aligned routes of ``kernel-aligned: auto | on | trust |
+halves``, the channel stack with its surface normals, and the numpy
+oracle ``project_scan_np``).
 
 Projection convention (SqueezeSeg), as in the JAX package:
 
@@ -14,7 +16,9 @@ Projection convention (SqueezeSeg), as in the JAX package:
 The closest point wins a pixel. All arithmetic is float32 and follows the
 JAX expressions operation by operation, so the port and the reference agree
 bit for bit except where ``atan2``/``asin`` differ by an ulp between
-libraries and move a boundary point by one pixel.
+libraries and move a boundary point by one pixel. Square roots go through
+:func:`sqrt_rn`: PyTorch's CPU float32 ``sqrt`` is not correctly rounded,
+XLA's is.
 
 Layout: images are NHWC (..., H, W, C) at this module's public functions,
 as in the JAX package.
@@ -54,12 +58,20 @@ DEFAULT_RQ_BITS = 14
 CHANNEL_INDEX = {"x": 0, "y": 1, "z": 2, "remission": 3, "depth": 4}
 
 
+def spherical_uv(
+    xyz: torch.Tensor, H: int, W: int, fov_up_deg: float, fov_down_deg: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-point (u, v, range): xyz [..., 3] -> int32 u, v and float32 r."""
+    return spherical_uv_planes(xyz[..., 0], xyz[..., 1], xyz[..., 2],
+                               H, W, fov_up_deg, fov_down_deg)
+
+
 def spherical_uv_planes(
     x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
     H: int, W: int, fov_up_deg: float, fov_down_deg: float
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-point int32 (u, v) and float32 range from x/y/z planes."""
-    r = torch.sqrt(x * x + y * y + z * z)
+    r = sqrt_rn(x * x + y * y + z * z)
     r_safe = torch.clamp_min(r, 1e-9)
     yaw = torch.atan2(y, x)
     pitch = torch.asin(torch.clamp(z / r_safe, -1.0, 1.0))
@@ -140,10 +152,56 @@ def idx_key_layout(n: int, n_pix: int) -> Tuple[int, int, float]:
     return idx_bits, rq_bits, rq_scale_for(rq_bits)
 
 
-def assemble_channels(img5: torch.Tensor,
+def num_channels(channels: Sequence[str]) -> int:
+    """Image channels of a channel list: ``normals`` counts 3."""
+    return sum(3 if c == "normals" else 1 for c in channels)
+
+
+def compute_normals(img_xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Surface normals from the projected vertex map: img_xyz [..., H, W,
+    3], mask [..., H, W] -> [..., H, W, 3].
+
+    ``n(v, u) = normalize((V[v, u+1] - V[v, u]) x (V[v+1, u] - V[v,
+    u]))``, wrapping in azimuth (a full revolution) and repeating the last
+    elevation row, whose ``m_down`` is 0; a pixel whose three-point
+    stencil is not all landed gets a zero normal. The norm is
+    ``sqrt(n0*n0 + n1*n1 + n2*n2)`` clamped at 1e-9, once per pixel; the
+    arithmetic is JAX's ``jnp.cross`` and ``jnp.linalg.norm`` operation
+    by operation."""
+    V = img_xyz
+    m = mask > 0.5
+    V_right = torch.roll(V, -1, dims=-2)
+    m_right = torch.roll(m, -1, dims=-1)
+    V_down = torch.cat([V[..., 1:, :, :], V[..., -1:, :, :]], dim=-3)
+    m_down = torch.cat([m[..., 1:, :], torch.zeros_like(m[..., -1:, :])],
+                       dim=-2)
+    a, b = V_right - V, V_down - V
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    n = torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                     a0 * b1 - a1 * b0], -1)
+    n0, n1, n2 = n.unbind(-1)
+    norm = sqrt_rn(n0 * n0 + n1 * n1 + n2 * n2)[..., None]
+    n = n / torch.clamp_min(norm, 1e-9)
+    ok = (m & m_right & m_down)[..., None]
+    return torch.where(ok, n, 0.0)
+
+
+def assemble_channels(img5: torch.Tensor, mask: torch.Tensor,
                       channels: Sequence[str]) -> torch.Tensor:
-    """Select the configured channel stack from the 5-channel projection."""
-    return torch.stack([img5[..., CHANNEL_INDEX[c]] for c in channels], -1)
+    """The configured channel stack from the 5-channel projection and its
+    mask; ``normals`` adds :func:`compute_normals`' three channels,
+    computed once however often it is listed."""
+    outs, normals = [], None
+    for c in channels:
+        if c == "normals":
+            if normals is None:
+                normals = compute_normals(img5[..., :3], mask)
+            outs.append(normals)
+        else:
+            k = CHANNEL_INDEX[c]
+            outs.append(img5[..., k:k + 1])
+    return torch.cat(outs, -1)
 
 
 def normalize_channels(img: torch.Tensor, mask: torch.Tensor,
@@ -305,13 +363,18 @@ def make_projector(cfg_proj: ProjectionConfig, channels: Sequence[str],
     through the kernel as one batch. ``out_dtype`` casts the image (the
     training step emits its compute dtype); the mask stays float32.
 
-    ``backend: pallas-ring`` selects with ``projection_ring.ring_select``
-    (ring-ordered scans), ``backend: pallas`` and ``sort`` with
-    ``projection_scatter.scatter_select`` (scans in any order); ``sort``
-    carries exact float32 channels unless ``packed`` (JAX's ``carry`` and
-    ``carry-f16``). Each runs its CUDA kernel on the card and its plain
-    PyTorch version on the CPU, the whole batch in one launch (JAX's
-    ``projection-chunk`` only schedules its work).
+    ``backend: pallas-ring`` and ``ring`` select with
+    ``projection_ring.ring_select`` (ring-ordered scans), ``backend:
+    pallas``, ``sort`` and ``sort-sentinel`` with
+    ``projection_scatter.scatter_select`` (scans in any order); ``ring``,
+    ``sort`` and ``sort-sentinel`` carry exact float32 channels unless
+    ``packed`` (JAX's ``carry`` and ``carry-f16``), ``pallas-ring`` and
+    ``pallas`` packed-f16 words always. Each runs its CUDA kernel on the
+    card and its plain PyTorch version on the CPU, the whole batch in one
+    launch (JAX's ``projection-chunk`` only schedules its work).
+    ``channels`` may list ``normals`` (:func:`compute_normals`, three
+    channels); ``mean`` and ``std`` then have an entry for each of the
+    three.
 
     Under ``pallas-ring``, ``kernel-aligned`` picks the route, as JAX's
     ``_aligned_check_mode`` does: ``auto`` takes the checked slot-aligned
@@ -353,22 +416,32 @@ def make_projector(cfg_proj: ProjectionConfig, channels: Sequence[str],
                 projection_ring.project_batch_ring_planes, H=H, W=W,
                 fov_up_deg=fu, fov_down_deg=fd))
 
+    payload = "carry-f16" if cfg_proj.packed else "carry"
+    # sort-sentinel (JAX's project_batch) keeps sort's winners: the same
+    # key, the stable sort's ties; its exact depth is the winner's range
+    sorted_planes = functools.partial(
+        projection_scatter.project_batch_sorted_planes, payload=payload)
     planes_fn = {
         "pallas-ring": ring_planes,
         "pallas": projection_scatter.project_batch_scatter_planes,
-        "sort": functools.partial(
-            projection_scatter.project_batch_sorted_planes,
-            payload="carry-f16" if cfg_proj.packed else "carry"),
+        "ring": functools.partial(projection_ring.project_batch_ring_planes,
+                                  payload=payload),
+        "sort": sorted_planes,
+        "sort-sentinel": sorted_planes,
     }.get(cfg_proj.backend)
     if planes_fn is None:
-        raise ValueError("the port projects with backend=pallas-ring, "
-                         "pallas or sort only")
+        raise ValueError(f"unknown projection backend "
+                         f"{cfg_proj.backend!r}")
     if layout not in ("aos", "planes"):
         raise ValueError(f"layout must be aos|planes, got {layout!r}")
     if bool(mean) != bool(std):
         raise ValueError(
             "normalization requires both mean and std (or neither)")
-    c = len(channels)
+    c = num_channels(channels)
+    for name, vals in (("mean", mean), ("std", std)):
+        if vals and len(vals) != c:
+            raise ValueError(f"normalization {name} has {len(vals)} "
+                             f"entries for {c} channels {tuple(channels)}")
     norm = ((np.asarray(mean, np.float32), np.asarray(std, np.float32))
             if mean else None)
     consts: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -384,7 +457,7 @@ def make_projector(cfg_proj: ProjectionConfig, channels: Sequence[str],
             pts = points.reshape(-1, n, 4)
             planes = [pts[..., k] for k in range(4)]
         img5, mask = planes_fn(*planes, valid.reshape(-1, n), H, W, fu, fd)
-        img = assemble_channels(img5, channels)
+        img = assemble_channels(img5, mask, channels)
         if norm is None:
             img = img * mask[..., None]
         else:
@@ -398,3 +471,54 @@ def make_projector(cfg_proj: ProjectionConfig, channels: Sequence[str],
         return img.reshape(lead + (H, W, c)), mask.reshape(lead + (H, W))
 
     return project
+
+
+def project_scan_np(points: np.ndarray, valid: np.ndarray, H: int, W: int,
+                    fov_up_deg: float, fov_down_deg: float,
+                    quantize: bool = True, key_layout: str = "pixel"
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Sequential-fill numpy oracle with :func:`project_batch`'s semantics
+    (the JAX package's ``project_scan_np``; tests only): points [N, 4],
+    valid [N] -> (img [H, W, 5], mask [H, W]).
+
+    Points in order, the closest range per pixel, ties to the first
+    point. ``quantize`` compares the quantized range of the keys, so the
+    winners are the kernels'; ``key_layout`` picks whose quantization:
+    ``"pixel"`` the scatter routes' ``pix << rq_bits | rq``, ``"index"``
+    the ring routes' ``rq << idx_bits | idx`` (coarser when the index
+    takes bits). ``quantize=False`` compares exact ranges.
+    """
+    x, y, z = points[:, 0], points[:, 1], points[:, 2]
+    r = np.sqrt(x * x + y * y + z * z)
+    yaw = np.arctan2(y, x)
+    pitch = np.arcsin(np.clip(z / np.maximum(r, 1e-9), -1.0, 1.0))
+    fov_down = np.float32(np.deg2rad(fov_down_deg))
+    fov = np.float32(np.deg2rad(fov_up_deg - fov_down_deg))
+    u = np.floor(0.5 * (1.0 - yaw / np.float32(np.pi)) * W).astype(np.int64)
+    v = np.floor((1.0 - (pitch - fov_down) / fov) * H).astype(np.int64)
+    u = np.clip(u, 0, W - 1)
+    v = np.clip(v, 0, H - 1)
+    if quantize:
+        if key_layout == "index":
+            _, rq_bits, rq_scale = idx_key_layout(points.shape[0], H * W)
+        else:
+            rq_bits = rq_bits_for(H * W)
+            rq_scale = rq_scale_for(rq_bits)
+        rq_max = (1 << rq_bits) - 1
+        cmp = np.clip((r * rq_scale).astype(np.int64), 0, rq_max - 1)
+    else:
+        cmp = r
+    img = np.zeros((H, W, 5), np.float32)
+    mask = np.zeros((H, W), np.float32)
+    best = np.full((H, W), np.inf, np.float64)
+    ok = np.asarray(valid, bool) & (r > 1e-6)
+    for i in range(points.shape[0]):
+        if not ok[i]:
+            continue
+        vi, ui = v[i], u[i]
+        if cmp[i] < best[vi, ui]:
+            best[vi, ui] = cmp[i]
+            img[vi, ui, :4] = points[i, :4]
+            img[vi, ui, 4] = r[i]
+            mask[vi, ui] = 1.0
+    return img, mask

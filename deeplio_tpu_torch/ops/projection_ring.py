@@ -15,6 +15,14 @@ The work splits in three, as in the JAX package:
 
 Prologue and epilogue are shared by both selections, so on the card the
 kernel is held bit-exact against its plain version.
+
+Two payloads, as the JAX package's ``project_batch_ring`` has them:
+``carry-f16`` (``packed: true``, the ``pallas-ring`` backend) carries the
+packed-f16 words above and takes depth from the quantized range;
+``carry`` (``backend: ring`` with ``packed: false``) carries nothing in
+the payload words: the key's low ``idx_bits`` already hold the winner's
+index, so the epilogue gathers its exact float32 x, y, z and remission
+and takes depth as ``sqrt(x*x + y*y + z*z)``.
 """
 
 from __future__ import annotations
@@ -31,24 +39,18 @@ from deeplio_tpu_torch.ops.projection import (
     pack_f16x2,
     rq_to_depth,
     spherical_uv_planes,
+    sqrt_rn,
     unpack_f16x2,
 )
 
 SENTINEL = 2**31 - 1     # key of an empty pixel; every real key is smaller
+PAYLOADS = ("carry", "carry-f16")
 
 
-def ring_prologue(x, y, z, rem, valid, H: int, W: int,
-                  fov_up_deg: float, fov_down_deg: float):
-    """Planes [B, N] -> (pix, key, p1, p2), each int32 [B, N] contiguous.
-
-    ``pix`` is the raw pixel: ``v * W + u`` for a valid point, -1 for an
-    invalid one (the selection's running max carries the previous pixel
-    over it). A PURE-TAIL invalid suffix (a real scan padded to capacity:
-    every valid point before every invalid one) is re-keyed to ``n_pix``
-    instead, so it forms its own out-of-range run and never stretches the
-    last real pixel's run. Invalid points carry ``rq_max`` in their key, so
-    they lose to every valid point of their run.
-    """
+def ring_keys(x, y, z, valid, H: int, W: int, fov_up_deg: float,
+              fov_down_deg: float):
+    """Planes [B, N] -> (pix, key), each int32 [B, N] contiguous: the
+    first two words of :func:`ring_prologue`."""
     n = x.shape[1]
     n_pix = H * W
     idx_bits, rq_bits, rq_scale = idx_key_layout(n, n_pix)
@@ -66,8 +68,24 @@ def ring_prologue(x, y, z, rem, valid, H: int, W: int,
     rqv = torch.where(ok, rq.clamp_min(0), rq_max)
     idx = torch.arange(n, dtype=torch.int32, device=x.device)
     key = (rqv << idx_bits) | idx
-    return (pix.to(torch.int32).contiguous(), key.contiguous(),
-            pack_f16x2(x, y).contiguous(), pack_f16x2(z, rem).contiguous())
+    return pix.to(torch.int32).contiguous(), key.contiguous()
+
+
+def ring_prologue(x, y, z, rem, valid, H: int, W: int,
+                  fov_up_deg: float, fov_down_deg: float):
+    """Planes [B, N] -> (pix, key, p1, p2), each int32 [B, N] contiguous.
+
+    ``pix`` is the raw pixel: ``v * W + u`` for a valid point, -1 for an
+    invalid one (the selection's running max carries the previous pixel
+    over it). A PURE-TAIL invalid suffix (a real scan padded to capacity:
+    every valid point before every invalid one) is re-keyed to ``n_pix``
+    instead, so it forms its own out-of-range run and never stretches the
+    last real pixel's run. Invalid points carry ``rq_max`` in their key, so
+    they lose to every valid point of their run.
+    """
+    pix, key = ring_keys(x, y, z, valid, H, W, fov_up_deg, fov_down_deg)
+    return (pix, key, pack_f16x2(x, y).contiguous(),
+            pack_f16x2(z, rem).contiguous())
 
 
 def ring_epilogue(okey, op1, op2, n: int, H: int, W: int):
@@ -180,20 +198,54 @@ _OP = ring_select
 _OP.launches = 0
 
 
+def ring_gather_epilogue(okey, x, y, z, rem, H: int, W: int):
+    """The ``carry`` epilogue: selected keys [B, H*W] and the scan's
+    planes [B, N] -> (img [B, H, W, 5] f32, mask [B, H, W]).
+
+    The winner's index is the key's low ``idx_bits``; its exact x, y, z
+    and remission are gathered and depth is ``sqrt(x*x + y*y + z*z)``. An
+    empty pixel's SENTINEL decodes to an index too (all ones), so it is
+    set to 0 first. A landed pixel whose winner is invalid keeps that
+    point's values times the 0 mask, as JAX's ``img * mask`` does (signed
+    zeros; NaN where the point holds NaN)."""
+    b, n = x.shape
+    idx_bits, rq_bits, _ = idx_key_layout(n, H * W)
+    rq_max = (1 << rq_bits) - 1
+    landed = okey != SENTINEL
+    maskf = (landed & ((okey >> idx_bits) < rq_max)).to(torch.float32)
+    win = torch.where(landed, okey & ((1 << idx_bits) - 1), 0).long()
+    x, y, z, rem = (torch.gather(p, 1, win) for p in (x, y, z, rem))
+    img = torch.stack([x, y, z, rem, sqrt_rn(x * x + y * y + z * z)], -1)
+    img = torch.where(landed[..., None], img, 0.0) * maskf[..., None]
+    return img.reshape(b, H, W, 5), maskf.reshape(b, H, W)
+
+
 def project_batch_ring_planes(
     x: torch.Tensor, y: torch.Tensor, z: torch.Tensor, rem: torch.Tensor,
     valid: torch.Tensor, H: int, W: int,
     fov_up_deg: float, fov_down_deg: float,
-    select: Optional[Callable] = None,
+    select: Optional[Callable] = None, payload: str = "carry-f16",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Planes x/y/z/rem [B, N] float32, valid [B, N] bool ->
     (img [B, H, W, 5] float32, mask [B, H, W] float32).
 
-    Same contract as the JAX package's ``project_batch_ring_pallas``.
-    ``select`` defaults to :func:`ring_select`.
+    ``payload="carry-f16"``: the contract of the JAX package's
+    ``project_batch_ring_pallas``, and of ``project_batch_ring(payload=
+    "carry-f16")``. ``payload="carry"``: ``project_batch_ring(payload=
+    "carry")``'s, exact float32 channels through
+    :func:`ring_gather_epilogue`, the payload words zero. ``select``
+    defaults to :func:`ring_select`: one launch for the whole batch.
     """
     n = x.shape[1]
     n_pix = H * W
+    if payload == "carry":
+        pix, key = ring_keys(x, y, z, valid, H, W, fov_up_deg, fov_down_deg)
+        zero = torch.zeros_like(key)
+        okey, _, _ = (select or ring_select)(pix, key, zero, zero, n_pix)
+        return ring_gather_epilogue(okey, x, y, z, rem, H, W)
+    if payload != "carry-f16":
+        raise ValueError(f"payload must be {'|'.join(PAYLOADS)}, got "
+                         f"{payload!r}")
     pix, key, p1, p2 = ring_prologue(x, y, z, rem, valid, H, W,
                                      fov_up_deg, fov_down_deg)
     okey, op1, op2 = (select or ring_select)(pix, key, p1, p2, n_pix)

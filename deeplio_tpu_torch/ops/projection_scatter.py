@@ -26,7 +26,11 @@ The ``sort`` backend (``project_batch_sorted_planes``, the JAX package's
 ``project_batch_sorted``) selects the same winners, so it runs through
 the same kernel: with packed-f16 payloads it is the route above; with
 exact float32 payloads the kernel carries each point's index and the
-epilogue gathers the winner's channels.
+epilogue gathers the winner's channels. So does ``sort-sentinel`` (the
+JAX package's ``project_batch``, :func:`project_batch`): its sentinel
+rows and stable sort keep the same winners, and its exact depth, each
+point's correctly rounded range, is the winner's
+``sqrt(x*x + y*y + z*z)``.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from deeplio_tpu_torch.ops.projection import (
     rq_scale_for,
     rq_to_depth,
     spherical_uv_planes,
+    sqrt_rn,
     unpack_f16x2,
 )
 
@@ -295,13 +300,40 @@ def project_batch_sorted_planes(
     landed = kmin != SENTINEL
     win = win.long()             # an empty pixel's word is 0: a real index
     x, y, z, rem = (torch.gather(p, 1, win) for p in (x, y, z, rem))
-    depth = torch.sqrt(x * x + y * y + z * z)
+    depth = sqrt_rn(x * x + y * y + z * z)
     # where, not a product: an empty pixel reads point 0, which may hold
     # anything
     img = torch.where(landed[..., None],
                       torch.stack([x, y, z, rem, depth], -1), 0.0)
     return (img.reshape(b, H, W, 5),
             landed.to(torch.float32).reshape(b, H, W))
+
+
+def project_batch(points: torch.Tensor, valid: torch.Tensor, H: int, W: int,
+                  fov_up_deg: float, fov_down_deg: float,
+                  packed: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's ``project_batch`` (``backend: sort-sentinel``):
+    points [B, N, 4] (x, y, z, remission) float32, valid [B, N] bool ->
+    (img [B, H, W, 5] float32, mask [B, H, W] float32), scans in any
+    order, one scatter selection for the batch. ``packed`` carries
+    packed-f16 words and decodes depth from the quantized range
+    (:func:`project_batch_scatter_planes`); otherwise exact float32
+    channels through index payloads (``project_batch_sorted_planes``'s
+    ``carry``)."""
+    planes = [points[..., k] for k in range(4)]
+    return project_batch_sorted_planes(
+        *planes, valid, H, W, fov_up_deg, fov_down_deg,
+        payload="carry-f16" if packed else "carry")
+
+
+def project_scan(points: torch.Tensor, valid: torch.Tensor, H: int, W: int,
+                 fov_up_deg: float, fov_down_deg: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One scan through :func:`project_batch` (exact channels): points [N,
+    4], valid [N] -> (img [H, W, 5], mask [H, W])."""
+    img, mask = project_batch(points[None], valid[None], H, W, fov_up_deg,
+                              fov_down_deg)
+    return img[0], mask[0]
 
 
 @functools.lru_cache(maxsize=None)

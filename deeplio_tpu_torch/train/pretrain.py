@@ -21,17 +21,19 @@ Each step projects its B scans twice:
   pallas-ring``), for the model input: the image pair-stacked with
   itself, ``concat([img, img])``, the width of the odometry encoder's
   input, so its kernels graft unchanged;
-- through the scatter kernel (``project_batch(packed=True)``'s function),
-  once: its mask and z give the pseudo-labels, or, with label files, each
-  point's label rides the remission payload word. The winner of a pixel
-  depends only on xyz and validity, so the pixel's label is that of the
-  point whose channels fill it. The JAX package runs a second, exact
-  ``project_batch(packed=False)`` for the labels; a payload half is
-  float16, which holds an integer exactly only up to 2048, so the port
-  applies JAX's post-projection rules to each point before projecting
-  (with a label map ``clip(label, 0, num_classes - 1)``, without one ids
-  outside ``[0, num_classes)`` become 0): per value, so the label image
-  is the same bit for bit.
+- through the scatter kernel, once (``ops/projection_scatter.py::
+  project_batch``, JAX's): for geometric labels ``project_batch(packed=
+  packed)`` as in JAX, whose mask and z give the pseudo-labels, the exact
+  float32 z through index payloads without ``packed``; with label files
+  the packed route, each point's label riding the remission payload word.
+  The winner of a pixel depends only on xyz and validity, so the pixel's
+  label is that of the point whose channels fill it. The JAX package runs
+  a second, exact ``project_batch(packed=False)`` for the labels; a
+  payload half is float16, which holds an integer exactly only up to
+  2048, so the port applies JAX's post-projection rules to each point
+  before projecting (with a label map ``clip(label, 0, num_classes -
+  1)``, without one ids outside ``[0, num_classes)`` become 0): per
+  value, so the label image is the same bit for bit.
 
 Then the forward pass in training mode (flax BatchNorm semantics), the
 loss, backward and ``torch.optim.Adam(lr)`` with optax's epsilon, no clip
@@ -58,6 +60,7 @@ from deeplio_tpu_torch.models.zoo import init_parameters
 from deeplio_tpu_torch.ops.projection import make_projector
 from deeplio_tpu_torch.ops.projection_scatter import (
     project_batch_scatter_planes,
+    project_batch_sorted_planes,
 )
 from deeplio_tpu_torch.train.checkpoint import save_params
 from deeplio_tpu_torch.train.step import batch_to_device
@@ -71,11 +74,6 @@ ADAM_EPS = 1e-8       # optax.adam's
 # most classes the label image can carry
 MAX_CLASSES = 2048
 LOG_EVERY = 20
-_PACKED_LATER = ("pretraining with packed: false and no labels-path (the "
-                 "geometric labels would read exact float32 z, which the "
-                 "port's float16 payloads do not carry) is not supported by "
-                 "the PyTorch port yet; the model-variants slice "
-                 "(ROADMAP.md Queue 1 item 5) adds it")
 
 PLANES = ("points_x", "points_y", "points_z", "points_rem")
 
@@ -164,19 +162,21 @@ def sample_batch(drives: Sequence, rng: np.random.Generator,
 def label_image(planes: Sequence[torch.Tensor], valid: torch.Tensor,
                 labels: Optional[torch.Tensor], H: int, W: int,
                 fov_up_deg: float, fov_down_deg: float,
-                select: Optional[Callable] = None) -> torch.Tensor:
+                select: Optional[Callable] = None,
+                packed: bool = True) -> torch.Tensor:
     """One scatter projection -> the per-pixel labels [B, H, W] int64.
 
     With per-point ``labels`` (premapped, so exact in float16) they ride
     the remission word and the pixel's label is its winner's; without,
-    the geometric labels of the projection. ``select`` defaults to the
-    scatter operator (the kernel on the card, the plain version on the
-    CPU)."""
+    the geometric labels of ``project_batch(packed=packed)``: packed-f16
+    z, or without ``packed`` the winner's exact float32 z (index
+    payloads, then a gather). ``select`` defaults to the scatter operator
+    (the kernel on the card, the plain version on the CPU)."""
     x, y, z, rem = planes
     if labels is None:
-        img5, mask5 = project_batch_scatter_planes(
+        img5, mask5 = project_batch_sorted_planes(
             x, y, z, rem, valid, H, W, fov_up_deg, fov_down_deg,
-            select=select)
+            payload="carry-f16" if packed else "carry", select=select)
         return geometric_labels(img5, mask5)
     img5, _ = project_batch_scatter_planes(
         x, y, z, labels.to(torch.float32), valid, H, W, fov_up_deg,
@@ -227,7 +227,8 @@ def build_inputs(cfg: Config) -> Callable:
         x = torch.cat([img, img], -1).permute(0, 3, 1, 2)
         return x, label_image(planes, batch["points_valid"],
                               batch.get("labels"), proj.height, proj.width,
-                              proj.fov_up_deg, proj.fov_down_deg)
+                              proj.fov_up_deg, proj.fov_down_deg,
+                              packed=proj.packed)
 
     return inputs
 
@@ -263,11 +264,9 @@ def build_pretrain_step(cfg: Config, model: nn.Module,
 
 
 def _checks(cfg: Config) -> int:
-    """The run's class count; ``ConfigError`` for what the port cannot
-    pretrain."""
+    """The run's class count; ``ConfigError`` for a class count a float16
+    payload cannot carry."""
     ds = cfg.datasets
-    if not ds.labels_path and not ds.projection.packed:
-        raise ConfigError(_PACKED_LATER)
     if not ds.labels_path:
         return NUM_CLASSES
     if not 1 <= ds.labels_num_classes <= MAX_CLASSES:

@@ -1,5 +1,6 @@
 """The port's config reads the JAX package's YAML keys, and refuses the
-settings this slice cannot compute, naming the slice that adds them."""
+settings it cannot compute yet, naming the slice that adds them; the
+settings it has since learned parse as the JAX package parses them."""
 
 import copy
 import dataclasses
@@ -55,26 +56,65 @@ def _set(d, path, value):
     node[path[-1]] = value
 
 
-@pytest.mark.parametrize("path,value", [
-    (("lidar-feat-pointseg", "stem"), "s2d"),
-    (("lidar-feat-pointseg", "stem"), "s2d-pre"),
-    (("lidar-feat-pointseg", "fire"), "fused"),
-    (("lidar-feat-pointseg", "part"), "encoder+decoder"),
-    (("imu-feat-rnn", "type"), "gru"),
-    (("odom-feat-rnn", "type"), "gru"),
-    (("imu-feat-rnn", "bidirectional"), True),
-    (("datasets", "channels"), ["x", "y", "z", "depth", "normals"]),
-    (("lidar-feat-pointseg", "fire"), "mixed"),
-    (("datasets", "backend"), "ring"),
-    (("datasets", "backend"), "sort-sentinel"),
-    (("deeplio", "imu-feat-net"), {"name": "imu-feat-fc"}),
-    (("deeplio", "odom-feat-net"), {"name": "odom-feat-fc"}),
+def _ported_parse_matches_jax(d, path, value):
+    """A setting the port computes: it parses, and to the JAX package's
+    values for the block it sets."""
+    port, ref = load_config_dict(d), jax_load_dict(d)
+    if path[0] == "datasets":
+        assert port.datasets.projection.backend == \
+            ref.datasets.projection.backend
+        for f in ("channels", "mean", "std", "num_image_channels"):
+            assert getattr(port.datasets, f) == getattr(ref.datasets, f), f
+    elif path[0] == "lidar-feat-pointseg":
+        for f in ("part", "bypass", "stem", "pool"):
+            assert getattr(port.model.lidar, f) == \
+                getattr(ref.model.lidar, f), f
+    else:
+        for block in ("imu", "odom"):
+            p, r = getattr(port.model, block), getattr(ref.model, block)
+            for f in ("name", "rnn_type", "hidden_size", "num_layers"):
+                assert getattr(p, f) == getattr(r, f), (block, f)
+        assert port.model.imu.bidirectional == ref.model.imu.bidirectional
+    return port
+
+
+# each case: the setting, and whether the port computes it (ported, held
+# against JAX's parse) or still refuses it naming the slice that adds it
+@pytest.mark.parametrize("path,value,ported", [
+    (("lidar-feat-pointseg", "stem"), "s2d", False),
+    (("lidar-feat-pointseg", "stem"), "s2d-pre", False),
+    (("lidar-feat-pointseg", "fire"), "fused", False),
+    (("lidar-feat-pointseg", "part"), "encoder+decoder", True),
+    (("imu-feat-rnn", "type"), "gru", True),
+    (("odom-feat-rnn", "type"), "gru", True),
+    (("imu-feat-rnn", "bidirectional"), True, True),
+    (("datasets", "channels"), ["x", "y", "z", "depth", "normals"], True),
+    (("lidar-feat-pointseg", "fire"), "mixed", False),
+    (("datasets", "backend"), "ring", True),
+    (("datasets", "backend"), "sort-sentinel", True),
+    (("deeplio", "imu-feat-net"), {"name": "imu-feat-fc"}, True),
+    (("deeplio", "odom-feat-net"), {"name": "odom-feat-fc"}, True),
 ])
-def test_unsupported_setting_raises(kitti, path, value):
+def test_unsupported_setting_raises(kitti, path, value, ported):
     d = copy.deepcopy(kitti)
     _set(d, path, value)
-    with pytest.raises(ValueError, match="slice"):
-        load_config_dict(d)
+    if not ported:
+        with pytest.raises(ValueError, match="slice"):
+            load_config_dict(d)
+        return
+    if path[-1] == "channels":     # normals are three channels: 7 in all
+        d["datasets"]["mean"] = [0.0, 0.0, -1.0, 12.0, 0.0, 0.0, 0.0]
+        d["datasets"]["std"] = [12.0, 12.0, 1.5, 12.0, 1.0, 1.0, 1.0]
+    port = _ported_parse_matches_jax(d, path, value)
+    got = {"channels": port.datasets.channels,
+           "backend": port.datasets.projection.backend,
+           "part": getattr(port.model.lidar, "part", None),
+           "bidirectional": port.model.imu.bidirectional,
+           "imu-feat-net": {"name": port.model.imu.name},
+           "odom-feat-net": {"name": port.model.odom.name}}.get(path[-1])
+    if path[-1] == "type":
+        got = getattr(port.model, path[0].split("-")[0]).rnn_type
+    assert got == (tuple(value) if isinstance(value, list) else value)
 
 
 @pytest.mark.parametrize("path,value", [
@@ -131,22 +171,34 @@ def test_training_blocks_match_jax_parse(kitti):
         assert getattr(port.train, f) == getattr(ref.train, f), f
 
 
-@pytest.mark.parametrize("path,value", [
-    (("optimizer", "name"), "sgd"),
-    (("optimizer", "weight-decay"), 0.1),
-    (("lidar-feat-pointseg", "stem"), "factorized"),
-    (("param-dtype",), "bfloat16"),
-    (("train", "data-parallel"), 2),
-    (("datasets", "backend"), "sort-sentinel"),
-    (("lidar-feat-pointseg", "fire"), "mixed"),
-    (("train", "data-parallel"), 4),
-    (("datasets", "backend"), "ring"),
+@pytest.mark.parametrize("path,value,ported", [
+    (("optimizer", "name"), "sgd", False),
+    (("optimizer", "weight-decay"), 0.1, False),
+    (("lidar-feat-pointseg", "stem"), "factorized", False),
+    (("param-dtype",), "bfloat16", False),
+    (("train", "data-parallel"), 2, False),
+    (("datasets", "backend"), "sort-sentinel", True),
+    (("lidar-feat-pointseg", "fire"), "mixed", False),
+    (("train", "data-parallel"), 4, False),
+    (("datasets", "backend"), "ring", True),
 ])
-def test_untrained_settings_raise_naming_their_queue(kitti, path, value):
+def test_untrained_settings_raise_naming_their_queue(kitti, path, value,
+                                                    ported):
+    """A setting the port cannot train yet names its ROADMAP queue item;
+    the backends this test refused before they were ported parse as JAX
+    parses them, with and without ``packed``."""
     d = copy.deepcopy(kitti)
     _set(d, path, value)
-    with pytest.raises(ConfigError, match=r"PyTorch port yet; .*Queue 1"):
-        load_config_dict(d)
+    if not ported:
+        with pytest.raises(ConfigError,
+                           match=r"PyTorch port yet; .*Queue 1"):
+            load_config_dict(d)
+        return
+    for packed in (True, False):
+        d["datasets"]["packed"] = packed
+        port = _ported_parse_matches_jax(d, path, value)
+        assert (port.datasets.projection.backend,
+                port.datasets.projection.packed) == (value, packed)
 
 
 @pytest.mark.parametrize("path,value", [

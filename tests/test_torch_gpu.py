@@ -943,3 +943,184 @@ def test_auto_artifact_on_the_card_serves_both_branches(cuda, tmp_path):
                                         *(chunk[k] for k in so.keys))
         for a, b in zip(got, (poses, dx, dq)):
             assert torch.equal(a, b)
+
+
+# ------------------------------------- every backend and channel, the zoo
+
+def _bits_equal(a, b):
+    return all(torch.equal(x.contiguous().view(torch.int32),
+                           y.contiguous().view(torch.int32))
+               for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("payload", ["carry", "carry-f16"])
+@pytest.mark.parametrize("b,n,keep", [(3, 4097, 0.9), (1, 131072, 0.02)])
+def test_ring_routes_match_plain(cuda, payload, b, n, keep):
+    """``backend: ring`` with exact payloads (the winner's index in the
+    key, the payload words zero) and packed: one ring launch, the
+    selected words bit-equal to the plain version's on the same words,
+    image and mask bit-equal to the plain route's. At N = 131072 an empty
+    pixel's SENTINEL decodes to index 131071, a real point: the sparse
+    scan leaves most pixels empty."""
+    rng = np.random.default_rng(n + b)
+    per = -(-n // H)
+    pts = synthetic_ring_batch(rng, b, per * H, rings=H)[:, :n].copy()
+    valid = rng.uniform(size=(b, n)) < keep
+    valid[0, n - 1] = True
+    pts[~valid] = np.nan
+    p = torch.from_numpy(pts).to(cuda)
+    planes = [p[..., c].contiguous() for c in range(4)]
+    v = torch.from_numpy(valid).to(cuda)
+    spy = _First(tring._OP)
+    before = tring._OP.launches
+    got = tring.project_batch_ring_planes(*planes, v, H, W, FU, FD,
+                                          select=spy, payload=payload)
+    torch.cuda.synchronize()
+    assert tring._OP.launches - before == 1
+    args, out = spy.first
+    assert (not args[2].any()) == (payload == "carry")
+    for a, r in zip(out, tring.ring_select_reference(*args)):
+        assert torch.equal(a, r)
+    want = tring.project_batch_ring_planes(
+        *planes, v, H, W, FU, FD, select=tring.ring_select_reference,
+        payload=payload)
+    assert _bits_equal(got, want) and got[1].any()
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_sort_sentinel_projector_matches_plain(cuda, packed):
+    """``backend: sort-sentinel`` through ``make_projector`` with the
+    normals channel: one scatter launch (index payloads unless
+    ``packed``), the image and mask bit-equal to the same projector with
+    the plain selection on the same card tensors, and to
+    ``ops.project_batch``'s channels."""
+    from deeplio_tpu_torch.config.schema import ProjectionConfig
+    from deeplio_tpu_torch.ops import project_batch
+    from deeplio_tpu_torch.ops import projection as tproj
+    rng = np.random.default_rng(11)
+    n = 8192
+    pts = rng.uniform(-40, 40, (3, n, 4)).astype(np.float32)
+    valid = torch.from_numpy(rng.uniform(size=(3, n)) > 0.1).to(cuda)
+    p = torch.from_numpy(pts).to(cuda)
+    cfg = ProjectionConfig(height=H, width=W, max_points=n, packed=packed,
+                           backend="sort-sentinel")
+    chans = ("x", "y", "z", "remission", "depth", "normals")
+    fn = tproj.make_projector(cfg, chans)
+    before = tsc._OP.launches
+    got = fn(p, valid)
+    torch.cuda.synchronize()
+    assert tsc._OP.launches - before == 1
+    real = tsc.scatter_select
+    try:
+        tsc.scatter_select = tsc.scatter_select_reference
+        want = fn(p, valid)
+        img5, mask = project_batch(p, valid, H, W, FU, FD, packed=packed)
+    finally:
+        tsc.scatter_select = real
+    assert _bits_equal(got, want) and got[1].any()
+    assert _bits_equal((got[0][..., :5], got[1]), (img5, mask))
+
+
+def _slice9_dict(fc=False):
+    """``configs/deeplio_kitti_tpu.yaml`` at 16x128 with the slice's nets
+    and channels (ring exact, normals, bidirectional GRU, GRU, the
+    decoder-bearing tower); ``fc``: the FC nets and ``bypass`` on
+    ``sort-sentinel``."""
+    with open(KITTI_TPU) as f:
+        d = yaml.safe_load(f)
+    ds = d["datasets"]
+    ds.update({"image-height": 16, "image-width": 128, "max-points": 2048,
+               "sequence-size": 3, "window-stride": 2, "packed": False,
+               "backend": "sort-sentinel" if fc else "ring",
+               "channels": ds["channels"] + ["normals"],
+               "mean": ds["mean"] + [0.0] * 3, "std": ds["std"] + [1.0] * 3})
+    d["compute-dtype"] = "float32"
+    d["deeplio"]["dropout"] = 0.0
+    if fc:
+        d["deeplio"]["imu-feat-net"] = {"name": "imu-feat-fc"}
+        d["deeplio"]["odom-feat-net"] = {"name": "odom-feat-fc"}
+        d["lidar-feat-pointseg"]["bypass"] = True
+        del d["lidar-feat-pointseg"]["part"]
+    else:
+        d["imu-feat-rnn"].update({"type": "gru", "bidirectional": True})
+        d["odom-feat-rnn"]["type"] = "gru"
+        d["lidar-feat-pointseg"]["part"] = "encoder+decoder"
+    return d
+
+
+@pytest.mark.parametrize("fc", [False, True], ids=["slice", "fc"])
+def test_slice9_step_on_the_card(cuda, fc):
+    """One float32 training step of the slice's configuration (one ring
+    launch) and of the FC one (one scatter launch) at 16x128: a finite
+    loss within 1e-3 of the CPU's, TF32 off."""
+    from deeplio_tpu_torch.config import load_config_dict
+    from deeplio_tpu_torch.data.dataset import WindowDataset
+    from deeplio_tpu_torch.data.drives import SyntheticDrive
+    from deeplio_tpu_torch.models.zoo import build_model
+    from deeplio_tpu_torch.train.state import create_train_state
+    from deeplio_tpu_torch.train.step import batch_to_device, build_train_step
+    cfg = load_config_dict(_slice9_dict(fc))
+    host = next(iter(WindowDataset(
+        cfg.datasets, [SyntheticDrive(n_frames=5, max_points=2048)]
+    ).iter_batches(2, shuffle=False)))
+    train_step, _ = build_train_step(cfg)
+    op = tsc._OP if fc else tring._OP
+    loss = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", "cuda"):
+            state = create_train_state(cfg, build_model(cfg, dev, seed=0),
+                                       10)
+            before = op.launches
+            state, m = train_step(state, batch_to_device(host, dev))
+            loss[dev] = float(m["loss"])
+            if dev == "cuda":
+                assert op.launches - before == 1
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert np.isfinite(loss["cuda"])
+    assert abs(loss["cuda"] - loss["cpu"]) <= 1e-3 * abs(loss["cpu"])
+
+
+def test_exact_z_pretrain_step_launches_each_kernel_once(cuda, monkeypatch):
+    """``packed: false`` without labels: one ring launch (the model input,
+    ring exact) and one scatter launch with index payloads (the exact-z
+    label image) a step, each bit-equal to its plain version; the label
+    image bit-equal to the plain route's."""
+    from deeplio_tpu_torch.config import load_config_dict
+    from deeplio_tpu_torch.train import pretrain as tpre
+    cfg = load_config_dict(_slice9_dict())
+    rng = np.random.default_rng(9)
+    pts = synthetic_ring_batch(rng, 2, 2048, rings=16)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(pts[..., c])).to(cuda)
+             for c, k in enumerate(tpre.PLANES)}
+    batch["points_valid"] = torch.ones(2, 2048, dtype=torch.bool,
+                                       device=cuda)
+    k = tpre.NUM_CLASSES
+    model = tpre.build_pointseg(cfg, k).to(cuda)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3, eps=tpre.ADAM_EPS)
+    step = tpre.build_pretrain_step(cfg, model, opt, k)
+    ring, scatter = _First(tring.ring_select), _First(tsc.scatter_select)
+    monkeypatch.setattr(tring, "ring_select", ring)
+    monkeypatch.setattr(tsc, "scatter_select", scatter)
+    torch.cuda.synchronize()
+    r0, s0 = tring._OP.launches, tsc._OP.launches
+    loss, _ = step(batch)
+    torch.cuda.synchronize()
+    assert (tring._OP.launches - r0, tsc._OP.launches - s0) == (1, 1)
+    assert np.isfinite(float(loss))
+    idx = scatter.first[0][1]
+    assert torch.equal(idx[0], torch.arange(2048, dtype=torch.int32,
+                                            device=cuda))
+    for spy, plain in ((ring, tring.ring_select_reference),
+                       (scatter, tsc.scatter_select_reference)):
+        args, got = spy.first
+        for a, b in zip(got, plain(*args)):
+            assert torch.equal(a, b)
+    args = ([batch[k] for k in tpre.PLANES], batch["points_valid"], None,
+            16, 128, 3.0, -25.0)
+    kernel = tpre.label_image(*args, select=tsc._OP, packed=False)
+    plain = tpre.label_image(*args, select=tsc.scatter_select_reference,
+                             packed=False)
+    assert torch.equal(kernel, plain) and kernel.any()

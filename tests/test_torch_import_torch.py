@@ -12,8 +12,10 @@ shaped like the port's models, with seeded random values:
   walked from the port model's own tree, equal JAX's, walked from JAX's
   (``jax.eval_shape`` of the flax init), bit for bit;
 * the strict errors (a leftover torch key, a missing tensor, a shape
-  mismatch) on both sides, and the port's refusal of a GRU or a
-  bidirectional RNN, in a converter call and in a state dict;
+  mismatch) on both sides;
+* ``nn.GRU`` and bidirectional ``nn.LSTM`` tensors, in a converter call
+  and in a DeepIO state dict whose IMU net is a GRU or a bidirectional
+  LSTM: the port's trees equal JAX's bit for bit;
 * checkpoint files wrapped as the reference wraps them;
 * a narrow DeepLIO imported through both packages, the two forwards on
   one batch within 1e-4 of the output's largest magnitude (float32,
@@ -36,13 +38,15 @@ from deeplio_tpu.models import build_model as jax_build_model
 from deeplio_tpu.models import example_batch
 from deeplio_tpu.models import import_torch as jit
 from deeplio_tpu.models import pointseg as jps
-from deeplio_tpu_torch.config import ConfigError
 from deeplio_tpu_torch.config import load_config_dict as port_config
 from deeplio_tpu_torch.models import import_torch as tit
-from deeplio_tpu_torch.models.from_flax import to_flax_variables
+from deeplio_tpu_torch.models.from_flax import (
+    load_flax_variables,
+    to_flax_variables,
+)
 from deeplio_tpu_torch.models.pointseg import PointSegNet
 from deeplio_tpu_torch.models.zoo import build_model
-from deeplio_tpu_torch.ops.rnn import MaskedRNN
+from deeplio_tpu_torch.ops.rnn import GruCellScan, MaskedRNN
 
 KITTI_TPU = pathlib.Path(__file__).resolve().parents[1] / "configs" / \
     "deeplio_kitti_tpu.yaml"
@@ -74,8 +78,9 @@ def _randomize(module: nn.Module, g: torch.Generator) -> nn.Module:
 def reference_state_dict(model: nn.Module, seed: int = 0):
     """A reference-layout state dict for ``model``: each of its convs,
     transposed convs, Linears and BatchNorms as the stock module of that
-    shape, each masked RNN as an ``nn.LSTM``, under the port's names, with
-    random values from ``seed``."""
+    shape, each masked RNN as an ``nn.LSTM`` or ``nn.GRU`` with its
+    directions, under the port's names, with random values from
+    ``seed``."""
     g = torch.Generator().manual_seed(seed)
     sd = {}
     for name, mod in model.named_modules():
@@ -92,8 +97,10 @@ def reference_state_dict(model: nn.Module, seed: int = 0):
             ref = nn.BatchNorm2d(mod.num_features)
         elif isinstance(mod, MaskedRNN):
             cell = mod.l0_fwd
-            ref = nn.LSTM(cell.w_ih.shape[0], cell.hidden_size,
-                          mod.num_layers, batch_first=True)
+            kind = nn.GRU if isinstance(cell, GruCellScan) else nn.LSTM
+            ref = kind(cell.w_ih.shape[0], cell.hidden_size,
+                       mod.num_layers, batch_first=True,
+                       bidirectional=mod.bidirectional)
         else:
             continue
         for k, t in _randomize(ref, g).state_dict().items():
@@ -161,9 +168,23 @@ def test_converters_bit_equal_to_jax():
 
 @pytest.mark.parametrize("cell,bidi", [("gru", False), ("lstm", True)])
 def test_gru_and_bidirectional_raise_naming_item_5(cell, bidi):
-    rnn = (nn.GRU if cell == "gru" else nn.LSTM)(6, 8, bidirectional=bidi)
-    with pytest.raises(ConfigError, match="Queue 1 item 5"):
-        tit.convert_rnn(rnn.state_dict(), "", 1, cell, bidi)
+    """Once refused, now converted: a GRU's tensors (its two biases kept
+    apart) and a bidirectional RNN's (``*_reverse`` -> ``l{k}_bwd``), bit
+    for bit as JAX's converter; and the converted weights compute what
+    the torch module computes."""
+    g = torch.Generator().manual_seed(3)
+    rnn = _randomize((nn.GRU if cell == "gru" else nn.LSTM)(
+        6, 8, num_layers=2, bidirectional=bidi, batch_first=True), g)
+    got = tit.convert_rnn(rnn.state_dict(), "", 2, cell, bidi)
+    _assert_trees_equal(got, jit.convert_rnn(rnn.state_dict(), "", 2, cell,
+                                             bidi))
+    port = MaskedRNN(6, 8, 2, cell, bidi)
+    load_flax_variables(port, {"params": got})
+    x = torch.randn(3, 5, 6, generator=g)
+    with torch.no_grad():
+        want, _ = rnn(x)
+        have, _ = port(x)
+    assert float((have - want).abs().max()) <= 1e-5
 
 
 # ------------------------------------------------- trees against JAX's
@@ -244,21 +265,35 @@ def test_strict_errors_as_jax(deeplio, what):
 
 
 @pytest.mark.parametrize("cell,bidi", [("gru", False), ("lstm", True)])
-def test_gru_and_bidirectional_state_dicts_raise_naming_item_5(deeplio, cell,
-                                                               bidi):
-    """A reference whose IMU RNN is a GRU or a bidirectional LSTM, where
-    the port's model has a masked LSTM: refused, naming the slice."""
-    port, sd, _, _ = deeplio
-    prefix = "imu_feat.MaskedRNN_0."
-    rnn = port.get_submodule(prefix[:-1])
-    ref = (nn.GRU if cell == "gru" else nn.LSTM)(
-        rnn.l0_fwd.w_ih.shape[0], rnn.l0_fwd.hidden_size, rnn.num_layers,
-        bidirectional=bidi)
-    bad = {k: v for k, v in sd.items() if not k.startswith(prefix)}
-    bad.update({prefix + k: v for k, v in ref.state_dict().items()})
-    tmpl = to_flax_variables(port)
-    with pytest.raises(ConfigError, match="Queue 1 item 5"):
-        tit.import_state_dict(bad, tmpl["params"], tmpl["batch_stats"])
+def test_gru_and_bidirectional_state_dicts_raise_naming_item_5(cell, bidi):
+    """Once refused, now imported: a reference whose IMU RNN is a GRU or
+    a bidirectional LSTM (and, with the GRU, its odometry RNN a GRU too),
+    into a DeepIO built with those nets: the port's trees, walked from
+    its own model's tree, equal JAX's, walked from JAX's, bit for bit;
+    the imported model holds the state dict's tensors."""
+    d = _kitti_dict()
+    d["arch"] = "deepio"
+    d["deepio"] = {"imu-feat-net": {"name": "imu-feat-rnn"},
+                   "odom-feat-net": {"name": "odom-feat-rnn"}}
+    d["imu-feat-rnn"].update({"type": cell, "bidirectional": bidi})
+    d["odom-feat-rnn"]["type"] = cell
+    port = build_model(port_config(d), device="cpu", seed=0)
+    jcfg = jax_config(d)
+    shapes = jax.eval_shape(lambda: jax_build_model(jcfg).init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+        example_batch(jcfg, 2), train=False))
+    sd = reference_state_dict(port, seed=6)
+    assert ("imu_feat.MaskedRNN_0.weight_ih_l0_reverse" in sd) == bidi
+    (gp, _), (wp, _) = _both(sd, to_flax_variables(port), shapes)
+    _assert_trees_equal(gp, wp)
+    tit.import_into(port, sd)
+    rnn = port.imu_feat.MaskedRNN_0
+    want = sd["imu_feat.MaskedRNN_0.weight_hh_l1"].numpy().T
+    np.testing.assert_array_equal(rnn.l1_fwd.w_hh.detach().numpy(), want)
+    if bidi:
+        want = sd["imu_feat.MaskedRNN_0.weight_ih_l1_reverse"].numpy().T
+        np.testing.assert_array_equal(rnn.l1_bwd.w_ih.detach().numpy(),
+                                      want)
 
 
 @pytest.mark.parametrize("wrap", [None, "state_dict", "model",

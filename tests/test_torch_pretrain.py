@@ -29,7 +29,9 @@ package's ``deeplio_tpu/train/pretrain.py``, float32 on the CPU.
   within 1% over all elements;
 * ``pretrain_pointseg`` end to end on a ring-ordered devkit tree with
   label files, its snapshot grafted by ``load_pointseg_backbone``;
-* the refusals: label files missing, ``packed: false`` without labels.
+* exact-z geometric labels (``packed: false`` without labels) bit for
+  bit against JAX's, and one step with them; the refusal of missing
+  label files.
 """
 
 import pathlib
@@ -53,6 +55,7 @@ from deeplio_tpu_torch.data.drives import SyntheticDrive
 from deeplio_tpu_torch.data.synthetic import synthetic_ring_batch
 from deeplio_tpu_torch.models.from_flax import to_flax_variables
 from deeplio_tpu_torch.models.zoo import build_model, init_parameters
+from deeplio_tpu_torch.ops import projection_scatter as tsc
 from deeplio_tpu_torch.train import pretrain as tpre
 from deeplio_tpu_torch.train.checkpoint import load_pointseg_backbone
 
@@ -390,10 +393,48 @@ def test_labels_path_without_files_raises(labelled_tree, tmp_path):
                                batch_size=2, device="cpu")
 
 
-def test_packed_false_without_labels_raises_naming_item_5():
-    cfg = port_config(slice_dict(packed=False, synthetic=True))
-    with pytest.raises(ConfigError, match="Queue 1 item 5"):
-        tpre.pretrain_pointseg(cfg, "/nowhere", steps=1, device="cpu")
+def test_packed_false_without_labels_raises_naming_item_5(tmp_path,
+                                                         monkeypatch):
+    """``packed: false`` without ``labels-path`` now pretrains: the
+    geometric labels read the winner's exact float32 z from
+    ``project_batch(packed=False)`` (the scatter selection with index
+    payloads), equal to JAX's bit for bit; with ``packed: true`` they
+    read its float16 z, which moves points just above ``GROUND_Z`` to the
+    ground (JAX's too). Then one step of ``pretrain_pointseg`` with
+    exact-z labels, one selection with index payloads a step."""
+    pts, valid, _ = _centred_cloud(3)
+    # z just above GROUND_Z rounds below it in float16
+    near = np.arange(0, N, 7)
+    pts[:, near, 2] = np.float32(-1.19995)
+    planes = [torch.from_numpy(np.ascontiguousarray(pts[..., c]))
+              for c in range(4)]
+    for packed in (False, True):
+        got = tpre.label_image(planes, torch.from_numpy(valid), None, H, W,
+                               FU, FD, packed=packed).numpy()
+        want = np.asarray(jpre.geometric_labels(*jproj.project_batch(
+            jnp.asarray(pts), jnp.asarray(valid), H, W, FU, FD,
+            packed=packed)))
+        np.testing.assert_array_equal(got, want)
+        if packed:
+            assert (got != exact).sum() >= 20
+        else:
+            exact = got
+            assert set(np.unique(got)) == {0, 1, 2}
+
+    calls = []
+    select = tsc.scatter_select
+
+    def spy(key, xy, zr, n_pix, rq_bits):
+        calls.append(bool((xy == torch.arange(key.shape[1],
+                                              dtype=torch.int32)).all()))
+        return select(key, xy, zr, n_pix, rq_bits)
+
+    monkeypatch.setattr(tsc, "scatter_select", spy)
+    cfg = port_config(slice_dict(packed=False, synthetic=True,
+                                 **{"synthetic-frames": 4}))
+    out = tpre.pretrain_pointseg(cfg, str(tmp_path / "pre"), steps=1,
+                                 batch_size=2, device="cpu")
+    assert calls == [True] and np.isfinite(out["loss"])
     # with labels, packed does not matter: no refusal before the drives
     cfg = port_config(slice_dict(**{"packed": False, "synthetic": True,
                                     "labels-path": "/labels"}))

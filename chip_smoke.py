@@ -185,6 +185,29 @@ the decoder-bearing tower, exact-z pretraining) on the same tree:
     steps of 16 scans: one ring launch (the input) and one scatter launch
     (the exact-z label image, index payloads) a step.
 
+Slice 10, every optimizer, stem and Fire (``bench/slice10.py``: A, the
+factorized stem, mixed Fires and SGD through the ring kernel; B, the
+s2d-pre stem, fused Fires, AdamW and ``param-dtype: bfloat16`` through
+the scatter kernel, ``backend: pallas``) on the same tree:
+
+17. for A and for B, 3 + 10 bf16 steps at B = 144 on a tree batch: the
+    first step's selection spied and bit-equal to the plain version on
+    the same card tensors, then exactly one launch of the configuration's
+    kernel a step and none of the other, the kernel timed on the step's
+    own selection inputs, a profile of 2 steps, beside slice 2's step;
+    one float32 step of each against the CPU on 2 windows (both fed the
+    card's images); for A, 20 SGD steps on one batch lower the loss.
+    ``cli.train --epochs 1`` of each (one launch per step and validation
+    batch); under A the checkpoint's SGD momentum buffers restored
+    bit-equal, ``--resume`` for one more epoch, ``cli.stream`` (one ring
+    launch a tick); under B ``cli.test`` (one scatter launch per eval
+    batch of 144 scans) and ``cli.export --chunk 4`` (the artifact
+    bit-equal to the eager bf16 step on the first 16 frames, one scatter
+    launch a tick). ``cli.pretrain_pointseg``, 4 steps of 16 scans under
+    each tower (A: one ring and one scatter launch a step; B: two
+    scatter launches), each snapshot grafted into a Trainer that takes a
+    step.
+
 After phase 4, the cost of the operator binding: a stream with the ring
 kernel behind ``torch.ops.deeplio.ring_select`` and with its CUDA
 implementation called directly, in turns (frames/s each way).
@@ -212,6 +235,7 @@ import yaml
 from deeplio_tpu_torch.bench.flagship import flagship_dict
 from deeplio_tpu_torch.bench.flagship import raw_batch as flagship_raw_batch
 from deeplio_tpu_torch.bench.kitti_tree import make_tree
+from deeplio_tpu_torch.bench.slice10 import slice10_dict
 from deeplio_tpu_torch.config import load_config, load_config_dict
 from deeplio_tpu_torch.data import device_bank as dbank
 from deeplio_tpu_torch.data.dataset import WindowDataset
@@ -1674,12 +1698,14 @@ def _serve(step, carry, chunks, to_device):
     return [torch.cat(o).cpu().numpy() for o in zip(*outs)]
 
 
-def phase_cli_export(dev, gpu, common, cfg, wd, per_tick: int = 1):
+def phase_cli_export(dev, gpu, common, cfg, wd, per_tick: int = 1,
+                     kernel: str = "ring", max_chunks=None):
     """``cli.export.main``, then the artifact fed the test drive chunk by
-    chunk (the last chunk padded) against the eager step of
-    ``StreamingOdometry`` on the same restored weights and chunks, with
-    ``per_tick`` ring launches a tick. Returns the artifact path's ring
-    launches."""
+    chunk (the last chunk padded; only the first ``max_chunks`` chunks
+    when given) against the eager step of ``StreamingOdometry`` on the
+    same restored weights and chunks, with ``per_tick`` launches of
+    ``kernel`` (``ring`` or ``scatter``) a tick. Returns the artifact
+    path's launches of ``kernel``."""
     from deeplio_tpu_torch.cli import export as export_cli
     from deeplio_tpu_torch.cli._common import restore_trainer
     from deeplio_tpu_torch.data.dataset import build_drives
@@ -1695,6 +1721,7 @@ def phase_cli_export(dev, gpu, common, cfg, wd, per_tick: int = 1):
                            device=dev)
     drive = build_drives(cfg, "test")[0]
     chunks = list(so.host_chunks(drive, pad=True))   # disk reads first
+    chunks = chunks[:max_chunks]
 
     def eager(carry, inp):
         with torch.no_grad():
@@ -1703,25 +1730,26 @@ def phase_cli_export(dev, gpu, common, cfg, wd, per_tick: int = 1):
 
     for fn, c0 in ((step, init_carry), (eager, so.init_carry)):
         _serve(fn, c0(), chunks[:1], so.to_device)             # warm-up
+    op = ring_select if kernel == "ring" else scatter_select
     _zero_counts()
     walls = {"artifact": [], "eager": []}
     got = None
     for name in ("artifact", "eager", "eager", "artifact"):
         fn, c0 = ((step, init_carry) if name == "artifact"
                   else (eager, so.init_carry))
-        before = ring_select.launches
+        before = op.launches
         t0 = time.perf_counter()
         out = _serve(fn, c0(), chunks, so.to_device)
         walls[name].append(time.perf_counter() - t0)
         if name == "artifact" and got is None:
-            got, art_launches = out, ring_select.launches - before
+            got, art_launches = out, op.launches - before
         elif name == "eager":
             want = out
-    frames = len(drive)
+    frames = sum(n for n, _ in chunks)
     padded = len(chunks) * EXPORT_CHUNK
     check(art_launches == per_tick * padded, f"artifact: {art_launches} "
-          f"ring launches for {padded} ticks ({frames} frames padded to "
-          f"chunks of {EXPORT_CHUNK}), want {per_tick} a tick")
+          f"{kernel} launches for {padded} ticks ({frames} frames padded "
+          f"to chunks of {EXPORT_CHUNK}), want {per_tick} a tick")
     diff = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
     check(all(np.array_equal(g, w) for g, w in zip(got, want)),
           f"artifact vs eager step: poses, dx, dq differ by up to {diff}")
@@ -1734,7 +1762,7 @@ def phase_cli_export(dev, gpu, common, cfg, wd, per_tick: int = 1):
           f"{' / '.join(f'{v:.2f}' for v in ms['artifact'])} ms/frame, "
           f"eager step {' / '.join(f'{v:.2f}' for v in ms['eager'])} "
           f"ms/frame (two runs each, in turns); poses, dx, dq bit-equal to "
-          f"the eager step; ring launches {art_launches} [{gpu}]")
+          f"the eager step; {kernel} launches {art_launches} [{gpu}]")
     trainer.close()
     return art_launches
 
@@ -1851,13 +1879,15 @@ class StepClock:
 
 
 def _pretrain_run(dev, gpu, cfg_path, out, steps: int, warmup: int,
-                  label: str):
+                  label: str, per_step=(1, 1)):
     """``cli.pretrain_pointseg`` in-process on ``cfg_path`` at B =
-    PRETRAIN_B for ``steps`` steps, both selections spied on; checks one
-    launch of each kernel a step and the first step's selections against
-    the plain versions. Returns (result, ms/step over the steps after
-    ``warmup``, the ring and scatter launches, the scatter spy, the first
-    step's device batch)."""
+    PRETRAIN_B for ``steps`` steps, both selections spied on; checks
+    ``per_step`` (ring, scatter) launches a step (by default one of each:
+    the model input through the ring kernel, the label image through the
+    scatter kernel) and the first step's selections against the plain
+    versions. Returns (result, ms/step over the steps after ``warmup``,
+    the ring and scatter launches, the scatter spy, the first step's
+    device batch)."""
     from deeplio_tpu_torch.cli import pretrain_pointseg as pre_cli
     from deeplio_tpu_torch.ops import projection_ring as pring
     from deeplio_tpu_torch.ops import projection_scatter as pscat
@@ -1879,12 +1909,14 @@ def _pretrain_run(dev, gpu, cfg_path, out, steps: int, warmup: int,
         pring.ring_select, pscat.scatter_select = ring.op, scatter.op
         tpre.build_pretrain_step = build
     launches = (ring_select.launches, scatter_select.launches)
-    check(launches == (steps, steps), f"pretrain {label}: {launches[0]} "
-          f"ring and {launches[1]} scatter launches in {steps} steps, want "
-          f"one of each a step")
+    want = tuple(k * steps for k in per_step)
+    check(launches == want, f"pretrain {label}: {launches[0]} ring and "
+          f"{launches[1]} scatter launches in {steps} steps, want {want}")
     worst = 0
     for name, spy, plain in (("ring", ring, ring_select_reference),
                              ("scatter", scatter, scatter_select_reference)):
+        if spy.first is None:           # a kernel this path does not run
+            continue
         args, outs = spy.first
         check(args[0].shape[0] == PRETRAIN_B, f"pretrain {label}: first "
               f"{name} launch at B = {args[0].shape[0]}")
@@ -1975,17 +2007,20 @@ def phase_pretrain_vs_cpu(dev):
     check(upd <= PRETRAIN_UPDATE_L2, "float32 pretraining update GPU vs CPU")
 
 
-def phase_pretrain_graft(dev, gpu, root, out, over=None):
+def phase_pretrain_graft(dev, gpu, root, out, over=None, d=None,
+                         want=(1, 0), label=""):
     """A ``Trainer`` with ``pretrained: true, model-path``: its encoder is
     the snapshot, every other tensor its seeded init; then one train step
-    through the ring kernel."""
-    d = kitti_dict(root, over)
+    with ``want`` (ring, scatter) launches, through the ring kernel by
+    default. ``d``: the configuration, :func:`kitti_dict`'s by default."""
+    d = copy.deepcopy(d) if d is not None else kitti_dict(root, over)
     d["lidar-feat-pointseg"].update({"pretrained": True,
                                      "model-path": str(out)})
     cfg = load_config_dict(d)
     saved = torch.load(pathlib.Path(out) / "params.pt", map_location="cpu",
                        weights_only=True)
-    trainer = Trainer(cfg, workdir=str(root / "graft_run"), device=dev)
+    trainer = Trainer(cfg, workdir=str(root / f"graft_run{label}"),
+                      device=dev)
     try:
         got = {k: v.cpu() for k, v in trainer.state.model.state_dict()
                .items()}
@@ -2007,14 +2042,15 @@ def phase_pretrain_graft(dev, gpu, root, out, over=None):
         loss = float(m["loss"])
     finally:
         trainer.close()
-    check(launches == (1, 0) and np.isfinite(loss), f"graft: train step "
-          f"with {launches} launches, loss {loss}")
-    print(f"pretrain graft: Trainer with pretrained: true loads the "
+    check(launches == tuple(want) and np.isfinite(loss), f"graft{label}: "
+          f"train step with {launches} launches, want {tuple(want)}, loss "
+          f"{loss}")
+    print(f"pretrain graft{label}: Trainer with pretrained: true loads the "
           f"snapshot's {len(saved)} encoder tensors, its other "
           f"{len(rest)} tensors keep their seed-{cfg.train.seed} init; one "
           f"train step of {cfg.train.batch_size} windows: loss {loss:.4f}, "
-          f"ring launches {launches[0]} [{gpu}]")
-    return launches[0]
+          f"ring launches {launches[0]}, scatter {launches[1]} [{gpu}]")
+    return launches
 
 
 def phase_pretrain_profile(dev, cfg, batch, gpu, step_ms: float):
@@ -2166,7 +2202,7 @@ def phase_pretrain(dev, gpu, root, over=None, ring16_ms=None):
         dev, gpu, geo_path, root / "pretrained_geo", PRETRAIN_GEO_STEPS, 1,
         "geometric labels")
     phase_pretrain_vs_cpu(dev)
-    graft_ring = phase_pretrain_graft(dev, gpu, root, out, over)
+    graft_ring, _ = phase_pretrain_graft(dev, gpu, root, out, over)
     phase_pretrain_profile(dev, cfg, batch, gpu, step_ms)
     drive, full = _early_frames(cfg, dev)
     phase_pretrain_timings(
@@ -2513,10 +2549,11 @@ def flagship_config(over=None, stem=None, f32=False, **ds):
     return load_config_dict(d)
 
 
-def _timed_steps(state, train_step, raw, steps: int = TIMED_STEPS):
-    """``steps`` steps after WARMUP_STEPS, the counts set to 0 just before
+def _timed_steps(state, train_step, raw, steps: int = TIMED_STEPS,
+                 warmup: int = WARMUP_STEPS):
+    """``steps`` steps after ``warmup``, the counts set to 0 just before
     them; (ms/step, ring launches, scatter launches, metrics)."""
-    for _ in range(WARMUP_STEPS):
+    for _ in range(warmup):
         state, m = train_step(state, raw)
     _zero_counts()
     t0 = time.perf_counter()
@@ -3197,6 +3234,289 @@ def phase_slice9(dev, gpu, root, step_ms, over=None):
     return ring, scatter, worst, times
 
 
+# ------------------------------------------------------------- slice 10
+
+# phase 17: bench/slice10.py's two configurations on phase 11's tree; the
+# kernel each runs, and its plain version
+SLICE10_KERNELS = {"A": ("ring", ring_select_reference),
+                   "B": ("scatter", scatter_select_reference)}
+
+
+def slice10_cfg_dict(root, which, over=None):
+    """Phase 11's configuration on its tree (:func:`kitti_dict`) with
+    configuration ``which`` of ``bench/slice10.py`` set: ``A`` the
+    factorized stem, mixed Fires and SGD through the ring kernel, ``B``
+    the s2d-pre stem, fused Fires, AdamW and ``param-dtype: bfloat16``
+    through the scatter kernel."""
+    return slice10_dict(kitti_dict(root, over), which)
+
+
+def _spy_step(state, train_step, raw, kernel, plain, label):
+    """One training step with ``kernel``'s selection spied on: its launch
+    is held against ``plain`` on the same card tensors, bit for bit.
+    Returns (state, the spied arguments, the launch's outputs)."""
+    from deeplio_tpu_torch.ops import projection_ring as pring
+    from deeplio_tpu_torch.ops import projection_scatter as pscat
+    mod, attr = {"ring": (pring, "ring_select"),
+                 "scatter": (pscat, "scatter_select")}[kernel]
+    spy = FirstCall(getattr(mod, attr))
+    setattr(mod, attr, spy)
+    try:
+        state, _ = train_step(state, raw)
+    finally:
+        setattr(mod, attr, spy.op)
+    check(spy.first is not None, f"{label}: the step made no {kernel} "
+          f"selection")
+    args, outs = spy.first
+    worst = max(int((a.long() - r.long()).abs().max())
+                for a, r in zip(outs, plain(*args)))
+    b = raw["points_valid"].shape[0]
+    check(worst == 0 and args[0].shape[0] == b,
+          f"{label}: the step's {kernel} selection at B = "
+          f"{args[0].shape[0]} differs from the plain version by {worst}")
+    return state, args, outs
+
+
+def phase_slice10_steps(dev, gpu, root, step_ms, over=None):
+    """A and B: 3 + 10 bf16 steps at B = 144 on the tree's first training
+    batch, the first warm-up step's selection spied and held bit for bit
+    against its plain version, then exactly one launch of the
+    configuration's kernel a step and none of the other; the kernel's
+    device time on the step's own selection inputs; a profile of 2 steps;
+    one float32 step on the card against the CPU on 2 windows (both fed
+    the card's images); for A, 20 SGD steps on one batch must lower the
+    loss. Returns {which: (ms/step, ring launches, scatter launches,
+    kernel ms, kernel bound ms)}."""
+    from deeplio_tpu_torch.data.dataset import build_dataset
+    out = {}
+    for which, (kernel, plain) in SLICE10_KERNELS.items():
+        label = f"slice10 {which}"
+        cfg = load_config_dict(slice10_cfg_dict(root, which, over))
+        host = next(build_dataset(cfg, "train").iter_batches(
+            cfg.train.batch_size, shuffle=False))
+        model = build_model(cfg, device=dev, seed=0)
+        state = create_train_state(cfg, model)
+        train_step, _ = build_train_step(cfg)
+        raw = batch_to_device(host, dev)
+        state, args, outs = _spy_step(state, train_step, raw, kernel, plain,
+                                      label)
+        ms, ring, scatter, vals = _timed_steps(state, train_step, raw,
+                                               warmup=WARMUP_STEPS - 1)
+        want = (TIMED_STEPS, 0) if kernel == "ring" else (0, TIMED_STEPS)
+        check((ring, scatter) == want, f"{label}: {ring} ring and "
+              f"{scatter} scatter launches in {TIMED_STEPS} steps, want "
+              f"{want}")
+        op = ring_select if kernel == "ring" else scatter_select
+        k_ms = graph_ms(lambda: op(*args))
+        # the bytes the selection must move: its keys (the ring kernel
+        # also its pixel ids), two payload words per landed pixel, three
+        # words per pixel written (phase 11's and phase 16's bound)
+        b, n = args[0].shape
+        empty = SENTINEL_RING if kernel == "ring" else SENTINEL
+        landed = int((outs[0] != empty).sum())
+        nbytes = ((8 if kernel == "ring" else 4) * b * n + 8 * landed
+                  + 12 * b * H * W)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        names = RING_KERNELS if kernel == "ring" else SCATTER_KERNELS
+        phase_train_profile(state, train_step, raw, gpu, ms,
+                            kernel=(label, names))
+        lc, oc = cfg.model.lidar, cfg.optim
+        pairs = cfg.train.batch_size * cfg.datasets.num_pairs
+        print(f"{label} ({cfg.datasets.projection.backend}, stem {lc.stem}, "
+              f"fire {lc.fire}, optimizer {oc.name} lr {oc.lr:g} momentum "
+              f"{oc.momentum:g} weight-decay {oc.weight_decay:g}, "
+              f"param-dtype {cfg.model.param_dtype} with float32 "
+              f"parameters): {TIMED_STEPS} steps of {cfg.train.batch_size} "
+              f"windows x {cfg.datasets.sequence_size} tree frames in "
+              f"{cfg.model.compute_dtype}: {ms:.2f} ms/step, "
+              f"{pairs / ms * 1e3:.1f} pairs/s (slice 2's step, same call: "
+              f"{step_ms:.2f} ms/step, {TRAIN_PAIRS / step_ms * 1e3:.1f} "
+              f"pairs/s); ring launches {ring}, scatter {scatter}; the "
+              f"{kernel} kernel on the step's selection (B = {b}) "
+              f"{k_ms:.4f} ms device time, bound {bound_ms * 1e3:.3f} us "
+              f"({nbytes} B at 3.35 TB/s, {landed} pixels landed), "
+              f"bit-equal to its plain version; loss {vals[0]['loss']:.5g} "
+              f"-> {vals[-1]['loss']:.5g} [{gpu}]")
+        out[which] = (ms, ring, scatter, k_ms, bound_ms)
+        del state, model, train_step, args, outs
+        torch.cuda.empty_cache()
+        if which == "A":
+            d = slice10_cfg_dict(root, which, over)
+            d["deeplio"]["dropout"] = 0.0
+            cfg = load_config_dict(d)
+            state = create_train_state(cfg, build_model(cfg, device=dev,
+                                                        seed=0))
+            train_step, _ = build_train_step(cfg)
+            losses = []
+            for _ in range(FIT_STEPS):
+                state, m = train_step(state, raw)
+                losses.append(m["loss"])
+            losses = [float(v) for v in losses]
+            check(np.isfinite(losses).all() and losses[-1] < losses[0],
+                  f"{label}: SGD on one batch: loss {losses[0]:.5g} -> "
+                  f"{losses[-1]:.5g}")
+            print(f"{label}: {FIT_STEPS} SGD steps on one batch (no "
+                  f"dropout): loss {losses[0]:.5g} -> {losses[-1]:.5g}, min "
+                  f"{min(losses):.5g} [{gpu}]")
+            del state, train_step
+        del raw
+        torch.cuda.empty_cache()
+        f32 = slice10_cfg_dict(root, which, over)
+        f32["compute-dtype"] = "float32"
+        f32["deeplio"]["dropout"] = 0.0
+        f32 = load_config_dict(f32)
+        seq = cfg.datasets.sequence_size        # scans are [B * S, N]
+        small = {k: v[:2 * seq] if k.startswith("points_") else v[:2]
+                 for k, v in host.items()}
+        phase_train_vs_cpu(dev, f32, f"{label} f32",
+                           host=_projected_on_card(dev, gpu, f32, small))
+    return out
+
+
+def _optimizer_state_equal(got, want) -> bool:
+    """Two optimizer ``state_dict``s' per-parameter tensors, bit for
+    bit."""
+    got, want = got["inner"]["state"], want["inner"]["state"]
+    return bool(want) and got.keys() == want.keys() and all(
+        all(torch.equal(got[i][k].cpu(), v.cpu()) for k, v in st.items()
+            if isinstance(v, torch.Tensor))
+        for i, st in want.items())
+
+
+def phase_slice10_cli(dev, gpu, root, over=None):
+    """A: ``cli.train --epochs 1`` (one ring launch per step and
+    validation batch), the checkpoint restored into a fresh Trainer with
+    SGD's momentum buffers bit-equal, ``--resume`` for one more epoch,
+    ``cli.stream`` (one ring launch a tick). B: ``cli.train --epochs 1``
+    (scatter), ``cli.test`` (one scatter launch per eval batch of 144
+    scans), ``cli.export --chunk 4``: the artifact bit-equal to the eager
+    bf16 step, one scatter launch a tick. Returns (ring launches, scatter
+    launches, {which: ms/step in fit})."""
+    from deeplio_tpu_torch.cli import stream as stream_cli
+    from deeplio_tpu_torch.cli import train as train_cli
+    from deeplio_tpu_torch.cli._common import restore_trainer
+    ring_n = scatter_n = 0
+    fit_ms = {}
+    for which, (kernel, _) in SLICE10_KERNELS.items():
+        label = f"slice10 {which}"
+        cfg_path = root / f"slice10_{which}.yaml"
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(slice10_cfg_dict(root, which, over), f)
+        cfg = load_config(cfg_path)
+        wd = str(root / f"slice10_{which}_run")
+        common = ["-c", str(cfg_path), "--workdir", wd, "--device", dev.type]
+        op = ring_select if kernel == "ring" else scatter_select
+        _zero_counts()
+        t0 = time.perf_counter()
+        train_cli.main(common + ["--epochs", "1"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = op.launches
+        other = ring_select.launches + scatter_select.launches - launched
+        records = _records(wd)
+        steps = [r["step"] for r in records if r["split"] == "train"]
+        n_val = sum(1 for r in records if r["split"] == "val")
+        check(launched == len(steps) + n_val and other == 0
+              and steps == [1, 2]
+              and all(np.isfinite(r["loss"]) for r in records),
+              f"{label} cli train: steps {steps}, {n_val} validations, "
+              f"{launched} {kernel} and {other} other launches")
+        gaps = _step_gaps(records, range(1, len(steps)), len(steps),
+                          every=1000)
+        fit_ms[which] = float(np.median(gaps))
+        print(f"{label} cli train: 1 epoch ({len(steps)} steps, {n_val} "
+              f"validation batch) in {secs:.2f} s; {fit_ms[which]:.2f} "
+              f"ms/step in fit (step 1 to 2); {kernel} launches {launched} "
+              f"[{gpu}]")
+        ring_n += ring_select.launches
+        scatter_n += scatter_select.launches
+        if which == "A":
+            ckpt = torch.load(pathlib.Path(wd) / "checkpoints" /
+                              str(steps[-1]) / "state.pt",
+                              map_location="cpu", weights_only=True)
+            trainer = restore_trainer(cfg, wd, dev.type)
+            try:
+                restored = trainer.state.optimizer.state_dict()
+            finally:
+                trainer.close()
+            bufs = [st.get("momentum_buffer") for st in
+                    ckpt["optimizer"]["inner"]["state"].values()]
+            check(ckpt["optimizer"]["name"] == "sgd"
+                  and all(b is not None for b in bufs)
+                  and _optimizer_state_equal(restored, ckpt["optimizer"]),
+                  f"{label}: the restored SGD momentum buffers differ from "
+                  f"the checkpoint's")
+            _zero_counts()
+            train_cli.main(common + ["--epochs", "1", "--resume"])
+            torch.cuda.synchronize()
+            records = _records(wd)
+            steps = [r["step"] for r in records if r["split"] == "train"]
+            check(steps == [1, 2, 3, 4] and ring_select.launches == 3,
+                  f"{label} cli train --resume: steps {steps}, "
+                  f"{ring_select.launches} ring launches")
+            print(f"{label} cli train --resume: the checkpoint's {len(bufs)} "
+                  f"SGD momentum buffers restored bit-equal; steps 3 to 4, "
+                  f"ring launches {ring_select.launches} [{gpu}]")
+            ring_n += ring_select.launches
+            _zero_counts()
+            scores = stream_cli.main(common + ["--chunk", "16"])
+            (name, s), = scores.items()
+            check(ring_select.launches == s["frames"]
+                  and scatter_select.launches == 0
+                  and np.isfinite(s["ate_m"]),
+                  f"{label} cli stream: {ring_select.launches} ring "
+                  f"launches for {s['frames']} frames")
+            print(f"{label} cli stream (factorized stem, B = 1): {name}, "
+                  f"{s['frames']} frames at {s['frames_per_sec']:.1f} "
+                  f"frames/s, ATE {s['ate_m']:.4f} m, ring launches "
+                  f"{ring_select.launches} [{gpu}]")
+            ring_n += ring_select.launches
+        else:
+            scatter_n += phase_cli_eval(gpu, common, cfg,
+                                        f"{label} s2d-pre", kernel="scatter")
+            # the first 4 chunks (16 frames): the export itself is the
+            # phase's longest part
+            scatter_n += phase_cli_export(dev, gpu, common, cfg, wd,
+                                          kernel="scatter", max_chunks=4)
+    return ring_n, scatter_n, fit_ms
+
+
+def phase_slice10(dev, gpu, root, step_ms, over=None):
+    """Phase 17 on phase 11's tree: every optimizer, stem and Fire. The
+    two configurations' bare steps, command lines and pretraining (4
+    steps of 16 scans under each tower, each snapshot grafted into a
+    Trainer). Returns (ring launches, scatter launches, step timings)."""
+    steps = phase_slice10_steps(dev, gpu, root, step_ms, over)
+    c_ring, c_scatter, fit_ms = phase_slice10_cli(dev, gpu, root, over)
+    ring = sum(v[1] for v in steps.values()) + c_ring
+    scatter = sum(v[2] for v in steps.values()) + c_scatter
+    pre_ms = {}
+    for which, (kernel, _) in SLICE10_KERNELS.items():
+        d = slice10_cfg_dict(root, which, over)
+        cfg_path = root / f"slice10_{which}_pretrain.yaml"
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(d, f)
+        out = root / f"slice10_{which}_pretrained"
+        per_step = (1, 1) if kernel == "ring" else (0, 2)
+        _, pre_ms[which], launches, _, _ = _pretrain_run(
+            dev, gpu, cfg_path, out, PRETRAIN_GEO_STEPS, 1,
+            f"slice10 {which} geometric labels", per_step)
+        graft = phase_pretrain_graft(
+            dev, gpu, root, out, d=d, label=f" slice10 {which}",
+            want=(1, 0) if kernel == "ring" else (0, 1))
+        ring += launches[0] + graft[0]
+        scatter += launches[1] + graft[1]
+    print(f"slice10: bare step A {steps['A'][0]:.2f} ms/step, B "
+          f"{steps['B'][0]:.2f}, slice 2 {step_ms:.2f} (same call); fit A "
+          f"{fit_ms['A']:.2f}, B {fit_ms['B']:.2f} ms/step; pretraining A "
+          f"{pre_ms['A']:.2f}, B {pre_ms['B']:.2f} ms/step; the ring kernel "
+          f"in A's step {steps['A'][3]:.4f} ms (bound "
+          f"{steps['A'][4] * 1e3:.3f} us), the scatter kernel in B's "
+          f"{steps['B'][3]:.4f} ms (bound {steps['B'][4] * 1e3:.3f} us); "
+          f"launches ring {ring}, scatter {scatter} [{gpu}]")
+    return ring, scatter, steps
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one GPU",
@@ -3292,17 +3612,23 @@ def main() -> int:
         n_ring, n_scatter, n_worst, n_times = phase_slice9(dev, gpu, root,
                                                            step_ms)
         print(f"slice9 phase: {time.perf_counter() - t0:.1f} s [{gpu}]")
+        # slice 10: every optimizer, stem and Fire on the same tree, the
+        # ring kernel under A and the scatter kernel under B at B = 144
+        t0 = time.perf_counter()
+        t_ring, t_scatter, t_steps = phase_slice10(dev, gpu, root, step_ms)
+        print(f"slice10 phase: {time.perf_counter() - t0:.1f} s [{gpu}]")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"kernels: ring_project (ported, launches={k_launches} on the "
           f"KITTI training paths, {c_launches} on the command lines' paths, "
           f"{p_ring} on pretraining's, {f_ring} on the flagship's, "
-          f"{n_ring} on slice 9's, {launches} in the slice-1 stream, "
-          f"bit-exact), proj_scatter (ported, launches={s_launches}: the "
-          f"training step's and the fit's, {p_scatter} on pretraining's, "
-          f"{v_launches} on the model zoo's and {n_scatter} on slice 9's, "
+          f"{n_ring} on slice 9's, {t_ring} on slice 10's, {launches} in "
+          f"the slice-1 stream, bit-exact), proj_scatter (ported, "
+          f"launches={s_launches}: the training step's and the fit's, "
+          f"{p_scatter} on pretraining's, {v_launches} on the model zoo's, "
+          f"{n_scatter} on slice 9's and {t_scatter} on slice 10's, "
           f"bit-exact)")
-    s_launches += p_scatter + v_launches + n_scatter
+    s_launches += p_scatter + v_launches + n_scatter + t_scatter
     k_ms, p_ms, bound_ms, k_worst = k_times[TRAIN_B * TRAIN_S]
     worst = max(worst, k_worst, k_times[PREFILL_CHUNK][3], f_worst, n_worst)
     # the scatter kernel on configs/deeplio_kitti.yaml's path (B = 96,
@@ -3314,13 +3640,16 @@ def main() -> int:
           f"{s_times[TRAIN_B * TRAIN_S][0]:.4f} ms, B = 144 sort-sentinel "
           f"exact (slice 9) {n_times['sort-sentinel carry'][0]:.4f} ms; "
           f"the ring kernel at B = 144 ring exact (slice 9) "
-          f"{n_times['ring carry'][0]:.4f} ms [{gpu}]")
+          f"{n_times['ring carry'][0]:.4f} ms; inside slice 10's steps: "
+          f"the ring kernel (A) {t_steps['A'][3]:.4f} ms, the scatter "
+          f"kernel (B) {t_steps['B'][3]:.4f} ms [{gpu}]")
     print(json.dumps({"kernels": [{
         "name": "ring_project",
         "route": "cuda",
         "source": "deeplio_tpu_torch/csrc/ring_project.cu",
         "replaces": "deeplio_tpu/ops/projection_pallas_ring.py:62",
-        "launches": k_launches + c_launches + p_ring + f_ring + n_ring,
+        "launches": (k_launches + c_launches + p_ring + f_ring + n_ring
+                     + t_ring),
         "max_abs_err": float(worst),
         "ms": k_ms,
         "plain_ms": p_ms,

@@ -18,8 +18,9 @@ its ``classic``, ``cheap``, ``stride`` and ``stride-fold`` pools, its
 GRU, the IMU one also bidirectional, or the FC nets), their dropout and
 warm starts, the slot-aligned projection
 routes (``kernel-aligned: auto | on | trust | halves``) and host slot
-binning (``slot-bin``), the pose loss, the optimizer
-with its plateau schedule, and the ``train`` block of the training loop
+binning (``slot-bin``), the pose loss, the optimizer (Adam, AdamW or
+SGD with momentum) with its plateau schedule, ``param-dtype`` (parsed
+and never read, as in the JAX package), and the ``train`` block of the training loop
 with its projection cache and device-resident dataset.
 
 A setting that would change what the port computes, and that the port
@@ -51,11 +52,15 @@ ODOMETRY_SEQUENCES: Dict[str, Tuple[str, int, int, int]] = {
 }
 
 # Later slices, as ROADMAP.md orders them.
-_LATER_VARIANTS = "the model-variants slice (ROADMAP.md Queue 1 item 5)"
 _LATER_DP = "the data-parallel slice (ROADMAP.md Queue 1 item 6)"
 BACKENDS = ("pallas-ring", "pallas", "ring", "sort", "sort-sentinel")
 POOLS = ("classic", "cheap", "stride", "stride-fold")
-STEMS = ("classic", "pair-split")
+STEMS = ("classic", "pair-split", "s2d", "s2d-pre", "factorized")
+# the stems the stride-fold pool can fold: the (maybe input-split)
+# strided 3x3
+FOLD_STEMS = ("classic", "pair-split")
+FIRES = ("classic", "fused", "mixed")
+OPTIMIZERS = ("adam", "sgd")
 LIDAR_NETS = ("lidar-feat-pointseg", "lidar-feat-simple-0",
               "lidar-feat-simple-1")
 ARCHS = ("deepio", "deeplo", "deeplio")
@@ -332,8 +337,14 @@ class LidarFeatConfig:
     se: bool = True
     el_squeeze: int = 0
     # pair-split: the stem conv takes frames i and j apart, its kernel
-    # split along the input channels (models/blocks.py::SplitInputConv)
+    # split along the input channels (models/blocks.py::SplitInputConv);
+    # s2d: space-to-depth of the (h, w) block, then a 2x2 conv at stride
+    # 1; s2d-pre: the same conv on input the data side laid out so;
+    # factorized: the stem per frame, each pair summed on its output grid
+    # (models/blocks.py::FactorizedStem; the model takes ``frames``)
     stem: str = "classic"
+    # fused: each Fire one 3x3 ConvBN to expand1 + expand3 channels;
+    # mixed: fused for the four shallow Fires, classic for the deep ones
     fire: str = "classic"
     # classic: 3x3 max-pools at stride (1, 2) after the stem and the first
     # two Fire stages; cheap: (1, 2) windows; stride: no pools, the
@@ -360,7 +371,7 @@ class LidarFeatConfig:
         if part not in ("encoder", "encoder+decoder"):
             raise ConfigError(
                 f"part must be encoder|encoder+decoder, got {part!r}")
-        if stem not in STEMS + ("s2d", "s2d-pre", "factorized"):
+        if stem not in STEMS:
             raise ConfigError(
                 "stem must be classic|pair-split|s2d|s2d-pre|factorized, "
                 f"got {stem!r}")
@@ -368,23 +379,19 @@ class LidarFeatConfig:
             raise ConfigError(
                 "stem=pair-split is encoder-only (the seg decoder reads "
                 "the concatenated pair input the split never builds)")
-        if fire not in ("classic", "fused", "mixed"):
+        if fire not in FIRES:
             raise ConfigError(
                 f"fire must be classic|fused|mixed, got {fire!r}")
         if pool not in POOLS:
             raise ConfigError(f"pool must be classic|cheap|stride|"
                               f"stride-fold, got {pool!r}")
         if pool == "stride-fold" and (part != "encoder"
-                                      or stem not in STEMS):
+                                      or stem not in FOLD_STEMS):
             # the fold is exact only while the skips are unused and the
             # stem is the (maybe input-split) strided 3x3
             raise ConfigError(
                 "pool=stride-fold requires part=encoder and a classic or "
                 f"pair-split stem (got part={part!r}, stem={stem!r})")
-        for what, got, want in (("stem", stem, STEMS),
-                                ("fire", fire, ("classic",))):
-            if got not in want:
-                raise _unsupported(f"lidar {what}={got!r}", _LATER_VARIANTS)
         return LidarFeatConfig(
             name=name,
             part=part,
@@ -490,6 +497,10 @@ class ModelConfig:
     fusion: Optional[FusionConfig] = None
     odom: OdomFeatConfig = field(default_factory=OdomFeatConfig)
     compute_dtype: str = "bfloat16"
+    # parsed as the JAX package parses it, and never read: JAX passes it
+    # to no module, so its parameters are float32 whatever it says, and
+    # so are the port's
+    param_dtype: str = "float32"
     dropout: float = 0.25      # before the pose heads, training only
     # whole-model warm start from a parameter snapshot
     # (train/checkpoint.py::load_params)
@@ -539,18 +550,22 @@ class LossConfig:
 
 @dataclass(frozen=True)
 class OptimConfig:
-    """Adam, a learning-rate schedule and optax's global-norm gradient
-    clip."""
-    name: str = "adam"
+    """Adam (AdamW with ``weight-decay``) or SGD with momentum, a
+    learning-rate schedule and optax's global-norm gradient clip."""
+    name: str = "adam"         # adam | sgd
     lr: float = 1e-4
+    # adam: optax's adamw, the decay inside the learning-rate scale; sgd:
+    # ``wd * p`` added to the clipped gradient before the momentum trace
+    weight_decay: float = 0.0
+    momentum: float = 0.9      # sgd only
     scheduler: str = "none"    # none | step | cosine | plateau
     step_size: int = 20        # epochs per decay (step) or decay length
     gamma: float = 0.5
     warmup_steps: int = 0
     grad_clip: float = 0.0     # 0 = off
     # the clip's global norm over one flattened gradient vector instead of
-    # per-tensor partial sums (the JAX package's raveled update; Adam is
-    # elementwise, so only the norm's rounding order differs)
+    # per-tensor partial sums (the JAX package's raveled update; both
+    # optimizers are elementwise, so only the norm's rounding order differs)
     flat_update: bool = False
     # plateau (torch ReduceLROnPlateau semantics, applied by the trainer
     # after each validation): lr *= gamma after ``patience`` validations
@@ -567,6 +582,8 @@ class OptimConfig:
         cfg = OptimConfig(
             name=str(_get(d, "name", _get(d, "type", "adam"))).lower(),
             lr=float(_get(d, "lr", 1e-4)),
+            weight_decay=float(_get(d, "weight-decay", 0.0)),
+            momentum=float(_get(d, "momentum", 0.9)),
             scheduler=str(_get(sched, "name", "none")).lower(),
             step_size=int(_get(sched, "step-size", 20)),
             gamma=float(_get(sched, "gamma", 0.5)),
@@ -577,12 +594,8 @@ class OptimConfig:
             min_lr=float(_get(sched, "min-lr", 0.0)),
             threshold=float(_get(sched, "threshold", 1e-4)),
         )
-        if cfg.name == "sgd":
-            raise _unsupported("optimizer sgd", _LATER_VARIANTS)
-        if cfg.name != "adam":
+        if cfg.name not in OPTIMIZERS:
             raise ConfigError(f"optimizer must be adam|sgd, got {cfg.name!r}")
-        if float(_get(d, "weight-decay", 0.0)) > 0:
-            raise _unsupported("weight-decay (AdamW)", _LATER_VARIANTS)
         if cfg.scheduler not in ("none", "step", "cosine", "plateau"):
             raise ConfigError(f"scheduler must be none|step|cosine|plateau, "
                               f"got {cfg.scheduler!r}")
@@ -684,9 +697,6 @@ class Config:
         if compute not in ("bfloat16", "float32", "float16"):
             raise ConfigError(f"compute-dtype must be bfloat16|float32|"
                               f"float16, got {compute!r}")
-        param = str(_get(d, "param-dtype", "float32"))
-        if param != "float32":
-            raise _unsupported(f"param-dtype={param!r}", _LATER_VARIANTS)
         model = ModelConfig(
             arch=arch,
             lidar=lidar,
@@ -694,6 +704,7 @@ class Config:
             fusion=fusion,
             odom=OdomFeatConfig.from_dict(oname, _get(d, oname, {}) or {}),
             compute_dtype=compute,
+            param_dtype=str(_get(d, "param-dtype", "float32")),
             dropout=_rate(_get(block, "dropout", 0.25), "model dropout"),
             pretrained=bool(_get(block, "pretrained", False)),
             model_path=str(_get(block, "model-path", "")),

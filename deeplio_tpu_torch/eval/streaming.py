@@ -3,7 +3,11 @@
 Each tick projects the incoming raw scan on the device, pairs it with the
 carried previous range image, runs the model (DeepLIO, or DeepLO with no
 IMU input) on that one-pair window and composes the predicted relative
-pose onto the carried global pose in float32. DeepIO has no scan to
+pose onto the carried global pose in float32. The pair goes to the model
+as its stem takes it (``StreamingStep.pair``): the channel concat, the
+two frames apart (``pair-split``), their space-to-depth pair
+(``s2d-pre``), or the two frames with the pair ``(0, 1)``
+(``factorized``, whose parameters do not depend on the pairs). DeepIO has no scan to
 stream and raises, as in the JAX package. No LSTM state carries across
 ticks: every tick is a fresh one-pair window, as in the JAX package.
 
@@ -34,12 +38,15 @@ from torch.profiler import record_function
 from deeplio_tpu_torch.config.schema import Config
 from deeplio_tpu_torch.data.drives import Drive
 from deeplio_tpu_torch.device import DeviceLike, resolve_device
+from deeplio_tpu_torch.models.blocks import space_to_depth_pairs
 from deeplio_tpu_torch.ops.projection import make_projector
 from deeplio_tpu_torch.utils import spatial as sp
 
 Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 # the inputs of one chunk, in the order StreamingStep takes them
 CHUNK_KEYS = ("points", "valid", "imu", "imu_mask")
+# a tick's window: the carried frame and the new one, one pair
+PAIR = ((0, 1),)
 
 
 def chunk_keys(arch: str) -> Tuple[str, ...]:
@@ -59,6 +66,21 @@ class StreamingStep(nn.Module):
         self.model = model
         self.projector = projector
 
+    def pair(self, prev_img: torch.Tensor,
+             img: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The tick's one-pair window as the model's stem takes it."""
+        stem = self.model.stem
+        if stem == "pair-split":          # the two frames apart
+            return {"images": prev_img[None, None],
+                    "images2": img[None, None]}
+        if stem == "factorized":          # the frames, paired by PAIR
+            return {"frames": torch.stack([prev_img, img])[None]}
+        if stem == "s2d-pre":
+            hs, ws = self.model.lidar_feat.pointseg.encoder.strides
+            return {"images": space_to_depth_pairs(
+                torch.stack([prev_img, img])[None], PAIR, hs, ws)}
+        return {"images": torch.cat([prev_img, img], -1)[None, None]}
+
     def forward(self, prev_img, pose, started, points, valid, imu=None,
                 imu_mask=None):
         poses, dxs, dqs = [], [], []
@@ -66,17 +88,12 @@ class StreamingStep(nn.Module):
             with record_function("stream.project"):
                 img, _ = self.projector(points[j:j + 1], valid[j:j + 1])
             img = img[0]
-            if self.model.pair_split:     # the two frames apart
-                batch = {"images": prev_img[None, None],
-                         "images2": img[None, None]}
-            else:
-                batch = {"images":
-                         torch.cat([prev_img, img], -1)[None, None]}
+            batch = self.pair(prev_img, img)
             if imu is not None:
                 batch["imu"] = imu[j][None, None]
                 batch["imu_mask"] = imu_mask[j][None, None]
             with record_function("stream.model"):
-                x, q = self.model(batch)
+                x, q = self.model(batch, combos=PAIR)
             go = started > 0                  # first frame: identity motion
             dx = torch.where(go, x[0, 0], torch.zeros_like(x[0, 0]))
             dq = torch.where(go, q[0, 0], q.new_tensor([1.0, 0.0, 0.0, 0.0]))

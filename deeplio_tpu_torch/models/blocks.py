@@ -1,6 +1,8 @@
 """PointSeg building blocks (counterpart of ``deeplio_tpu/models/blocks.py``:
-``SplitInputConv``, ``ConvBN``, ``SELayer``, classic ``Fire``,
-``FireDeconv`` and ``ASPP``, and flax's SAME max-pool).
+``SplitInputConv``, ``ConvBN``, ``SELayer``, ``Fire`` (classic and
+fused), ``FactorizedStem``, ``space_to_depth`` and
+``space_to_depth_pairs``, ``FireDeconv`` and ``ASPP``, and flax's SAME
+max-pool).
 
 Modules take NCHW tensors. Submodules carry the names flax gives the
 matching parameters (``Conv_0``, ``BatchNorm_0``, ``Dense_0``...), so
@@ -204,18 +206,89 @@ class SELayer(nn.Module):
 
 class Fire(nn.Module):
     """Fire module: strided 1x1 squeeze ConvBN -> parallel 1x1 and 3x3
-    expands, concatenated, ReLU (the classic, unfused form)."""
+    expands, concatenated, ReLU (the classic form). ``fused``: one 3x3
+    ConvBN at the stage's stride to ``expand1 + expand3`` channels, ReLU
+    inside, and nothing else; its parameters are not the classic Fire's,
+    so a reference checkpoint does not load into it."""
 
     def __init__(self, in_channels: int, squeeze: int, expand1: int,
-                 expand3: int, strides=(1, 1)):
+                 expand3: int, strides=(1, 1), fused: bool = False):
         super().__init__()
+        self.fused = fused
+        if fused:
+            self.ConvBN_0 = ConvBN(in_channels, expand1 + expand3, (3, 3),
+                                   strides)
+            return
         self.ConvBN_0 = ConvBN(in_channels, squeeze, (1, 1), strides)
         self.Conv_0 = SameConv2d(squeeze, expand1, (1, 1))
         self.Conv_1 = SameConv2d(squeeze, expand3, (3, 3))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = self.ConvBN_0(x)
+        if self.fused:
+            return s
         return F.relu(torch.cat([self.Conv_0(s), self.Conv_1(s)], dim=1))
+
+
+class FactorizedStem(nn.Module):
+    """The pair stem run per frame: ``conv(cat(a_i, a_j), W) = conv(a_i,
+    W[:C]) + conv(a_j, W[C:])``, so one conv from C to 2F channels over
+    the S frames of each window (output channels [0, F) the first-frame
+    half of the kernel, [F, 2F) the second's), then ``u_i + v_j`` for each
+    pair on the conv's (downsampled) grid, then BatchNorm and ReLU. No
+    bias under the BatchNorm. The same function as the classic stem on the
+    pair stack; the parameters differ in layout (``models/zoo.py::
+    factorize_stem_variables`` converts).
+
+    Input: frames [B, S, C, H, W] (a permuted view of NHWC frames works).
+    Output: [B * P, F, H', W'] with P = ``len(combos)``, pairs in the
+    order given; the parameters do not depend on ``combos``."""
+
+    def __init__(self, channels: int, features: int = 64, kernel=(3, 3),
+                 strides=(1, 1)):
+        super().__init__()
+        self.features = features
+        self.Conv_0 = SameConv2d(channels, 2 * features, kernel, strides,
+                                 bias=False)
+        self.BatchNorm_0 = FlaxBatchNorm2d(features)
+
+    def forward(self, frames: torch.Tensor,
+                combos: Sequence[Pair]) -> torch.Tensor:
+        b, s = frames.shape[:2]
+        y = self.Conv_0(frames.flatten(0, 1))              # [B*S, 2F, h, w]
+        y = y.permute(0, 2, 3, 1)                          # NHWC view
+        y = y.reshape((b, s) + tuple(y.shape[1:]))
+        f = self.features
+        u, v = y[..., :f], y[..., f:]
+        pre = torch.stack([u[:, i] + v[:, j] for i, j in combos], 1)
+        pre = pre.flatten(0, 1).permute(0, 3, 1, 2)        # NCHW view
+        return F.relu(self.BatchNorm_0(pre))
+
+
+def space_to_depth(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """NHWC [B, H, W, C] -> [B, H / h, W / w, h * w * C], each (h, w)
+    block into channels in the JAX package's order ``(h_i * w + w_i) * C
+    + c`` (weights cross between the frameworks on it). ``ValueError``
+    where ``h`` or ``w`` does not divide the image."""
+    b, H, W, c = x.shape
+    if H % h or W % w:
+        raise ValueError(f"space_to_depth: {h}x{w} blocks do not tile a "
+                         f"{H}x{W} image")
+    x = x.reshape(b, H // h, h, W // w, w, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, H // h, W // w, h * w * c)
+
+
+def space_to_depth_pairs(frames: torch.Tensor, combos: Sequence[Pair],
+                         h: int, w: int) -> torch.Tensor:
+    """Frames [B, S, H, W, C] -> the pairs' space-to-depth stack [B, P, H
+    / h, W / w, h * w * 2C], equal bit for bit to ``space_to_depth(cat(
+    f_i, f_j), h, w)`` for each pair (i, j) of ``combos``: each frame laid
+    out once, the full-resolution pair stack never built."""
+    b, s, H, W, c = frames.shape
+    fr = space_to_depth(frames.reshape(b * s, H, W, c), h, w)
+    fr = fr.reshape(b, s, H // h, W // w, h * w, c)
+    return torch.stack([torch.cat([fr[:, i], fr[:, j]], -1).reshape(
+        b, H // h, W // w, h * w * 2 * c) for i, j in combos], 1)
 
 
 class FireDeconv(nn.Module):

@@ -39,30 +39,34 @@ def inverted_dropout(x: torch.Tensor, rate: float, training: bool,
 
 class LidarPointSegFeat(nn.Module):
     """PointSeg over pair-stacked images [B, 2C, H, W] (or, for the
-    ``pair-split`` stem, the pair's two [B, C, H, W] frames) -> two
-    strided 3x3 ConvBNs -> spatial mean -> Dense -> ReLU -> dropout ->
-    [B, F]. ``part="encoder"`` reads the bottleneck map (512 channels),
-    ``"encoder+decoder"`` the decoder's per-pixel map (64 channels, at
-    the stem's resolution)."""
+    ``pair-split`` stem, the pair's two [B, C, H, W] frames; for the
+    ``factorized`` stem the frames [B, S, C, H, W] and the pairs'
+    ``combos``) -> two strided 3x3 ConvBNs -> spatial mean -> Dense ->
+    ReLU -> dropout -> [B * P, F]. ``part="encoder"`` reads the
+    bottleneck map (512 channels), ``"encoder+decoder"`` the decoder's
+    per-pixel map (64 channels, at the stem's resolution). ``in_channels``
+    is the pair stack's width 2C for every stem."""
 
     def __init__(self, in_channels: int, feature_size: int = 512,
                  h_stride: int = 1, w_stride: int = 2, se: bool = True,
                  el_squeeze: int = 0, dropout: float = 0.0,
-                 pool: str = "stride", part: str = "encoder"):
+                 pool: str = "stride", part: str = "encoder",
+                 stem: str = "classic", fire: str = "classic"):
         super().__init__()
         self.dropout = dropout
         self.pointseg = PointSegNet(in_channels, part=part,
                                     h_stride=h_stride, w_stride=w_stride,
                                     with_se=se, el_squeeze=el_squeeze,
-                                    pool=pool)
+                                    pool=pool, stem=stem, fire=fire)
         width = 512 if part == "encoder" else 64
         self.ConvBN_0 = ConvBN(width, 256, (3, 3), (2, 2))
         self.ConvBN_1 = ConvBN(256, 256, (3, 3), (2, 2))
         self.Dense_0 = nn.Linear(256, feature_size)
 
     def forward(self, x: ConvInput,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        feat = self.ConvBN_1(self.ConvBN_0(self.pointseg(x)))
+                generator: Optional[torch.Generator] = None,
+                combos: Tuple[Tuple[int, int], ...] = ()) -> torch.Tensor:
+        feat = self.ConvBN_1(self.ConvBN_0(self.pointseg(x, combos)))
         feat = F.relu(self.Dense_0(feat.mean(dim=(-2, -1))))
         return inverted_dropout(feat, self.dropout, self.training, generator)
 

@@ -19,7 +19,10 @@ module of ``deeplio_tpu_torch.models`` does). The layouts:
 
 (an RNN's directions are its modules ``l{k}_fwd`` and ``l{k}_bwd``, the
 FC nets' layers Dense ``Dense_{k}``, the decoder-bearing tower's decoder
-``pointseg/decoder``: each is its own module on both sides).
+``pointseg/decoder``, the factorized stem ``FactorizedStem_0`` with its
+``Conv_0`` [kh, kw, C, 2F] and ``BatchNorm_0``, a fused Fire's lone
+``ConvBN_0``, the s2d stems' 2x2 ``ConvBN_0`` on h * w * 2C channels:
+each is its own module on both sides, so the layouts above carry them).
 
 The bridge is strict on both sides, as ``deeplio_tpu/models/
 import_torch.py`` is: a flax entry with no matching module or tensor, a

@@ -58,6 +58,7 @@ __all__ = [
     "convert_rnn",
     "import_state_dict",
     "import_into",
+    "import_reference_checkpoint",
     "load_reference_checkpoint",
 ]
 
@@ -287,6 +288,22 @@ def _read_checkpoint(path: str) -> Mapping[str, Any]:
         if isinstance(blob, dict) and isinstance(blob.get(key), dict):
             return blob[key]
     return blob
+
+
+def import_reference_checkpoint(path: str, params: Mapping[str, Any],
+                                batch_stats: Optional[Mapping[str, Any]] = None,
+                                name_map: Optional[NameMap] = None
+                                ) -> Tuple[Tree, Tree]:
+    """:func:`import_state_dict` of a checkpoint file (read with
+    ``weights_only=True``; a bare ``state_dict`` or one wrapped under
+    ``state_dict``, ``model`` or ``model_state_dict``): ``(params,
+    batch_stats)`` numpy trees, as the JAX package's function returns.
+    For a ``factorized`` config, import onto the classic tree and pass the
+    result through ``models/zoo.py::factorize_stem_variables``, as the JAX
+    package does. A ``fire: fused`` template raises: the fused Fire's
+    parameters are not the reference Fire's."""
+    return import_state_dict(_read_checkpoint(path), params, batch_stats,
+                             name_map=name_map)
 
 
 def import_into(model: nn.Module, state_dict: Mapping[str, Any],

@@ -1,7 +1,8 @@
 """PointSeg (counterpart of ``deeplio_tpu/models/pointseg.py``:
-``PointSegEncoder`` with the ``classic`` and ``pair-split`` stems and the
-``classic``, ``cheap``, ``stride`` and ``stride-fold`` pools, the
-``PointSegDecoder`` and ``PointSegNet``).
+``PointSegEncoder`` with every stem (``classic``, ``pair-split``,
+``s2d``, ``s2d-pre``, ``factorized``), every Fire (``classic``,
+``fused``, ``mixed``) and the ``classic``, ``cheap``, ``stride`` and
+``stride-fold`` pools, the ``PointSegDecoder`` and ``PointSegNet``).
 
 The pools halve the azimuth three times after the stem, as in JAX:
 ``classic`` with 3x3 max-pools at stride (1, 2) after ``c1``, ``f3`` and
@@ -15,9 +16,18 @@ the unfolded stem's SAME pads, computes the same function without the odd
 columns. Its skip ``c1`` is at half the width, so it serves the encoder
 alone (``part="encoder"``); its parameters are those of ``stride``.
 
-The input is one NCHW tensor, or for the ``pair-split`` stem the ``(a,
-b)`` frames of each pair, whose channel concat the stem's
-``SplitInputConv`` never builds. NCHW out.
+The stems, all with the same output grid (H / h_stride, W / w_stride):
+``classic``, a strided 3x3 ConvBN on the pair stack; ``pair-split``, the
+same on the ``(a, b)`` frames of each pair, whose channel concat its
+``SplitInputConv`` never builds; ``s2d``, the pair stack's (h, w) blocks
+moved into channels (``blocks.py::space_to_depth``), then a 2x2 ConvBN at
+stride 1 (SAME: pads (0, 1) on each axis); ``s2d-pre``, the same conv on
+input the data side laid out so (``space_to_depth_pairs``), the same
+parameters; ``factorized``, ``FactorizedStem_0`` on the frames [B, S, C,
+H, W] of each window, the pairs given by ``combos``. The Fires:
+``classic``; ``fused``, each Fire one 3x3 ConvBN; ``mixed``, fused for the
+shallow ``Fire_0`` to ``Fire_3`` and classic for the deep ``Fire_4`` to
+``Fire_7``. The input is NCHW (an NCHW view of NHWC memory), NCHW out.
 
 ``PointSegNet`` is used two ways, as in the JAX package: as the odometry
 model's LiDAR encoder (``part="encoder"``, no classes: the bottleneck
@@ -34,10 +44,12 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from deeplio_tpu_torch.config.schema import FIRES, STEMS
 from deeplio_tpu_torch.models.blocks import (
     ASPP,
     ConvBN,
     ConvInput,
+    FactorizedStem,
     Fire,
     FireDeconv,
     SameConv2d,
@@ -45,32 +57,51 @@ from deeplio_tpu_torch.models.blocks import (
     SELayer,
     same_max_pool,
     same_pads,
+    space_to_depth,
 )
 
 PARTS = ("encoder", "encoder+decoder")
+Combos = Tuple[Tuple[int, int], ...]
 # pool -> (max-pool window or None, the stage-entry Fires' strides)
 POOLS = {"classic": ((3, 3), (1, 1)), "cheap": ((1, 2), (1, 1)),
          "stride": (None, (1, 2)), "stride-fold": (None, (1, 2))}
 
 
 class PointSegEncoder(nn.Module):
-    """Strided 3x3 stem + eight Fires (two SE blocks, two residuals) + ASPP.
+    """Stem + eight Fires (two SE blocks, two residuals) + ASPP.
 
+    ``in_channels`` is the pair stack's width 2C for every stem.
     Output: the bottleneck [B, 512, H / h_stride, W / (8 * w_stride)] and
     the skips (c1, f3, f5) at widths W / w_stride, / 2 and / 4 of that.
     """
 
     def __init__(self, in_channels: int, h_stride: int = 1, w_stride: int = 2,
                  with_se: bool = True, el_squeeze: int = 0,
-                 pool: str = "stride"):
+                 pool: str = "stride", stem: str = "classic",
+                 fire: str = "classic"):
         super().__init__()
         if pool not in POOLS:
             raise ValueError(f"pool must be {'|'.join(POOLS)}, got {pool!r}")
+        if stem not in STEMS:
+            raise ValueError(f"stem must be {'|'.join(STEMS)}, got {stem!r}")
+        if fire not in FIRES:
+            raise ValueError(f"fire must be {'|'.join(FIRES)}, got {fire!r}")
         self.pool_window, entry = POOLS[pool]
         self.fold = pool == "stride-fold"
+        if self.fold and stem not in ("classic", "pair-split"):
+            raise ValueError(f"pool=stride-fold folds a strided 3x3 stem, "
+                             f"not stem={stem!r}")
+        self.stem = stem
         self.strides = (h_stride, w_stride)
-        self.ConvBN_0 = ConvBN(in_channels, 64, (3, 3),
-                               (h_stride, (1 + self.fold) * w_stride))
+        if stem == "factorized":
+            self.FactorizedStem_0 = FactorizedStem(
+                in_channels // 2, 64, (3, 3), (h_stride, w_stride))
+        elif stem in ("s2d", "s2d-pre"):
+            self.ConvBN_0 = ConvBN(h_stride * w_stride * in_channels, 64,
+                                   (2, 2), (1, 1))
+        else:
+            self.ConvBN_0 = ConvBN(in_channels, 64, (3, 3),
+                                   (h_stride, (1 + self.fold) * w_stride))
         spec = [  # (squeeze, expand1, expand3, strides)
             (16, 64, 64, (1, 1) if self.fold else entry),
             (16, 64, 64, (1, 1)),
@@ -80,7 +111,9 @@ class PointSegEncoder(nn.Module):
         ]
         c = 64
         for i, (sq, e1, e3, st) in enumerate(spec):
-            setattr(self, f"Fire_{i}", Fire(c, sq, e1, e3, st))
+            # mixed: the four shallow Fires fused, the deep ones classic
+            fused = fire == "fused" or (fire == "mixed" and i < 4)
+            setattr(self, f"Fire_{i}", Fire(c, sq, e1, e3, st, fused))
             c = e1 + e3
         self.with_se = with_se
         if with_se:
@@ -106,9 +139,21 @@ class PointSegEncoder(nn.Module):
                              f"{ws} -> {got} != {want}; use pool=stride")
         return pads
 
-    def forward(self, x: ConvInput
+    def _stem(self, x: ConvInput, combos: Combos) -> torch.Tensor:
+        if self.stem == "factorized":
+            return self.FactorizedStem_0(x, combos)
+        if self.stem == "s2d":
+            hs, ws = self.strides
+            x = space_to_depth(x.permute(0, 2, 3, 1), hs, ws)
+            return self.ConvBN_0(x.permute(0, 3, 1, 2))
+        return self.ConvBN_0(x, self._fold_pads(x) if self.fold else None)
+
+    def forward(self, x: ConvInput, combos: Combos = ()
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-        c1 = self.ConvBN_0(x, self._fold_pads(x) if self.fold else None)
+        """``x``: NCHW pair images, the ``(a, b)`` frames of each pair
+        under ``pair-split``, or the frames [B, S, C, H, W] and their
+        ``combos`` under ``factorized``."""
+        c1 = self._stem(x, combos)
         f2 = self.Fire_0(self._pool(c1))
         f3 = self.Fire_1(f2)
         if self.with_se:
@@ -168,7 +213,8 @@ class PointSegNet(nn.Module):
     def __init__(self, in_channels: int, part: str = "encoder",
                  num_classes: Optional[int] = None, h_stride: int = 1,
                  w_stride: int = 2, with_se: bool = True,
-                 el_squeeze: int = 0, pool: str = "stride"):
+                 el_squeeze: int = 0, pool: str = "stride",
+                 stem: str = "classic", fire: str = "classic"):
         super().__init__()
         if part not in PARTS:
             raise ValueError(f"part must be {'|'.join(PARTS)}, got {part!r}")
@@ -177,7 +223,7 @@ class PointSegNet(nn.Module):
                              "its skip c1 is at half the decoder's width")
         self.part, self.num_classes = part, num_classes
         self.encoder = PointSegEncoder(in_channels, h_stride, w_stride,
-                                       with_se, el_squeeze, pool)
+                                       with_se, el_squeeze, pool, stem, fire)
         if part == "encoder" and num_classes is None:
             return
         self.decoder = PointSegDecoder()
@@ -187,8 +233,8 @@ class PointSegNet(nn.Module):
                 (h_stride, w_stride))
             self.Conv_0 = SameConv2d(64, num_classes, (1, 1))
 
-    def forward(self, x: ConvInput) -> torch.Tensor:
-        feat, skips = self.encoder(x)
+    def forward(self, x: ConvInput, combos: Combos = ()) -> torch.Tensor:
+        feat, skips = self.encoder(x, combos)
         if self.part == "encoder" and self.num_classes is None:
             return feat
         dec = self.decoder(feat, skips)

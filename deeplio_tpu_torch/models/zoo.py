@@ -1,17 +1,22 @@
 """The model zoo and its factory (counterpart of
 ``deeplio_tpu/models/zoo.py``: ``DeepIO``, ``DeepLO``, ``DeepLIO`` with
-every IMU and odometry net (LSTM, GRU, bidirectional, FC), the classic and
-pair-split paths of ``_lidar_features`` and ``build_model``).
+every IMU and odometry net (LSTM, GRU, bidirectional, FC), every stem's
+path of ``_lidar_features``, ``build_model`` and
+``factorize_stem_variables``).
 
 Forward contract, as in the JAX package::
 
     model(batch) -> (x_pred [B, P, 3], q_pred [B, P, 4])
 
-with ``batch`` holding ``images`` [B, P, H, W, 2C] (NHWC pair stacks) for
-the LiDAR archs (DeepLO, DeepLIO), or under ``stem: pair-split`` the
-frame-i and frame-j stacks ``images`` and ``images2`` [B, P, H, W, C],
-and ``imu`` [B, P, T, 6] and ``imu_mask`` [B, P, T] for the IMU archs
-(DeepIO, DeepLIO).
+with ``batch`` holding, for the LiDAR archs (DeepLO, DeepLIO), ``images``
+[B, P, H, W, 2C] (NHWC pair stacks); under ``stem: pair-split`` the
+frame-i and frame-j stacks ``images`` and ``images2`` [B, P, H, W, C];
+under ``s2d-pre`` ``images`` [B, P, H / h, W / w, h * w * 2C]
+(``blocks.py::space_to_depth_pairs``); under ``factorized`` the window's
+``frames`` [B, S, H, W, C], paired by the model's ``combos`` (the
+config's effective combinations, or the ``combos`` passed to
+``forward``); and ``imu`` [B, P, T, 6] and ``imu_mask`` [B, P, T] for the
+IMU archs (DeepIO, DeepLIO).
 
 Layout: the images stay NHWC in memory. The tower sees them through a
 permuted view, NCHW by shape and channels-last by strides, so cuDNN runs
@@ -32,8 +37,9 @@ for some small strided bfloat16 convolutions, so CPU runs use float32.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -56,13 +62,18 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
 
+Combos = Tuple[Tuple[int, int], ...]
+
+
 def _lidar_net(cfg: ModelConfig, image_channels: int) -> nn.Module:
-    """The LiDAR tower a config names, over pair-stacked images."""
+    """The LiDAR tower a config names, over pair-stacked images (or their
+    frames, for the factorized stem)."""
     lc = cfg.lidar
     if lc.name == "lidar-feat-pointseg":
         return LidarPointSegFeat(
             2 * image_channels, lc.feature_size, lc.h_stride, lc.w_stride,
-            lc.se, lc.el_squeeze, lc.dropout, lc.pool, lc.part)
+            lc.se, lc.el_squeeze, lc.dropout, lc.pool, lc.part, lc.stem,
+            lc.fire)
     simple = {"lidar-feat-simple-0": LidarSimpleFeat0,
               "lidar-feat-simple-1": LidarSimpleFeat1}.get(lc.name)
     if simple is None:
@@ -86,9 +97,11 @@ class _Odometry(nn.Module):
     over the window's pairs and the pose heads (registered last, after
     the feature nets, in the JAX package's order)."""
 
-    # the LiDAR archs' ``stem: pair-split``: the tower takes each pair's
-    # two frames apart (``images``, ``images2``)
-    pair_split = False
+    # the LiDAR archs' stem (``pair-split``: the tower takes each pair's
+    # two frames apart, ``images`` and ``images2``; ``factorized``: the
+    # window's ``frames``, paired by ``combos``)
+    stem = "classic"
+    combos: Combos = ()
 
     def _tail(self, cfg: ModelConfig, feature_size: int) -> None:
         self.compute_dtype = DTYPES[cfg.compute_dtype]
@@ -106,15 +119,38 @@ class _Odometry(nn.Module):
         return torch.autocast(device.type, dtype=self.compute_dtype,
                               enabled=low)
 
+    def _lidar_init(self, cfg: ModelConfig, image_channels: int,
+                    combos: Combos) -> None:
+        self.lidar_feat = _lidar_net(cfg, image_channels)
+        self.stem = cfg.lidar.stem
+        self.combos = tuple(tuple(c) for c in combos)
+
+    def _pairs(self, batch: Dict[str, torch.Tensor],
+               combos: Optional[Combos]) -> Tuple[int, int]:
+        """(windows B, pairs P) of a LiDAR batch."""
+        if self.stem == "factorized":
+            return (batch["frames"].shape[0],
+                    len(self.combos if combos is None else combos))
+        return tuple(batch["images"].shape[:2])
+
     def _lidar(self, batch: Dict[str, torch.Tensor],
-               generator: Optional[torch.Generator]) -> torch.Tensor:
+               generator: Optional[torch.Generator],
+               combos: Optional[Combos] = None) -> torch.Tensor:
         """The LiDAR tower on the pair images: [B * P, F]. Under
-        ``pair-split`` the stem takes the two frames of each pair apart."""
+        ``pair-split`` the stem takes the two frames of each pair apart;
+        under ``factorized`` it takes the window's frames [B, S, C, H, W]
+        (a permuted view) and pairs them by ``combos`` (default the
+        model's)."""
+        if self.stem == "factorized":
+            return self.lidar_feat(
+                batch["frames"].permute(0, 1, 4, 2, 3), generator,
+                self.combos if combos is None else combos)
+
         def nchw(key):                                        # NCHW view
             return batch[key].flatten(0, 1).permute(0, 3, 1, 2)
 
         x = nchw("images")
-        if self.pair_split:
+        if self.stem == "pair-split":
             x = (x, nchw("images2"))
         return self.lidar_feat(x, generator)
 
@@ -135,7 +171,7 @@ class DeepIO(_Odometry):
     """IMU-only: imu-feat -> odom-feat -> pose heads."""
 
     def __init__(self, cfg: ModelConfig, image_channels: int = 0,
-                 imu_window: int = 16):
+                 imu_window: int = 16, combos: Combos = ()):
         super().__init__()
         self.imu_feat = _imu_net(cfg, imu_window)
         self._tail(cfg, cfg.imu.feature_size)
@@ -152,40 +188,42 @@ class DeepLO(_Odometry):
     """LiDAR-only: lidar-feat -> odom-feat -> pose heads."""
 
     def __init__(self, cfg: ModelConfig, image_channels: int,
-                 imu_window: int = 16):
+                 imu_window: int = 16, combos: Combos = ()):
         super().__init__()
-        self.lidar_feat = _lidar_net(cfg, image_channels)
-        self.pair_split = cfg.lidar.stem == "pair-split"
+        self._lidar_init(cfg, image_channels, combos)
         self._tail(cfg, cfg.lidar.feature_size)
 
     def forward(self, batch: Dict[str, torch.Tensor],
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                combos: Optional[Combos] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        b, p = batch["images"].shape[:2]
-        with self._autocast(batch["images"].device):
-            return self._pose(self._lidar(batch, generator), b, p, generator)
+        b, p = self._pairs(batch, combos)
+        key = "frames" if self.stem == "factorized" else "images"
+        with self._autocast(batch[key].device):
+            return self._pose(self._lidar(batch, generator, combos), b, p,
+                              generator)
 
 
 class DeepLIO(_Odometry):
     """lidar-feat (+) imu-feat -> fusion -> odom-feat -> pose heads."""
 
     def __init__(self, cfg: ModelConfig, image_channels: int,
-                 imu_window: int = 16):
+                 imu_window: int = 16, combos: Combos = ()):
         super().__init__()
         lc, ic = cfg.lidar, cfg.imu
-        self.lidar_feat = _lidar_net(cfg, image_channels)
-        self.pair_split = lc.stem == "pair-split"
+        self._lidar_init(cfg, image_channels, combos)
         self.imu_feat = _imu_net(cfg, imu_window)
         self.fusion = FusionLayer(lc.feature_size, ic.feature_size,
                                   cfg.fusion.kind)
         self._tail(cfg, lc.feature_size + ic.feature_size)
 
     def forward(self, batch: Dict[str, torch.Tensor],
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                combos: Optional[Combos] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        b, p = batch["images"].shape[:2]
-        with self._autocast(batch["images"].device):
-            lidar = self._lidar(batch, generator)
+        b, p = self._pairs(batch, combos)
+        with self._autocast(batch["imu"].device):
+            lidar = self._lidar(batch, generator, combos)
             fused = self.fusion(lidar, self._imu(batch))
             return self._pose(fused, b, p, generator)
 
@@ -233,7 +271,56 @@ def build_model(cfg: Config, device: DeviceLike = None,
     dev = resolve_device(device)
     model = ARCHS[cfg.model.arch](cfg.model,
                                   cfg.datasets.num_image_channels,
-                                  cfg.datasets.max_imu_per_pair)
+                                  cfg.datasets.max_imu_per_pair,
+                                  cfg.datasets.effective_combinations)
     if seed is not None:
         init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
+
+
+def factorize_stem_variables(variables: Dict[str, Any],
+                             channels_per_frame: int) -> Dict[str, Any]:
+    """Flax-layout variables of a classic-stem PointSeg -> the
+    ``factorized`` stem's layout (the JAX package's function, on numpy
+    trees such as ``from_flax.to_flax_variables`` gives and
+    ``import_torch.import_state_dict`` returns).
+
+    Every ``encoder`` holding a ``ConvBN_0`` gets ``FactorizedStem_0`` in
+    its place: the classic kernel [kh, kw, 2C, F] splits by input-channel
+    half into [kh, kw, C, 2F] (the first half to output channels [0, F),
+    the second to [F, 2F)); a bias ``b`` becomes ``concat([b, 0])``, so
+    the pair sum adds it once; the BatchNorm's parameters and statistics
+    move as they are. ``ValueError`` when the kernel does not have 2C
+    input channels."""
+    def rewrite(tree):
+        if not isinstance(tree, dict):
+            return tree
+        out = {}
+        for k, v in tree.items():
+            if k == "encoder" and isinstance(v, dict) and "ConvBN_0" in v:
+                enc = dict(v)
+                stem = enc.pop("ConvBN_0")
+                fs = {}
+                if "Conv_0" in stem:
+                    conv = dict(stem["Conv_0"])
+                    kern = np.asarray(conv["kernel"])
+                    c = channels_per_frame
+                    if kern.shape[2] != 2 * c:
+                        raise ValueError(
+                            f"stem kernel has {kern.shape[2]} input "
+                            f"channels, expected 2*{c}")
+                    conv["kernel"] = np.concatenate(
+                        [kern[:, :, :c], kern[:, :, c:]], axis=-1)
+                    if "bias" in conv:
+                        b = np.asarray(conv["bias"])
+                        conv["bias"] = np.concatenate([b, np.zeros_like(b)])
+                    fs["Conv_0"] = conv
+                if "BatchNorm_0" in stem:
+                    fs["BatchNorm_0"] = stem["BatchNorm_0"]
+                enc["FactorizedStem_0"] = fs
+                out[k] = {kk: rewrite(vv) for kk, vv in enc.items()}
+            else:
+                out[k] = rewrite(v)
+        return out
+
+    return rewrite(dict(variables))

@@ -5,6 +5,7 @@ package's ``deeplio_tpu/ops/__init__.py``'s."""
 
 from deeplio_tpu_torch.ops.projection import (
     assemble_channels,
+    check_ring_order,
     compute_normals,
     make_projector,
     normalize_channels,

@@ -210,6 +210,24 @@ def normalize_channels(img: torch.Tensor, mask: torch.Tensor,
     return (img - mean) / std * mask[..., None]
 
 
+def check_ring_order(points: np.ndarray, valid: np.ndarray, H: int, W: int,
+                     fov_up_deg: float, fov_down_deg: float) -> bool:
+    """Host check of the ring route's contract on one [N, 4] scan: the
+    pixel index never decreases over the valid points (those with a range
+    above 1e-6), in numpy as the JAX package computes it."""
+    x, y, z = points[:, 0], points[:, 1], points[:, 2]
+    r = np.sqrt(x * x + y * y + z * z)
+    yaw = np.arctan2(y, x)
+    pitch = np.arcsin(np.clip(z / np.maximum(r, 1e-9), -1.0, 1.0))
+    fov_down = np.float32(np.deg2rad(fov_down_deg))
+    fov = np.float32(np.deg2rad(fov_up_deg - fov_down_deg))
+    uu = np.clip(np.floor(0.5 * (1.0 - yaw / np.float32(np.pi)) * W), 0,
+                 W - 1)
+    vv = np.clip(np.floor((1.0 - (pitch - fov_down) / fov) * H), 0, H - 1)
+    pix = (vv * W + uu)[np.asarray(valid, bool) & (r > 1e-6)]
+    return bool(np.all(np.diff(pix) >= 0))
+
+
 def aligned_route_feasible(n: int, H: int, W: int) -> bool:
     """Whether a scan capacity ``n`` is a whole number of slots a pixel."""
     n_pix = H * W

@@ -2,11 +2,25 @@
 (counterpart of ``deeplio_tpu/train/optim.py``).
 
 The JAX package chains ``optax.clip_by_global_norm`` in front of
-``optax.adam`` driven by a step-indexed schedule. Here ``torch.optim.Adam``
-computes the same update; :class:`Optimizer` sets its learning rate from
-the step count before each update and clips the gradients the way optax
-does: by ``c / |g|`` when the global norm ``|g| >= c``, with no epsilon
-(``clip_grad_norm_`` adds 1e-6 to the norm, so it is not used). The schedules follow optax's
+``optax.adam`` (``optax.adamw`` with ``weight-decay``) or ``optax.sgd``
+with momentum (behind ``optax.add_decayed_weights`` with
+``weight-decay``), driven by a step-indexed schedule. Here
+``torch.optim.Adam`` and ``torch.optim.SGD`` compute the same updates;
+:class:`Optimizer` sets their learning rate from the step count before
+each update and clips the gradients the way optax does: by ``c / |g|``
+when the global norm ``|g| >= c``, with no epsilon (``clip_grad_norm_``
+adds 1e-6 to the norm, so it is not used).
+
+AdamW is optax's: ``p + (-lr) * (adam + wd * p)``, the decay scaled by
+the learning rate. ``torch.optim.AdamW`` is the same update, its decay
+taken first as ``p * (1 - lr * wd)``; here the decay is taken first as
+``p + (-lr * wd) * p`` (the old ``p``, as optax reads it) and Adam's
+step after it, which rounds apart from optax by a few ulps of ``p``
+(``tests/test_torch_optim.py`` measures it). SGD is optax's trace ``t =
+g + m * t`` from zeros (so the first ``t = g``), which is
+``torch.optim.SGD`` with ``dampening=0`` and ``nesterov=False``, its
+``weight_decay`` adding ``wd * p`` to the clipped gradient before the
+trace, as optax's chain orders them. The schedules follow optax's
 ``exponential_decay(staircase=True)``, ``cosine_decay_schedule`` and the
 ``linear_schedule`` warm-up joined in front of them, in float32. With
 ``scheduler: plateau`` the learning rate is a float32 constant that only
@@ -67,30 +81,49 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
 
 
 class Optimizer:
-    """Adam with optax's gradient clip and a step-indexed (or plateau)
-    learning rate, over one list of parameters (the model's and the loss's
-    alike: one update, one norm)."""
+    """Adam, AdamW or SGD with momentum, with optax's gradient clip and a
+    step-indexed (or plateau) learning rate, over one list of parameters
+    (the model's and the loss's alike: one update, one norm, one decay)."""
 
     def __init__(self, cfg: OptimConfig, params: Iterable[torch.Tensor],
                  steps_per_epoch: int = 1000):
         self.params = list(params)
+        self.name = cfg.name
         # plateau: the constant learning rate the controller rewrites
         self.lr = float(np.float32(cfg.lr))
         self.schedule = (None if cfg.scheduler == "plateau"
                          else make_schedule(cfg, steps_per_epoch))
         self.grad_clip = cfg.grad_clip
         self.flat_update = cfg.flat_update
-        self.inner = torch.optim.Adam(self.params, lr=self.learning_rate(0),
-                                      betas=(0.9, 0.999), eps=1e-8)
+        lr = self.learning_rate(0)
+        if cfg.name == "sgd":
+            self.decay = 0.0          # inside torch's SGD
+            self.inner = torch.optim.SGD(
+                self.params, lr=lr, momentum=cfg.momentum, dampening=0.0,
+                nesterov=False, weight_decay=cfg.weight_decay)
+        else:
+            self.decay = cfg.weight_decay
+            self.inner = torch.optim.Adam(self.params, lr=lr,
+                                          betas=(0.9, 0.999), eps=1e-8)
 
     def learning_rate(self, count: int) -> float:
         return self.lr if self.schedule is None else self.schedule(count)
 
     def state_dict(self) -> dict:
-        return {"adam": self.inner.state_dict(), "lr": self.lr}
+        """The inner optimizer's state (Adam's moments and step, or SGD's
+        momentum buffers) under ``inner``, its ``name`` and the plateau
+        learning rate."""
+        return {"name": self.name, "inner": self.inner.state_dict(),
+                "lr": self.lr}
 
     def load_state_dict(self, d: dict) -> None:
-        self.inner.load_state_dict(d["adam"])
+        """Also a checkpoint from before SGD was ported, whose Adam state
+        is under ``adam``."""
+        name = d.get("name", "adam")
+        if name != self.name:
+            raise ValueError(f"the checkpoint's optimizer is {name}, the "
+                             f"run's {self.name}")
+        self.inner.load_state_dict(d["inner"] if "inner" in d else d["adam"])
         self.lr = float(d["lr"])
 
     def zero_grad(self) -> None:
@@ -113,6 +146,11 @@ class Optimizer:
                     torch.cat([g.flatten() for g in grads]))
             clip_by_global_norm_(grads, self.grad_clip, clip_norm)
         lr = self.learning_rate(count)
+        if self.decay > 0:
+            # AdamW: the decay on the parameters before Adam's step
+            with torch.no_grad():
+                torch._foreach_add_(self.params, self.params,
+                                    alpha=-lr * self.decay)
         for group in self.inner.param_groups:
             group["lr"] = lr
         self.inner.step()

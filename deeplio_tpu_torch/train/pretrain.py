@@ -20,7 +20,9 @@ Each step projects its B scans twice:
 - through the config's projector (the ring kernel for ``backend:
   pallas-ring``), for the model input: the image pair-stacked with
   itself, ``concat([img, img])``, the width of the odometry encoder's
-  input, so its kernels graft unchanged;
+  input, so its kernels graft unchanged (for the ``factorized`` stem the
+  frames [B, 1, ...], each scan its own pair ``(0, 0)``; ``s2d-pre``
+  pretrains as ``s2d``, with the same parameters);
 - through the scatter kernel, once (``ops/projection_scatter.py::
   project_batch``, JAX's): for geometric labels ``project_batch(packed=
   packed)`` as in JAX, whose mask and z give the pseudo-labels, the exact
@@ -185,20 +187,31 @@ def label_image(planes: Sequence[torch.Tensor], valid: torch.Tensor,
     return torch.round(img5[..., 3]).long()
 
 
+# the stem each odometry stem pretrains with: the same parameters, a
+# model input the pretraining batch has (the JAX package's rule)
+PRETRAIN_STEMS = {"pair-split": "classic", "s2d-pre": "s2d"}
+# the factorized stem's one "pair", a standing-still pair of each scan
+STILL = ((0, 0),)
+
+
 def build_pointseg(cfg: Config, num_classes: int) -> PointSegNet:
     """The segmentation net with the odometry encoder's tower settings, so
     its encoder grafts: ``part=encoder+decoder``, ``num_classes`` logits,
-    the pair-stacked input width, the config's pool, ``stride-fold`` as
-    ``stride`` (its parameters are the same, and the folded stem has no
-    skip the decoder can read), as the JAX package pretrains it. The
-    input is the pair concat also for a ``pair-split`` stem, whose
-    parameters are the classic stem's."""
+    the pair-stacked input width, the config's Fire and pool,
+    ``stride-fold`` as ``stride`` (its parameters are the same, and the
+    folded stem has no skip the decoder can read), as the JAX package
+    pretrains it. The input is the pair concat also for a ``pair-split``
+    stem, whose parameters are the classic stem's; ``s2d-pre`` pretrains
+    as ``s2d`` (the same parameters, the layout made inside the model);
+    ``factorized`` on the frames, each scan its own pair ``(0, 0)``."""
     lc = cfg.model.lidar
     return PointSegNet(2 * cfg.datasets.num_image_channels,
                        part="encoder+decoder", num_classes=num_classes,
                        h_stride=lc.h_stride, w_stride=lc.w_stride,
                        with_se=lc.se, el_squeeze=lc.el_squeeze,
-                       pool={"stride-fold": "stride"}.get(lc.pool, lc.pool))
+                       pool={"stride-fold": "stride"}.get(lc.pool, lc.pool),
+                       stem=PRETRAIN_STEMS.get(lc.stem, lc.stem),
+                       fire=lc.fire)
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
@@ -213,18 +226,23 @@ def build_inputs(cfg: Config) -> Callable:
     (:func:`sample_batch`'s through ``train/step.py::batch_to_device``),
     with no gradient: ``x`` the pair-stacked model input [B, 2C, H, W] in
     the compute dtype (an NCHW view of NHWC memory, channels-last) from
-    the config's projector, ``target`` the label image [B, H, W] int64
-    (:func:`label_image`)."""
+    the config's projector, or for the factorized stem the frames [B, 1,
+    C, H, W] (each scan its own pair, :data:`STILL`); ``target`` the
+    label image [B, H, W] int64 (:func:`label_image`)."""
     ds = cfg.datasets
     proj = ds.projection
     projector = make_projector(proj, ds.channels, ds.mean, ds.std,
                                out_dtype=compute_dtype(cfg), layout="planes")
+    factorized = cfg.model.lidar.stem == "factorized"
 
     @torch.no_grad()
     def inputs(batch):
         planes = [batch[k] for k in PLANES]
         img, _ = projector(planes, batch["points_valid"])
-        x = torch.cat([img, img], -1).permute(0, 3, 1, 2)
+        if factorized:
+            x = img[:, None].permute(0, 1, 4, 2, 3)
+        else:
+            x = torch.cat([img, img], -1).permute(0, 3, 1, 2)
         return x, label_image(planes, batch["points_valid"],
                               batch.get("labels"), proj.height, proj.width,
                               proj.fov_up_deg, proj.fov_down_deg,
@@ -242,6 +260,7 @@ def build_pretrain_step(cfg: Config, model: nn.Module,
     argmax is their label) are detached scalars on the device."""
     dtype = compute_dtype(cfg)
     inputs = build_inputs(cfg)
+    combos = STILL if cfg.model.lidar.stem == "factorized" else ()
 
     def step(batch):
         model.train()
@@ -250,7 +269,7 @@ def build_pretrain_step(cfg: Config, model: nn.Module,
         with record_function("pretrain.forward"):
             with torch.autocast(x.device.type, dtype=dtype,
                                 enabled=dtype != torch.float32):
-                logits = model(x)
+                logits = model(x, combos)
             loss = masked_xent(logits, target, num_classes)
         with record_function("pretrain.backward"):
             optimizer.zero_grad()

@@ -8,8 +8,9 @@ on the model's device. PyTorch updates them in place.
 
 ``state_dict()`` / ``load_state_dict()`` cover all of it, so a checkpoint
 (``train/checkpoint.py``) restores a run bit for bit: the model's
-parameters and BatchNorm buffers, ``sx``/``sq``, Adam's moments and step
-(and the plateau learning rate), ``step`` and the generator's state.
+parameters and BatchNorm buffers, ``sx``/``sq``, the optimizer's state
+(Adam's moments and step, or SGD's momentum buffers, and the plateau
+learning rate), ``step`` and the generator's state.
 """
 
 from __future__ import annotations

@@ -16,9 +16,11 @@ H, W, C] float16 in place of the planes: the step then projects nothing.
 One training step, in order: yaw augmentation (when configured), one
 projection of all B*S frames (a single kernel launch; none for DeepIO,
 whose batches carry no points), the P pair images
-per window, the forward pass in training mode (BatchNorm batch statistics
-and their running update, dropout), the pose loss, backward, optax's
-global-norm clip and the Adam update. The phases run under the profiler
+per window (or the frames, or their space-to-depth pairs, as the stem
+takes them), the forward pass in training mode (BatchNorm batch
+statistics and their running update, dropout), the pose loss, backward,
+optax's global-norm clip and the optimizer's update (Adam, AdamW or SGD
+with momentum). The phases run under the profiler
 spans ``train.augment``, ``train.project``, ``train.forward``,
 ``train.backward`` and ``train.update`` (a few microseconds each when no
 profiler runs).
@@ -35,6 +37,7 @@ from torch.profiler import record_function
 from deeplio_tpu_torch.config.schema import Config
 from deeplio_tpu_torch.device import DeviceLike, resolve_device
 from deeplio_tpu_torch.losses.pose import pose_loss
+from deeplio_tpu_torch.models.blocks import space_to_depth_pairs
 from deeplio_tpu_torch.models.zoo import DTYPES
 from deeplio_tpu_torch.ops.augment import yaw_augment
 from deeplio_tpu_torch.ops.projection import make_projector
@@ -62,10 +65,14 @@ def batch_to_device(host: Dict[str, np.ndarray],
 def make_model_batch(cfg: Config, projector: Callable, raw: Batch) -> Batch:
     """Raw planes (or cached images) and IMU -> the model's batch: for the
     LiDAR archs ``images`` [B, P, H, W, 2C], the channel concat of frames
-    i and j of each configured pair, or under ``stem: pair-split`` the
+    i and j of each configured pair; under ``stem: pair-split`` the
     frame-i and frame-j stacks ``images`` and ``images2`` [B, P, H, W, C]
-    (slices of the frames for consecutive pairs, else gathers); for the
-    IMU archs the IMU windows. DeepIO projects nothing."""
+    (slices of the frames for consecutive pairs, else gathers); under
+    ``s2d-pre`` the pairs in space-to-depth layout, ``images`` [B, P, H /
+    h, W / w, h * w * 2C] (``space_to_depth_pairs``: no full-resolution
+    pair stack); under ``factorized`` the frames themselves, ``frames``
+    [B, S, H, W, C], which the stem pairs after its conv. For the IMU
+    archs the IMU windows. DeepIO projects nothing."""
     mb: Batch = {}
     if cfg.model.uses_lidar:
         if "images" in raw:
@@ -78,16 +85,23 @@ def make_model_batch(cfg: Config, projector: Callable, raw: Batch) -> Batch:
             b = raw["x_gt"].shape[0]
             imgs = imgs.reshape((b, -1) + tuple(imgs.shape[1:]))
         combos = cfg.datasets.effective_combinations
+        lc = cfg.model.lidar
         p = len(combos)
-        if all(c == (k, k + 1) for k, c in enumerate(combos)):
-            first, second = imgs[:, :p], imgs[:, 1:p + 1]
+        if lc.stem == "factorized":
+            mb["frames"] = imgs
+        elif lc.stem == "s2d-pre":
+            mb["images"] = space_to_depth_pairs(imgs, combos, lc.h_stride,
+                                                lc.w_stride)
         else:
-            first = imgs[:, [i for i, _ in combos]]
-            second = imgs[:, [j for _, j in combos]]
-        if cfg.model.lidar.stem == "pair-split":
-            mb["images"], mb["images2"] = first, second
-        else:
-            mb["images"] = torch.cat([first, second], -1)
+            if all(c == (k, k + 1) for k, c in enumerate(combos)):
+                first, second = imgs[:, :p], imgs[:, 1:p + 1]
+            else:
+                first = imgs[:, [i for i, _ in combos]]
+                second = imgs[:, [j for _, j in combos]]
+            if lc.stem == "pair-split":
+                mb["images"], mb["images2"] = first, second
+            else:
+                mb["images"] = torch.cat([first, second], -1)
     if cfg.model.uses_imu:
         mb["imu"], mb["imu_mask"] = raw["imu"], raw["imu_mask"]
     return mb

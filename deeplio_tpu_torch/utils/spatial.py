@@ -1,6 +1,6 @@
-"""Quaternion and SE(3) math in float32 (counterpart of the subset of
-``deeplio_tpu/utils/spatial.py`` that streaming odometry, the pose loss
-and yaw augmentation use).
+"""Quaternion and SE(3) math in float32 (counterpart of
+``deeplio_tpu/utils/spatial.py``'s quaternion, Euler-angle and SE(3)
+functions; the host's numpy pose math is ``data/np_spatial.py``).
 
 Conventions as in the JAX package: quaternions are [w, x, y, z], rotation
 matrices are world-from-body, everything broadcasts over leading dims.
@@ -13,6 +13,9 @@ package pins HIGHEST precision for the same reason).
 
 from __future__ import annotations
 
+import math
+from typing import Tuple
+
 import torch
 
 
@@ -22,8 +25,19 @@ def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return q / torch.clamp_min(n, eps)
 
 
+def quat_canonical(q: torch.Tensor) -> torch.Tensor:
+    """The double cover's sign fixed: w >= 0."""
+    return torch.where(q[..., :1] < 0.0, -q, q)
+
+
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
     return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+
+
+def quat_inverse(q: torch.Tensor) -> torch.Tensor:
+    """Inverse of a quaternion, unit or not."""
+    sq = (q * q).sum(-1, keepdim=True)
+    return quat_conjugate(q) / torch.clamp_min(sq, 1e-12)
 
 
 def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -36,6 +50,24 @@ def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         aw * by - ax * bz + ay * bw + az * bx,
         aw * bz + ax * by - ay * bx + az * bw,
     ], dim=-1)
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Vectors ``v`` rotated by the unit quaternion ``q`` (no matmul):
+    ``v + w t + qv x t`` with ``t = 2 qv x v``."""
+    qw, qv = q[..., :1], q[..., 1:]
+    qv, v = torch.broadcast_tensors(qv, v)
+    t = 2.0 * torch.linalg.cross(qv, v)
+    return v + qw * t + torch.linalg.cross(qv, t)
+
+
+def quat_from_axis_angle(axis: torch.Tensor,
+                         angle: torch.Tensor) -> torch.Tensor:
+    """The rotation by ``angle`` (radians) about ``axis`` (any length)."""
+    axis = axis / torch.clamp_min(
+        torch.linalg.vector_norm(axis, dim=-1, keepdim=True), 1e-12)
+    half = 0.5 * angle[..., None]
+    return torch.cat([torch.cos(half), axis * torch.sin(half)], -1)
 
 
 def quat_geodesic_angle(qa: torch.Tensor, qb: torch.Tensor,
@@ -60,6 +92,22 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([row0, row1, row2], dim=-2)
 
 
+def rotmat_to_euler(R: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(roll, pitch, yaw) of ``R = Rz(yaw) Ry(pitch) Rx(roll)`` (KITTI
+    OXTS), the pitch's sine clamped to [-1, 1]."""
+    pitch = torch.asin(torch.clamp(-R[..., 2, 0], -1.0, 1.0))
+    roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    return roll, pitch, yaw
+
+
+def mercator_scale(lat0: torch.Tensor) -> torch.Tensor:
+    """The KITTI devkit's mercator scale ``cos(lat0)``, ``lat0`` in
+    degrees."""
+    return torch.cos(lat0 * math.pi / 180.0)
+
+
 def se3_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Pack (R [..., 3, 3], t [..., 3]) into a 4x4 homogeneous transform."""
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
@@ -68,6 +116,14 @@ def se3_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     top = torch.cat([R, t[..., :, None]], dim=-1)
     bottom = R.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
+
+
+def se3_inverse(T: torch.Tensor) -> torch.Tensor:
+    """The inverse of a rigid transform: [R^T | -R^T t], in full
+    float32."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    t = T[..., :3, 3]
+    return se3_matrix(Rt, -(Rt * t[..., None, :]).sum(-1))
 
 
 def se3_compose(Ta: torch.Tensor, Tb: torch.Tensor) -> torch.Tensor:

@@ -40,7 +40,7 @@ def test_resume_equals_an_uninterrupted_run(tmp_path):
     # parameters and BatchNorm buffers, sx/sq, Adam's moments and step,
     # and the generator
     _assert_equal(got, want)
-    assert want["optimizer"]["adam"]["state"]          # moments present
+    assert want["optimizer"]["inner"]["state"]         # moments present
     assert _losses(tmp_path / "b") == _losses(tmp_path / "a")
 
 

@@ -66,7 +66,7 @@ def _ported_parse_matches_jax(d, path, value):
         for f in ("channels", "mean", "std", "num_image_channels"):
             assert getattr(port.datasets, f) == getattr(ref.datasets, f), f
     elif path[0] == "lidar-feat-pointseg":
-        for f in ("part", "bypass", "stem", "pool"):
+        for f in ("part", "bypass", "stem", "fire", "pool"):
             assert getattr(port.model.lidar, f) == \
                 getattr(ref.model.lidar, f), f
     else:
@@ -81,15 +81,15 @@ def _ported_parse_matches_jax(d, path, value):
 # each case: the setting, and whether the port computes it (ported, held
 # against JAX's parse) or still refuses it naming the slice that adds it
 @pytest.mark.parametrize("path,value,ported", [
-    (("lidar-feat-pointseg", "stem"), "s2d", False),
-    (("lidar-feat-pointseg", "stem"), "s2d-pre", False),
-    (("lidar-feat-pointseg", "fire"), "fused", False),
+    (("lidar-feat-pointseg", "stem"), "s2d", True),
+    (("lidar-feat-pointseg", "stem"), "s2d-pre", True),
+    (("lidar-feat-pointseg", "fire"), "fused", True),
     (("lidar-feat-pointseg", "part"), "encoder+decoder", True),
     (("imu-feat-rnn", "type"), "gru", True),
     (("odom-feat-rnn", "type"), "gru", True),
     (("imu-feat-rnn", "bidirectional"), True, True),
     (("datasets", "channels"), ["x", "y", "z", "depth", "normals"], True),
-    (("lidar-feat-pointseg", "fire"), "mixed", False),
+    (("lidar-feat-pointseg", "fire"), "mixed", True),
     (("datasets", "backend"), "ring", True),
     (("datasets", "backend"), "sort-sentinel", True),
     (("deeplio", "imu-feat-net"), {"name": "imu-feat-fc"}, True),
@@ -109,6 +109,8 @@ def test_unsupported_setting_raises(kitti, path, value, ported):
     got = {"channels": port.datasets.channels,
            "backend": port.datasets.projection.backend,
            "part": getattr(port.model.lidar, "part", None),
+           "stem": getattr(port.model.lidar, "stem", None),
+           "fire": getattr(port.model.lidar, "fire", None),
            "bidirectional": port.model.imu.bidirectional,
            "imu-feat-net": {"name": port.model.imu.name},
            "odom-feat-net": {"name": port.model.odom.name}}.get(path[-1])
@@ -171,28 +173,52 @@ def test_training_blocks_match_jax_parse(kitti):
         assert getattr(port.train, f) == getattr(ref.train, f), f
 
 
+# where each setting lands in the parsed config, the same in both
+_FIELDS = {("optimizer", "name"): ("optim", "name"),
+           ("optimizer", "weight-decay"): ("optim", "weight_decay"),
+           ("optimizer", "momentum"): ("optim", "momentum"),
+           ("lidar-feat-pointseg", "stem"): ("model", "lidar", "stem"),
+           ("lidar-feat-pointseg", "fire"): ("model", "lidar", "fire"),
+           ("param-dtype",): ("model", "param_dtype")}
+
+
+def _field(cfg, path):
+    for name in _FIELDS[path]:
+        cfg = getattr(cfg, name)
+    return cfg
+
+
 @pytest.mark.parametrize("path,value,ported", [
-    (("optimizer", "name"), "sgd", False),
-    (("optimizer", "weight-decay"), 0.1, False),
-    (("lidar-feat-pointseg", "stem"), "factorized", False),
-    (("param-dtype",), "bfloat16", False),
+    (("optimizer", "name"), "sgd", True),
+    (("optimizer", "weight-decay"), 0.1, True),
+    (("lidar-feat-pointseg", "stem"), "factorized", True),
+    (("param-dtype",), "bfloat16", True),
     (("train", "data-parallel"), 2, False),
     (("datasets", "backend"), "sort-sentinel", True),
-    (("lidar-feat-pointseg", "fire"), "mixed", False),
+    (("lidar-feat-pointseg", "fire"), "mixed", True),
     (("train", "data-parallel"), 4, False),
     (("datasets", "backend"), "ring", True),
 ])
 def test_untrained_settings_raise_naming_their_queue(kitti, path, value,
                                                     ported):
-    """A setting the port cannot train yet names its ROADMAP queue item;
-    the backends this test refused before they were ported parse as JAX
-    parses them, with and without ``packed``."""
+    """A setting the port cannot train yet (data parallelism) names its
+    ROADMAP queue item; the settings this test refused before they were
+    ported parse as JAX parses them: the backends with and without
+    ``packed``, the optimizer, stem, Fire and ``param-dtype`` to JAX's
+    values (and SGD's momentum to JAX's default 0.9)."""
     d = copy.deepcopy(kitti)
     _set(d, path, value)
     if not ported:
         with pytest.raises(ConfigError,
-                           match=r"PyTorch port yet; .*Queue 1"):
+                           match=r"PyTorch port yet; .*Queue 1 item 6"):
             load_config_dict(d)
+        return
+    if path[0] != "datasets":
+        port, ref = load_config_dict(d), jax_load_dict(d)
+        assert _field(port, path) == _field(ref, path) == value
+        for f in ("name", "lr", "weight_decay", "momentum"):
+            assert getattr(port.optim, f) == getattr(ref.optim, f), f
+        assert port.optim.momentum == 0.9
         return
     for packed in (True, False):
         d["datasets"]["packed"] = packed
@@ -299,3 +325,50 @@ def test_kitti_splits_raise_naming_item_3(kitti):
             build_drives(cfg, split)
     with pytest.raises(FileNotFoundError):
         Trainer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("path,value", [
+    *((("lidar-feat-pointseg", "stem"), v) for v in
+      ("classic", "pair-split", "s2d", "s2d-pre", "factorized")),
+    *((("lidar-feat-pointseg", "fire"), v) for v in
+      ("classic", "fused", "mixed")),
+    (("optimizer", "name"), "adam"), (("optimizer", "name"), "sgd"),
+    (("optimizer", "momentum"), 0.0), (("optimizer", "weight-decay"), 0.01),
+    *((("param-dtype",), v) for v in ("float32", "bfloat16", "float16")),
+])
+def test_every_variant_value_parses_as_jax(kitti, path, value):
+    """Every stem, Fire, optimizer and ``param-dtype`` value the JAX
+    package parses loads in the port, to JAX's value."""
+    d = copy.deepcopy(kitti)
+    _set(d, path, value)
+    port, ref = load_config_dict(d), jax_load_dict(d)
+    assert _field(port, path) == _field(ref, path) == value
+
+
+def test_param_dtype_is_parsed_and_never_read(kitti):
+    """A kept quirk of the reference: JAX passes ``param-dtype`` to no
+    module, so its parameters stay float32 whatever the file says; the
+    port's do too (ROADMAP Queue 3)."""
+    import jax
+    import numpy as np
+    import torch
+
+    from deeplio_tpu.models import build_model as jax_build_model
+    from deeplio_tpu.models.zoo import example_batch
+    from deeplio_tpu_torch.models.zoo import build_model
+
+    d = copy.deepcopy(kitti)
+    d["param-dtype"] = "bfloat16"
+    d["datasets"].update({"image-height": 8, "image-width": 64,
+                          "max-points": 512})
+    port_cfg, ref_cfg = load_config_dict(d), jax_load_dict(d)
+    assert port_cfg.model.param_dtype == ref_cfg.model.param_dtype == \
+        "bfloat16"
+    net = jax_build_model(ref_cfg)
+    shapes = jax.eval_shape(lambda: net.init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+        example_batch(ref_cfg, 1), train=False))
+    assert {np.dtype(a.dtype) for a in jax.tree_util.tree_leaves(
+        shapes)} == {np.dtype(np.float32)}
+    model = build_model(port_cfg, device="cpu", seed=0)
+    assert {p.dtype for p in model.parameters()} == {torch.float32}

@@ -432,9 +432,9 @@ def test_fit_then_resume_on_the_card_equals_an_uninterrupted_run(
         assert torch.equal(got["model"][k], v), k
     for k, v in want["loss_params"].items():
         assert torch.equal(got["loss_params"][k], v), k
-    for i, st in want["optimizer"]["adam"]["state"].items():
+    for i, st in want["optimizer"]["inner"]["state"].items():
         for k, v in st.items():
-            assert torch.equal(got["optimizer"]["adam"]["state"][i][k], v), \
+            assert torch.equal(got["optimizer"]["inner"]["state"][i][k], v), \
                 (i, k)
     assert torch.equal(got["generator"], want["generator"])
     with open(tmp_path / "a" / "metrics.jsonl") as f:
@@ -1124,3 +1124,88 @@ def test_exact_z_pretrain_step_launches_each_kernel_once(cuda, monkeypatch):
     plain = tpre.label_image(*args, select=tsc.scatter_select_reference,
                              packed=False)
     assert torch.equal(kernel, plain) and kernel.any()
+
+
+def _slice10_cfg(which):
+    """``bench/slice10.py``'s configuration ``which`` at 16x128, float32,
+    windows of 3, no dropout."""
+    from deeplio_tpu_torch.bench.slice10 import slice10_dict
+    from deeplio_tpu_torch.config import load_config_dict
+    with open(KITTI_TPU) as f:
+        d = yaml.safe_load(f)
+    d["datasets"].update({"image-height": 16, "image-width": 128,
+                          "max-points": 2048, "sequence-size": 3,
+                          "window-stride": 2})
+    d["compute-dtype"] = "float32"
+    d["deeplio"]["dropout"] = 0.0
+    return load_config_dict(slice10_dict(d, which))
+
+
+@pytest.mark.parametrize("which", ["A", "B"])
+def test_slice10_step_on_the_card(cuda, which):
+    """One float32 training step of A (factorized stem, mixed Fires, SGD:
+    one ring launch) and of B (s2d-pre stem, fused Fires, AdamW: one
+    scatter launch) at 16x128: a finite loss within 1e-3 of the CPU's,
+    TF32 off; under A the momentum buffers exist after the step."""
+    from deeplio_tpu_torch.data.dataset import WindowDataset
+    from deeplio_tpu_torch.data.drives import SyntheticDrive
+    from deeplio_tpu_torch.models.zoo import build_model
+    from deeplio_tpu_torch.train.state import create_train_state
+    from deeplio_tpu_torch.train.step import batch_to_device, build_train_step
+    cfg = _slice10_cfg(which)
+    host = next(iter(WindowDataset(
+        cfg.datasets, [SyntheticDrive(n_frames=5, max_points=2048)]
+    ).iter_batches(2, shuffle=False)))
+    train_step, _ = build_train_step(cfg)
+    op = tring._OP if which == "A" else tsc._OP
+    loss = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", "cuda"):
+            state = create_train_state(cfg, build_model(cfg, dev, seed=0),
+                                       10)
+            before = op.launches
+            state, m = train_step(state, batch_to_device(host, dev))
+            loss[dev] = float(m["loss"])
+            if dev == "cuda":
+                assert op.launches - before == 1
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert np.isfinite(loss["cuda"])
+    assert abs(loss["cuda"] - loss["cpu"]) <= 1e-3 * abs(loss["cpu"])
+    if which == "A":
+        inner = state.optimizer.inner
+        assert all(inner.state[p]["momentum_buffer"] is not None
+                   for p in state.optimizer.params)
+
+
+@pytest.mark.parametrize("which", ["A", "B"])
+def test_slice10_stream_tick_on_the_card(cuda, which):
+    """A streamed drive of 3 frames on the card under each stem (the
+    factorized frames with the pair (0, 1); the space-to-depth pair): one
+    launch a tick; each frame's motion within 1e-2 of the largest of the
+    CPU's, float32, TF32 off (the two projections may put a boundary
+    point in neighbouring pixels: trig ulps)."""
+    from deeplio_tpu_torch.data.drives import SyntheticDrive
+    from deeplio_tpu_torch.eval.streaming import StreamingOdometry
+    from deeplio_tpu_torch.models.zoo import build_model
+    cfg = _slice10_cfg(which)
+    drive = SyntheticDrive(n_frames=3, max_points=2048, seed=5, rings=16)
+    op = tring._OP if which == "A" else tsc._OP
+    out = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", "cuda"):
+            model = build_model(cfg, dev, seed=0)
+            before = op.launches
+            out[dev] = StreamingOdometry(cfg, model, chunk=3,
+                                         device=dev).run(drive)
+            if dev == "cuda":
+                assert op.launches - before == 3
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for got, want in zip(out["cuda"][1:], out["cpu"][1:]):     # dx, dq
+        assert np.isfinite(got).all()
+        assert np.abs(got - want).max() <= 1e-2 * np.abs(want).max()

@@ -208,6 +208,28 @@ the scatter kernel, ``backend: pallas``) on the same tree:
     scatter launches), each snapshot grafted into a Trainer that takes a
     step.
 
+Slice 11, data parallelism (``parallel/``, DDP, BatchNorm statistics over
+the data axis, the multi-process Trainer), slice 2's configuration and
+batch and phase 11's tree:
+
+18. NCCL at world 1 through the data-parallel path: 3 + 10 bf16 steps
+    of 16 windows x 9 frames, the first step's scatter selection spied
+    and bit-equal to the plain version, then one scatter launch a step,
+    timed beside the mesh-less step on the same batch, both profiled; the
+    kernel timed on the spied step's selection inputs beside its bound;
+    a float32 SGD step (no augmentation, no dropout) against the
+    mesh-less float32 step on the same weights within ``DP_*``. Then two
+    gloo ranks on the one card (spawned; NCCL refuses two ranks on one
+    GPU), 8 windows each: the float32 step on each rank's rows (one
+    scatter launch a rank, bit-equal), the ranks' states equal to each
+    other and within ``DP_*`` of the mesh-less step; 1 + 3 bf16 steps of
+    the tree's configuration on each rank's rows of its first batch (one
+    ring launch a step, the first bit-equal, the kernel timed on it),
+    ms/step a rank; ``Trainer.fit(epochs=1)`` at world 2 on the tree (2
+    steps and a validation batch: 3 ring launches a rank), its
+    ``metrics.jsonl``, checkpoint, ``best/`` and ``trainer_meta.json``
+    written once, by rank 0.
+
 After phase 4, the cost of the operator binding: a stream with the ring
 kernel behind ``torch.ops.deeplio.ring_select`` and with its CUDA
 implementation called directly, in turns (frames/s each way).
@@ -3254,7 +3276,8 @@ def slice10_cfg_dict(root, which, over=None):
 def _spy_step(state, train_step, raw, kernel, plain, label):
     """One training step with ``kernel``'s selection spied on: its launch
     is held against ``plain`` on the same card tensors, bit for bit.
-    Returns (state, the spied arguments, the launch's outputs)."""
+    Returns (state, the spied arguments, the launch's outputs, the step's
+    metrics)."""
     from deeplio_tpu_torch.ops import projection_ring as pring
     from deeplio_tpu_torch.ops import projection_scatter as pscat
     mod, attr = {"ring": (pring, "ring_select"),
@@ -3262,7 +3285,7 @@ def _spy_step(state, train_step, raw, kernel, plain, label):
     spy = FirstCall(getattr(mod, attr))
     setattr(mod, attr, spy)
     try:
-        state, _ = train_step(state, raw)
+        state, m = train_step(state, raw)
     finally:
         setattr(mod, attr, spy.op)
     check(spy.first is not None, f"{label}: the step made no {kernel} "
@@ -3274,7 +3297,20 @@ def _spy_step(state, train_step, raw, kernel, plain, label):
     check(worst == 0 and args[0].shape[0] == b,
           f"{label}: the step's {kernel} selection at B = "
           f"{args[0].shape[0]} differs from the plain version by {worst}")
-    return state, args, outs
+    return state, args, outs, _metrics(m)
+
+
+def selection_bound(kernel, args, outs):
+    """The bytes a step's selection must move and their time at 3.35
+    TB/s: its keys (the ring kernel also its pixel ids), two payload words
+    per landed pixel, three words per pixel written (phases 11 and 16's
+    bound). Returns (bytes, ms, landed pixels)."""
+    b, n = args[0].shape
+    empty = SENTINEL_RING if kernel == "ring" else SENTINEL
+    landed = int((outs[0] != empty).sum())
+    nbytes = ((8 if kernel == "ring" else 4) * b * n + 8 * landed
+              + 12 * b * H * W)
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3, landed
 
 
 def phase_slice10_steps(dev, gpu, root, step_ms, over=None):
@@ -3298,8 +3334,8 @@ def phase_slice10_steps(dev, gpu, root, step_ms, over=None):
         state = create_train_state(cfg, model)
         train_step, _ = build_train_step(cfg)
         raw = batch_to_device(host, dev)
-        state, args, outs = _spy_step(state, train_step, raw, kernel, plain,
-                                      label)
+        state, args, outs, _ = _spy_step(state, train_step, raw, kernel,
+                                         plain, label)
         ms, ring, scatter, vals = _timed_steps(state, train_step, raw,
                                                warmup=WARMUP_STEPS - 1)
         want = (TIMED_STEPS, 0) if kernel == "ring" else (0, TIMED_STEPS)
@@ -3308,15 +3344,8 @@ def phase_slice10_steps(dev, gpu, root, step_ms, over=None):
               f"{want}")
         op = ring_select if kernel == "ring" else scatter_select
         k_ms = graph_ms(lambda: op(*args))
-        # the bytes the selection must move: its keys (the ring kernel
-        # also its pixel ids), two payload words per landed pixel, three
-        # words per pixel written (phase 11's and phase 16's bound)
-        b, n = args[0].shape
-        empty = SENTINEL_RING if kernel == "ring" else SENTINEL
-        landed = int((outs[0] != empty).sum())
-        nbytes = ((8 if kernel == "ring" else 4) * b * n + 8 * landed
-                  + 12 * b * H * W)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        b = args[0].shape[0]
+        nbytes, bound_ms, landed = selection_bound(kernel, args, outs)
         names = RING_KERNELS if kernel == "ring" else SCATTER_KERNELS
         phase_train_profile(state, train_step, raw, gpu, ms,
                             kernel=(label, names))
@@ -3517,6 +3546,406 @@ def phase_slice10(dev, gpu, root, step_ms, over=None):
     return ring, scatter, steps
 
 
+# phase 18: data parallelism. The slice-2 configuration (DP_STEP's
+# float32 twin: no augmentation, no dropout, SGD, so the parameters
+# compare element by element after the update) and the KITTI tree's
+# configuration (ring kernel), two ranks of DP_RANK_B windows each on the
+# one card over gloo (NCCL refuses two ranks on one GPU); DP_RING_STEPS
+# timed bf16 steps a rank after the spied one.
+DP_WORLD, DP_RING_STEPS, DP_TIMEOUT_S = 2, 3, 300
+DP_RANK_B = TRAIN_B // DP_WORLD
+DP_SGD = {"name": "sgd", "lr": 0.01, "momentum": 0.9}
+# a float32 data-parallel step against the mesh-less step on the same
+# weights and batch (16 windows): the ranks take their BatchNorm
+# statistics as flax does (float32 mean and mean of squares, averaged) and
+# their gradients' mean in another order than the mesh-less step's one
+# sum. The loss and sx/sq within DP_LOSS_RTOL of their magnitude, each
+# BatchNorm statistic within DP_STATS_RTOL of its leaf's largest value,
+# the SGD update within DP_UPDATE_MAX of its largest element, element by
+# element, and DP_UPDATE_L2 in L2. Measured on an H100 80GB
+# HBM3 (world 1 over NCCL / two gloo ranks): loss 0 / 0, sx/sq 0 / 0,
+# statistics 3.4e-7 / 2.3e-7, update 7.8e-6 / 7.3e-6 and 1.4e-4 / 1.0e-4.
+DP_LOSS_RTOL, DP_STATS_RTOL, DP_UPDATE_MAX, DP_UPDATE_L2 = (
+    1e-5, 1e-5, 2e-4, 2e-3)
+
+
+def dp_dict(f32: bool = False, over=None):
+    """The slice configuration as a dict; ``f32``: float32, no
+    augmentation, no dropout, SGD. ``over`` replaces ``datasets`` keys
+    and ``compute_dtype`` (the CPU rehearsal)."""
+    with open(CONFIG) as f:
+        d = yaml.safe_load(f)
+    d["datasets"].update({"backend": "pallas", "augment-yaw": not f32})
+    if f32:
+        d["compute-dtype"] = "float32"
+        d["deeplio"]["dropout"] = 0.0
+        d["lidar-feat-pointseg"]["dropout"] = 0.0
+        d["optimizer"] = dict(DP_SGD)
+    over = dict(over or {})
+    if "compute_dtype" in over:
+        d["compute-dtype"] = over.pop("compute_dtype")
+    d["datasets"].update({k.replace("_", "-"): v for k, v in over.items()})
+    return d
+
+
+def _dp_kernel_ms(kernel, args, outs):
+    """The kernel's device time on a step's own selection inputs (graph
+    replay) and its bound: (ms, bound ms, B)."""
+    op = ring_select if kernel == "ring" else scatter_select
+    return (graph_ms(lambda: op(*args)), selection_bound(kernel, args,
+                                                         outs)[1],
+            int(args[0].shape[0]))
+
+
+def _dp_result(state, metrics):
+    """What a float32 step is held by: its metrics, sx/sq after it and the
+    model's variables (flat, numpy)."""
+    return {"metrics": metrics,
+            "loss_params": {k: float(v) for k, v in
+                            state.loss_params.items()},
+            "variables": _flat(to_flax_variables(state.model))}
+
+
+def _dp_compare(label, got, want, old):
+    """``got`` (a data-parallel float32 step's :func:`_dp_result`) against
+    ``want`` (the mesh-less step's) from the variables ``old``; prints and
+    checks the DP_* tolerances."""
+    rel = {k: abs(got["metrics"][k] - w) / max(abs(w), 1e-12)
+           for k, w in want["metrics"].items()}
+    lp = max([abs(got["loss_params"][k] - w) / max(abs(w), 1e-12)
+              for k, w in want["loss_params"].items()] or [0.0])
+    g, w = got["variables"], want["variables"]
+    stats = max(float(np.abs(g[k] - w[k]).max()
+                      / max(np.abs(w[k]).max(), 1e-3))
+                for k in w if k.startswith("batch_stats/"))
+    params = sorted(k for k in w if k.startswith("params/"))
+    du = np.concatenate([(g[k] - old[k]).ravel() for k in params])
+    dw = np.concatenate([(w[k] - old[k]).ravel() for k in params])
+    umax = float(np.abs(du - dw).max() / np.abs(dw).max())
+    ul2 = float(np.linalg.norm(du - dw) / np.linalg.norm(dw))
+    print(f"{label}: float32 SGD step against the mesh-less step on the "
+          f"same weights and {TRAIN_B} windows: loss rel err "
+          f"{rel['loss']:.3g}, "
+          f"loss_x {rel['loss_x']:.3g}, loss_q {rel['loss_q']:.3g}, "
+          f"grad_norm {rel['grad_norm']:.3g}, sx/sq after the update "
+          f"{lp:.3g} (tolerance {DP_LOSS_RTOL}); BatchNorm statistics "
+          f"{stats:.3g} ({DP_STATS_RTOL}); update max {umax:.3g} "
+          f"({DP_UPDATE_MAX}), L2 {ul2:.3g} ({DP_UPDATE_L2})")
+    check(rel["loss"] <= DP_LOSS_RTOL and lp <= DP_LOSS_RTOL,
+          f"{label}: loss or sx/sq against the mesh-less step")
+    check(stats <= DP_STATS_RTOL, f"{label}: BatchNorm statistics against "
+          f"the mesh-less step")
+    check(umax <= DP_UPDATE_MAX and ul2 <= DP_UPDATE_L2,
+          f"{label}: the update against the mesh-less step")
+
+
+def _dp_rank(rank, world, port, device, tmp, root, over, out):
+    """One of the gloo ranks of phase 18, on ``device``: (a) the float32
+    step on its rows of the slice-2 batch (one scatter launch, the
+    selection bit-equal to the plain version); (b) 1 + DP_RING_STEPS bf16
+    steps of the tree's configuration on its rows of the first batch (one
+    ring launch a step, the first step's selection bit-equal), timed; (c)
+    ``Trainer.fit(epochs=1)`` on the tree. Puts (rank, ok, result or
+    traceback) on ``out``; the float32 step's variables go to
+    ``<tmp>/rank<r>.npz``."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from deeplio_tpu_torch.data.dataset import build_dataset
+    from deeplio_tpu_torch.parallel import (
+        make_mesh,
+        maybe_initialize,
+        shard_batch,
+    )
+
+    label = f"dp gloo rank {rank}/{world}"
+    if device == "cpu":
+        _cpu_rehearsal()
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        t_start = time.perf_counter()
+        maybe_initialize(f"localhost:{port}", world, rank, backend="gloo")
+        mesh = make_mesh(device=device)
+        dev = mesh.device
+        res = {"device": str(dev)}
+        # (a) float32, scatter kernel
+        host = np.load(pathlib.Path(tmp) / "host.npz")
+        host = {k: np.ascontiguousarray(v) for k, v in
+                shard_batch(mesh, dict(host)).items()}
+        cfg = load_config_dict(dp_dict(True, over))
+        state = create_train_state(cfg, build_model(cfg, device=dev, seed=0),
+                                   mesh=mesh)
+        train_step, _ = build_train_step(cfg, mesh)
+        raw = batch_to_device(host, dev)
+        _zero_counts()
+        state, args, outs, m = _spy_step(state, train_step, raw, "scatter",
+                                         scatter_select_reference,
+                                         f"{label} float32")
+        res["f32"] = (scatter_select.launches, ring_select.launches,
+                      int(args[0].shape[0]))
+        del args, outs
+        r = _dp_result(state, m)
+        np.savez(pathlib.Path(tmp) / f"rank{rank}.npz", **r["variables"])
+        res["f32_metrics"], res["f32_loss_params"] = (r["metrics"],
+                                                      r["loss_params"])
+        del state, train_step, raw, host
+        # (b) bf16, ring kernel, the tree's first batch
+        cfg = kitti_config(root, over)
+        host = next(build_dataset(cfg, "train").iter_batches(
+            cfg.train.batch_size, shuffle=False, process_index=rank,
+            process_count=world))
+        state = create_train_state(cfg, build_model(cfg, device=dev, seed=0),
+                                   mesh=mesh)
+        train_step, _ = build_train_step(cfg, mesh)
+        raw = batch_to_device(host, dev)
+        _zero_counts()
+        state, args, outs, _ = _spy_step(state, train_step, raw, "ring",
+                                         ring_select_reference,
+                                         f"{label} ring")
+        spied = (ring_select.launches, scatter_select.launches)
+        ms, ring, scatter, vals = _timed_steps(state, train_step, raw,
+                                               steps=DP_RING_STEPS, warmup=0)
+        k_ms, bound_ms, b = _dp_kernel_ms("ring", args, outs)
+        res["ring"] = (spied, ring, scatter, b, ms, vals[0]["loss"],
+                       vals[-1]["loss"], k_ms, bound_ms)
+        del args, outs
+        del state, train_step, raw, host
+        torch.cuda.empty_cache()
+        # (c) the Trainer on the tree
+        trainer = Trainer(cfg, str(pathlib.Path(root) / "dp_fit"),
+                          device=dev)
+        _zero_counts()
+        t0 = time.perf_counter()
+        trainer.fit(epochs=1)
+        torch.cuda.synchronize()
+        res["fit"] = (ring_select.launches, scatter_select.launches,
+                      trainer.step, trainer.mesh.data,
+                      (time.perf_counter() - t0) * 1e3)
+        trainer.close()
+        res["seconds"] = time.perf_counter() - t_start
+        out.put((rank, True, res))
+    except BaseException:                      # reported by the parent
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _cpu_rehearsal() -> None:
+    """The CPU rehearsal (a rank's, or the caller's): nothing to wait for
+    on a card and no launch to count, so the checks print instead of
+    raising and a kernel is timed as one call of its plain version."""
+    def show(cond, msg):
+        if not cond:
+            print(f"check failed (CPU rehearsal): {msg}")
+    globals()["check"] = show
+    globals()["graph_ms"] = lambda fn, *a, **k: (fn(), 0.0)[1]
+    torch.cuda.synchronize = lambda *a, **k: None
+    torch.cuda.empty_cache = lambda *a, **k: None
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_dp_one(dev, gpu, host, over=None):
+    """Item 1: NCCL at world 1 through the data-parallel path (DDP, the
+    synchronised BatchNorms): the first step's scatter selection spied and
+    bit-equal, then WARMUP_STEPS - 1 + TIMED_STEPS bf16 steps, one scatter
+    launch each, beside the mesh-less step on the same batch in the same
+    call; a float32 step against the mesh-less float32 step. Returns
+    (scatter launches, dp ms/step, mesh-less ms/step, the mesh-less
+    float32 step's result and its starting variables)."""
+    import torch.distributed as dist
+
+    from deeplio_tpu_torch.parallel import make_mesh, maybe_initialize
+    label = "dp nccl world 1"
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    maybe_initialize(f"localhost:{_free_port()}", 1, 0, backend=backend)
+    try:
+        mesh = make_mesh(device=dev)
+        cfg = load_config_dict(dp_dict(over=over))
+        raw = batch_to_device(host, dev)
+        times = {}
+        for name, m in (("mesh-less", None), ("dp", mesh)):
+            state = create_train_state(cfg, build_model(cfg, device=dev,
+                                                        seed=0), mesh=m)
+            train_step, _ = build_train_step(cfg, m)
+            if m is not None:
+                state, args, outs, _ = _spy_step(
+                    state, train_step, raw, "scatter",
+                    scatter_select_reference, label)
+                kernel = _dp_kernel_ms("scatter", args, outs)
+                del args, outs
+            else:
+                state, _ = train_step(state, raw)
+            ms, ring, scatter, vals = _timed_steps(state, train_step, raw,
+                                                   warmup=WARMUP_STEPS - 1)
+            check((ring, scatter) == (0, TIMED_STEPS), f"{label} {name}: "
+                  f"{ring} ring and {scatter} scatter launches in "
+                  f"{TIMED_STEPS} steps")
+            times[name] = (ms, scatter, vals[-1]["loss"])
+            print(f"{label} profile of the {name} step:")
+            phase_train_profile(state, train_step, raw, gpu, ms)
+            del state, train_step
+            torch.cuda.empty_cache()
+        launches = times["dp"][1]
+        print(f"{label} (DDP, synchronised BatchNorm, backend "
+              f"{dist.get_backend()}): {TIMED_STEPS} bf16 steps of "
+              f"{TRAIN_B} windows x {TRAIN_S} frames: {times['dp'][0]:.2f} "
+              f"ms/step against the mesh-less step's "
+              f"{times['mesh-less'][0]:.2f} timed just before it on the same batch; "
+              f"scatter launches {launches}, the first step's selection at "
+              f"B = {kernel[2]} bit-equal to the plain version, the kernel "
+              f"on it {kernel[0]:.4f} ms device time (bound "
+              f"{kernel[1] * 1e3:.3f} us); last loss {times['dp'][2]:.5g} "
+              f"(mesh-less {times['mesh-less'][2]:.5g}) [{gpu}]")
+        cfg = load_config_dict(dp_dict(True, over))
+        base = build_model(cfg, device=dev, seed=0)
+        old = _flat(to_flax_variables(base))
+        results = {}
+        for name, m in (("mesh-less", None), ("dp", mesh)):
+            state = create_train_state(cfg, copy.deepcopy(base), mesh=m)
+            train_step, _ = build_train_step(cfg, m)
+            state, metrics = train_step(state, raw)
+            results[name] = _dp_result(state, _metrics(metrics))
+            del state, train_step
+        _dp_compare(label, results["dp"], results["mesh-less"], old)
+    finally:
+        dist.destroy_process_group()
+    return launches, times["dp"][0], times["mesh-less"][0], kernel, \
+        results["mesh-less"], old
+
+
+def phase_dp_two(dev, gpu, host, root, want, old, over=None):
+    """Item 2: DP_WORLD gloo ranks on the one card (:func:`_dp_rank`), the
+    float32 step held against ``want`` (the mesh-less float32 step from
+    the variables ``old``) and the ranks against each other; the launches
+    and ms/step of each rank; the fit's files written by rank 0 only.
+    Returns (scatter launches, ring launches, [ring ms/step a rank])."""
+    import shutil
+    import tempfile
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="dp_smoke_"))
+    shutil.rmtree(pathlib.Path(root) / "dp_fit", ignore_errors=True)
+    try:
+        np.savez(tmp / "host.npz", **{k: v for k, v in host.items()})
+        ctx = torch.multiprocessing.get_context("spawn")
+        q = ctx.Queue()
+        port = _free_port()
+        device = "cuda:0" if dev.type == "cuda" else "cpu"
+        procs = [ctx.Process(target=_dp_rank, args=(
+            r, DP_WORLD, port, device, str(tmp), str(root), over, q))
+            for r in range(DP_WORLD)]
+        t0 = time.perf_counter()
+        for proc in procs:
+            proc.start()
+        results, errors = {}, []
+        try:
+            for _ in range(DP_WORLD):
+                rank, ok, value = q.get(timeout=DP_TIMEOUT_S)
+                if not ok:
+                    errors.append(f"rank {rank}:\n{value}")
+                    break
+                results[rank] = value
+        finally:
+            for proc in procs:
+                proc.join(timeout=60 if not errors else 5)
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        secs = time.perf_counter() - t0
+        check(not errors, "a gloo rank failed:\n" + "\n".join(errors))
+        ranks = [results[r] for r in range(DP_WORLD)]
+        variables = [dict(np.load(tmp / f"rank{r}.npz"))
+                     for r in range(DP_WORLD)]
+        for r in range(1, DP_WORLD):
+            check(ranks[r]["f32_metrics"] == ranks[0]["f32_metrics"]
+                  and all(np.array_equal(v, variables[0][k])
+                          for k, v in variables[r].items()),
+                  f"dp gloo: rank {r}'s state after the step differs from "
+                  f"rank 0's")
+        got = {"metrics": ranks[0]["f32_metrics"],
+               "loss_params": ranks[0]["f32_loss_params"],
+               "variables": variables[0]}
+        _dp_compare(f"dp gloo world {DP_WORLD} ({DP_RANK_B} windows a "
+                    f"rank)", got, want, old)
+        scatter = ring = 0
+        for rank, res in enumerate(ranks):
+            f_scatter, f_ring, f_b = res["f32"]
+            spied, r_ring, r_scatter, r_b, r_ms, l0, l1, k_ms, bound_ms = \
+                res["ring"]
+            fit_ring, fit_scatter, fit_steps, fit_world, fit_ms = res["fit"]
+            check((f_scatter, f_ring) == (1, 0) and f_b == DP_RANK_B * TRAIN_S,
+                  f"dp gloo rank {rank}: float32 step launched scatter "
+                  f"{f_scatter}, ring {f_ring} at B = {f_b}")
+            check(spied == (1, 0) and (r_ring, r_scatter) == (
+                DP_RING_STEPS, 0), f"dp gloo rank {rank}: ring steps "
+                f"launched {spied} then ring {r_ring}, scatter {r_scatter}")
+            check(fit_world == DP_WORLD and fit_scatter == 0
+                  and fit_ring == fit_steps + 1,
+                  f"dp gloo rank {rank}: fit at world {fit_world}, "
+                  f"{fit_steps} steps, ring {fit_ring}, scatter "
+                  f"{fit_scatter}")
+            print(f"dp gloo rank {rank}/{DP_WORLD} on {res['device']}: "
+                  f"float32 step one scatter launch at B = {f_b}, bit-equal;"
+                  f" tree bf16 steps at B = {r_b}: {r_ms:.2f} ms/step over "
+                  f"{DP_RING_STEPS} steps, one ring launch each (the first "
+                  f"bit-equal; the kernel on its selection {k_ms:.4f} ms "
+                  f"device time, bound {bound_ms * 1e3:.3f} us), loss "
+                  f"{l0:.5g} -> {l1:.5g}; fit(epochs=1) "
+                  f"{fit_steps} steps and a validation batch in "
+                  f"{fit_ms:.0f} ms, ring launches {fit_ring}; "
+                  f"{res['seconds']:.1f} s in the rank [{gpu}]")
+            scatter += f_scatter
+            ring += r_ring + fit_ring
+        wd = pathlib.Path(root) / "dp_fit"
+        records = _records(wd)
+        steps = [r["step"] for r in records if r["split"] == "train"]
+        n_val = sum(r["split"] == "val" for r in records)
+        labels = sorted(int(p.name) for p in (wd / "checkpoints").iterdir())
+        check(steps == list(range(1, ranks[0]["fit"][2] + 1)) and n_val == 1
+              and labels and labels[-1] == steps[-1]
+              and (wd / "best" / "params.pt").exists()
+              and (wd / "trainer_meta.json").exists()
+              and not list(wd.rglob("*.tmp.*")),
+              f"dp gloo fit: steps {steps}, {n_val} validations, "
+              f"checkpoints {labels}")
+        print(f"dp gloo fit: one metrics.jsonl with steps {steps} and "
+              f"{n_val} validation, checkpoints {labels}, best/ and "
+              f"trainer_meta.json, from rank 0; {secs:.1f} s for the ranks "
+              f"[{gpu}]")
+        return scatter, ring, [r["ring"][4] for r in ranks], \
+            ranks[0]["ring"][7:9] + ranks[0]["ring"][3:4]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_dp(dev, gpu, host, root, over=None):
+    """Phase 18: data parallelism (:func:`phase_dp_one`, then
+    :func:`phase_dp_two` on phase 11's tree). Returns (scatter launches,
+    ring launches)."""
+    t0 = time.perf_counter()
+    s1, dp_ms, plain_ms, scatter_k, want, old = phase_dp_one(dev, gpu, host,
+                                                             over)
+    s2, ring, rank_ms, ring_k = phase_dp_two(dev, gpu, host, root, want, old,
+                                             over)
+    print(f"dp phase: {time.perf_counter() - t0:.1f} s; world 1 (NCCL) "
+          f"{dp_ms:.2f} ms/step against mesh-less {plain_ms:.2f}; gloo "
+          f"ranks on the tree's batch "
+          f"{', '.join(f'{v:.2f}' for v in rank_ms)} ms/step; inside the "
+          f"data-parallel steps the scatter kernel {scatter_k[0]:.4f} ms at "
+          f"B = {scatter_k[2]} (bound {scatter_k[1] * 1e3:.3f} us), the "
+          f"ring kernel {ring_k[0]:.4f} ms at B = {ring_k[2]} "
+          f"(bound {ring_k[1] * 1e3:.3f} us); launches scatter {s1 + s2}, "
+          f"ring {ring} [{gpu}]")
+    return s1 + s2, ring
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one GPU",
@@ -3575,7 +4004,6 @@ def main() -> int:
           f"{step_ms:.2f} ms/step for the bare step above [{gpu}]")
 
     s_launches += f_launches
-    del host
     torch.cuda.empty_cache()
 
     # slice 4: training on KITTI raw drives, ring kernel at B = 144;
@@ -3617,18 +4045,24 @@ def main() -> int:
         t0 = time.perf_counter()
         t_ring, t_scatter, t_steps = phase_slice10(dev, gpu, root, step_ms)
         print(f"slice10 phase: {time.perf_counter() - t0:.1f} s [{gpu}]")
+        # slice 11: data parallelism, NCCL at world 1 and two gloo ranks
+        # on the card, through the scatter kernel (slice 2's batch) and
+        # the ring kernel (the tree)
+        d_scatter, d_ring = phase_dp(dev, gpu, host, root)
+        del host
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"kernels: ring_project (ported, launches={k_launches} on the "
           f"KITTI training paths, {c_launches} on the command lines' paths, "
           f"{p_ring} on pretraining's, {f_ring} on the flagship's, "
-          f"{n_ring} on slice 9's, {t_ring} on slice 10's, {launches} in "
-          f"the slice-1 stream, bit-exact), proj_scatter (ported, "
-          f"launches={s_launches}: the training step's and the fit's, "
-          f"{p_scatter} on pretraining's, {v_launches} on the model zoo's, "
-          f"{n_scatter} on slice 9's and {t_scatter} on slice 10's, "
-          f"bit-exact)")
-    s_launches += p_scatter + v_launches + n_scatter + t_scatter
+          f"{n_ring} on slice 9's, {t_ring} on slice 10's, {d_ring} on "
+          f"the data-parallel ranks', {launches} in the slice-1 stream, "
+          f"bit-exact), proj_scatter (ported, launches={s_launches}: the "
+          f"training step's and the fit's, {p_scatter} on pretraining's, "
+          f"{v_launches} on the model zoo's, {n_scatter} on slice 9's, "
+          f"{t_scatter} on slice 10's and {d_scatter} on the data-parallel "
+          f"steps', bit-exact)")
+    s_launches += p_scatter + v_launches + n_scatter + t_scatter + d_scatter
     k_ms, p_ms, bound_ms, k_worst = k_times[TRAIN_B * TRAIN_S]
     worst = max(worst, k_worst, k_times[PREFILL_CHUNK][3], f_worst, n_worst)
     # the scatter kernel on configs/deeplio_kitti.yaml's path (B = 96,
@@ -3649,7 +4083,7 @@ def main() -> int:
         "source": "deeplio_tpu_torch/csrc/ring_project.cu",
         "replaces": "deeplio_tpu/ops/projection_pallas_ring.py:62",
         "launches": (k_launches + c_launches + p_ring + f_ring + n_ring
-                     + t_ring),
+                     + t_ring + d_ring),
         "max_abs_err": float(worst),
         "ms": k_ms,
         "plain_ms": p_ms,

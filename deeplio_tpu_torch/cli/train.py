@@ -1,18 +1,25 @@
 """Training CLI (counterpart of ``deeplio_tpu/cli/train.py``; reference:
 ``python train.py -c config.yaml [--resume]``), with the JAX package's
-flags and override semantics, on one device.
+flags and override semantics.
 
 Usage:
     python -m deeplio_tpu_torch.cli.train -c configs/deeplio_kitti_tpu.yaml \\
         [--workdir runs/x] [--epochs N] [--batch-size B] [--lr F] \\
         [--seed S] [--resume] [--profile-steps N] [--debug-nans] \\
-        [--device cuda|cpu]
+        [--data-parallel N] [--coordinator host:port --num-processes N \\
+        --process-id I] [--device cuda|cpu]
 
 ``--profile-steps N`` (N > 0) writes a ``torch.profiler`` Chrome trace of
 the first epoch to ``<workdir>/profile/trace.json``, then trains the other
-epochs. ``--debug-nans`` turns on autograd's anomaly detection. Data
-parallelism (``--data-parallel`` > 1, ``--coordinator``,
-``--num-processes`` > 1) is not ported yet and raises ``ConfigError``.
+epochs. ``--debug-nans`` turns on autograd's anomaly detection.
+
+Data parallelism runs one process per GPU, each started with the same
+command and its own ``--process-id`` (or ``DEEPLIO_COORDINATOR``,
+``DEEPLIO_NUM_PROCESSES``, ``DEEPLIO_PROCESS_ID``), or under ``torchrun
+--nproc-per-node N -m deeplio_tpu_torch.cli.train ...``; the processes
+join (NCCL on the card, gloo with ``--device cpu``) before the Trainer
+touches the device, and ``--data-parallel`` (``train.data-parallel``,
+default all of them) must equal their number.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ import torch
 import yaml
 
 from deeplio_tpu_torch.config import load_config_dict
-from deeplio_tpu_torch.config.schema import _LATER_DP, _unsupported
+from deeplio_tpu_torch.parallel.multihost import maybe_initialize
 from deeplio_tpu_torch.train import Trainer
 from deeplio_tpu_torch.utils import get_app_logger
 
@@ -39,7 +46,7 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=None,
                    help="override train.seed (init/shuffle/dropout streams)")
     p.add_argument("--data-parallel", type=int, default=None,
-                   help="devices to train on; > 1 is not ported yet")
+                   help="-1 = all processes (default from config)")
     p.add_argument("--resume", action="store_true",
                    help="resume from latest checkpoint in workdir")
     p.add_argument("--debug-nans", action="store_true",
@@ -48,7 +55,8 @@ def parse_args(argv=None):
                    help="N > 0: write a torch.profiler trace of the first "
                         "epoch to <workdir>/profile")
     p.add_argument("--coordinator", default=None,
-                   help="multi-host coordinator; not ported yet")
+                   help="multi-process: coordinator host:port (or set "
+                        "DEEPLIO_COORDINATOR, or run under torchrun)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -57,8 +65,8 @@ def parse_args(argv=None):
 
 def load_with_overrides(args):
     """The config file with the command line's overrides applied to its
-    keys before parsing, so an override is checked as the file would be
-    (``--data-parallel 2`` raises as ``data-parallel: 2`` does)."""
+    keys before parsing, so an override is checked as the file would
+    be."""
     with open(args.config) as f:
         d = yaml.safe_load(f) or {}
     train = d.setdefault("train", {})
@@ -76,11 +84,10 @@ def load_with_overrides(args):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.coordinator is not None or (args.num_processes or 1) > 1 \
-            or (args.process_id or 0) > 0:
-        raise _unsupported("multi-process training (--coordinator, "
-                           "--num-processes, --process-id)", _LATER_DP)
     cfg = load_with_overrides(args)
+    # join the other processes before anything touches the device
+    maybe_initialize(args.coordinator, args.num_processes, args.process_id,
+                     backend="gloo" if args.device == "cpu" else None)
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
 

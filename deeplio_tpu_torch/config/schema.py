@@ -21,12 +21,9 @@ routes (``kernel-aligned: auto | on | trust | halves``) and host slot
 binning (``slot-bin``), the pose loss, the optimizer (Adam, AdamW or
 SGD with momentum) with its plateau schedule, ``param-dtype`` (parsed
 and never read, as in the JAX package), and the ``train`` block of the training loop
-with its projection cache and device-resident dataset.
-
-A setting that would change what the port computes, and that the port
-cannot compute yet, raises ``ConfigError`` (a ``ValueError``) naming the
-ROADMAP.md queue item that adds it, instead of silently serving or
-training a different model.
+with its projection cache, device-resident dataset and data parallelism.
+Every setting the JAX package parses is ported; a malformed one raises
+``ConfigError`` (a ``ValueError``).
 """
 
 from __future__ import annotations
@@ -51,8 +48,6 @@ ODOMETRY_SEQUENCES: Dict[str, Tuple[str, int, int, int]] = {
     "10": ("2011_09_30", 34, 0, 1200),
 }
 
-# Later slices, as ROADMAP.md orders them.
-_LATER_DP = "the data-parallel slice (ROADMAP.md Queue 1 item 6)"
 BACKENDS = ("pallas-ring", "pallas", "ring", "sort", "sort-sentinel")
 POOLS = ("classic", "cheap", "stride", "stride-fold")
 STEMS = ("classic", "pair-split", "s2d", "s2d-pre", "factorized")
@@ -93,11 +88,6 @@ def _rate(v, what: str) -> float:
     if not 0.0 <= r < 1.0:
         raise ConfigError(f"{what} must be in [0, 1), got {r}")
     return r
-
-
-def _unsupported(what: str, later: str) -> ConfigError:
-    return ConfigError(f"{what} is not supported by the PyTorch port yet; "
-                       f"{later} adds it")
 
 
 def num_channels(channels) -> int:
@@ -620,6 +610,9 @@ class TrainConfig:
     checkpoint_dir: str = "checkpoints"
     checkpoint_every_steps: int = 500
     keep_checkpoints: int = 3
+    # data-parallel size: the processes of a torch.distributed run, one
+    # device each (-1 = all of them; 1 in a plain single process)
+    data_parallel: int = -1
     prefetch: int = 2
     # optimizer steps per group: k sequential steps, saves only at group
     # ends, the epoch tail shorter than k dropped (as in the JAX package,
@@ -635,8 +628,6 @@ class TrainConfig:
 
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "TrainConfig":
-        if int(_get(d, "data-parallel", -1)) > 1:
-            raise _unsupported("train data-parallel > 1", _LATER_DP)
         return TrainConfig(
             batch_size=int(_get(d, "batch-size", 8)),
             epochs=int(_get(d, "epochs", 50)),
@@ -647,6 +638,7 @@ class TrainConfig:
             checkpoint_every_steps=int(_get(d, "checkpoint-every-steps",
                                             500)),
             keep_checkpoints=int(_get(d, "keep-checkpoints", 3)),
+            data_parallel=int(_get(d, "data-parallel", -1)),
             prefetch=int(_get(d, "prefetch", 2)),
             steps_per_call=int(_get(d, "steps-per-call", 1)),
             cache_projections=bool(_get(d, "cache-projections", False)),

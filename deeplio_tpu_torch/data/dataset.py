@@ -154,16 +154,30 @@ class WindowDataset:
 
     def iter_batches(self, batch_size: int, shuffle: bool = True,
                      seed: int = 0, drop_last: bool = True,
-                     workers: int = 8, alloc: Optional[Alloc] = None
+                     workers: int = 8, alloc: Optional[Alloc] = None,
+                     process_index: int = 0, process_count: int = 1,
                      ) -> Iterator[Dict[str, np.ndarray]]:
-        """Host batches in one process, in the JAX package's order: the
-        same seed shuffles the windows the same way.
+        """Host batches in the JAX package's order: the same seed shuffles
+        the windows the same way.
 
         ``workers`` threads assemble the windows of a batch (numpy copies
         that release the GIL), as the JAX package's pool does. ``alloc``
         returns the arrays each batch is assembled into (fresh ones by
         default; ``data/pipeline.py`` passes page-locked staging buffers).
+
+        Multi-process: ``batch_size`` is global. Every process derives the
+        same order and assembles only its contiguous row block of each
+        global batch: process p of n yields rows [p * B / n, (p + 1) * B
+        / n) (``parallel/multihost.py::process_slice``).
         """
+        if batch_size % process_count:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{process_count} processes")
+        if process_count > 1 and not drop_last:
+            raise ValueError("multi-process iteration requires drop_last "
+                             "(a ragged tail batch cannot shard evenly)")
+        local = batch_size // process_count
+        lo = process_index * local
         alloc = alloc or empty_batch
         order = np.arange(len(self))
         if shuffle:
@@ -173,7 +187,7 @@ class WindowDataset:
         pool = ThreadPoolExecutor(workers) if workers > 1 else None
         try:
             for b0 in range(0, end, batch_size):
-                sel = order[b0:b0 + batch_size]
+                sel = order[b0:min(b0 + batch_size, end)][lo:lo + local]
                 out = alloc(self.batch_spec(len(sel)))
                 jobs = [(int(i), row, out) for row, i in enumerate(sel)]
                 if pool is None:

@@ -22,6 +22,14 @@ With ``depth`` batches in the queue and one being assembled, ``depth + 1``
 slots never make the producer wait for a copy that is not already
 finished. On the CPU the batches are plain CPU tensors (``from_numpy``),
 with the same thread ahead of the consumer.
+
+Data parallelism: each process's iterator yields its own rows of every
+global batch (``WindowDataset.iter_batches(process_index=...,
+process_count=...)``), and the prefetcher copies them onto that rank's
+device (``mesh.device``). PyTorch has no global array to stitch the
+ranks' rows into, as the JAX package's ``make_array_from_process_local_data``
+does: each rank's step reads its local rows, and the collectives live in
+the step (``train/step.py``).
 """
 
 from __future__ import annotations

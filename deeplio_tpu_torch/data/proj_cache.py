@@ -10,9 +10,13 @@ H, W, C] float16. The fingerprint hashes every setting that changes the
 projected values (geometry, backend, channels, normalisation) as the JAX
 package does, so the same config gives the same file names.
 
-One process builds the cache. The JAX package's waiter for processes that
-wait for another's build (its heartbeat) serves multi-host runs, and comes
-to the port with data parallelism (ROADMAP.md Queue 1 item 6).
+Multi-process: only the primary process builds (the work directory is
+shared, as checkpoints need); the others poll for its finished files. The
+primary's heartbeat file, touched every 15 s by a daemon thread, lets a
+waiter tell a slow build from a dead primary: it raises after ``stall_s``
+with neither a fresh heartbeat nor the file, and at ``timeout_s`` in any
+case. Temporary names carry the process id, so even a work directory that
+is not shared cannot mix two builds.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import threading
 import time
 from typing import Dict, Sequence
 
@@ -28,7 +33,11 @@ import torch
 
 from deeplio_tpu_torch.config.schema import DatasetConfig
 from deeplio_tpu_torch.device import DeviceLike, resolve_device
+from deeplio_tpu_torch.parallel import multihost
 from deeplio_tpu_torch.utils import get_app_logger
+
+POLL_S = 2.0          # a waiter's look at the cache directory
+BEAT_S = 15.0         # the primary's heartbeat period
 
 
 def fingerprint(ds_cfg: DatasetConfig) -> str:
@@ -61,12 +70,80 @@ class ProjectionCache:
         span = f"{getattr(drive, 'start', 0)}-{len(drive)}"
         return os.path.join(self.dir, f"{drive.name}@{span}-{self.tag}.npy")
 
-    def ensure(self, drives: Sequence, batch: int = 16) -> None:
+    def _heartbeat(self) -> str:
+        # one per (cache directory, fingerprint)
+        return os.path.join(self.dir, f"building-{self.tag}.hb")
+
+    def ensure(self, drives: Sequence, batch: int = 16,
+               timeout_s: float = 3600.0, stall_s: float = 120.0) -> None:
         """Project every frame of each drive whose file is missing, in
         chunks of ``batch`` frames (the last padded to ``batch`` with
         copies of its last frame), through ``make_projector(...,
         layout="aos")``. Each file is written as ``<path>.tmp.<pid>`` and
-        renamed when complete; a drive listed twice is built once."""
+        renamed when complete; a drive listed twice is built once.
+
+        Only the primary process builds; the others wait for its files
+        (:meth:`_wait`)."""
+        todo = [d for d in drives if not os.path.exists(self._path(d))]
+        if not todo:
+            return
+        if not multihost.is_primary():
+            self._wait(todo, timeout_s, stall_s)
+            return
+        # beat from a thread, not per chunk: the first projection can
+        # take long (a kernel build), and the thread dies with the
+        # process, which is what the waiters need to see
+        stop = threading.Event()
+
+        def touch():
+            with open(self._heartbeat(), "w") as f:
+                f.write(str(os.getpid()))
+
+        def beat():
+            while not stop.wait(BEAT_S):
+                touch()
+
+        touch()
+        beater = threading.Thread(target=beat, daemon=True)
+        beater.start()
+        try:
+            self._build(todo, batch)
+        finally:
+            stop.set()
+            beater.join()
+            try:
+                os.remove(self._heartbeat())
+            except OSError:
+                pass
+
+    def _wait(self, todo: Sequence, timeout_s: float,
+              stall_s: float) -> None:
+        """Poll for the primary's files. Raises RuntimeError when neither a
+        file nor a fresh heartbeat has appeared for ``stall_s`` (the
+        primary died mid-build) and TimeoutError at ``timeout_s``."""
+        deadline = time.time() + timeout_s
+        last_alive = time.time()      # grace before the heartbeat appears
+        for d in todo:
+            while not os.path.exists(self._path(d)):
+                try:
+                    last_alive = max(last_alive,
+                                     os.path.getmtime(self._heartbeat()))
+                except OSError:
+                    pass
+                now = time.time()
+                if now - last_alive > stall_s:
+                    raise RuntimeError(
+                        f"projection cache {self._path(d)}: the primary "
+                        f"process's build heartbeat went stale "
+                        f"({now - last_alive:.0f}s > {stall_s:.0f}s): the "
+                        f"primary likely died mid-build")
+                if now > deadline:
+                    raise TimeoutError(
+                        f"projection cache {self._path(d)} not built by "
+                        f"the primary process within the timeout")
+                time.sleep(POLL_S)
+
+    def _build(self, drives: Sequence, batch: int) -> None:
         from deeplio_tpu_torch.ops.projection import make_projector
 
         ds = self.ds_cfg

@@ -3,9 +3,10 @@ trained model over a drive in stride-1 windows, keep one relative pose
 prediction per consecutive frame pair, chain the global trajectory and
 score it against the drive's ground truth.
 
-One process, one device: the JAX package's mesh and process split reduce
-to the batch size here (data parallelism is ROADMAP.md Queue 1 item 6).
-Batches are assembled by a thread pool straight into the trainer's pinned
+Under data parallelism (a ``mesh`` with a process group) every process
+derives the same padded global batches, assembles only its contiguous
+row block of each and gets back the gathered predictions from the
+data-parallel ``eval_step``, as in the JAX package. Batches are assembled by a thread pool straight into the trainer's pinned
 staging ring (``data/pipeline.py::PinnedRing``) and copied to the device
 by ``DevicePrefetcher`` while the previous batch runs, as
 ``Trainer.validate`` does; the tail batch is padded with its last window,
@@ -33,19 +34,24 @@ from deeplio_tpu_torch.eval.trajectory import (
     gt_trajectory,
     write_kitti_poses,
 )
+from deeplio_tpu_torch.parallel.mesh import Mesh
 
 
-def _eval_batches(ds: WindowDataset, bs: int, alloc: Callable
+def _eval_batches(ds: WindowDataset, bs: int, alloc: Callable,
+                  lo: int = 0, local: Optional[int] = None
                   ) -> Iterator[Dict[str, np.ndarray]]:
     """Every window of ``ds`` in order, ``bs`` a batch, the tail batch
-    padded with its last window; 8 threads assemble a batch's windows,
-    as ``WindowDataset.iter_batches`` does."""
+    padded with its last window, of which rows [lo, lo + local); 8
+    threads assemble a batch's windows, as ``WindowDataset.iter_batches``
+    does."""
+    local = bs if local is None else local
     idxs = list(range(len(ds)))
     with ThreadPoolExecutor(8) as pool:
         for b0 in range(0, len(idxs), bs):
             sel = idxs[b0:b0 + bs]
             sel.extend(sel[-1:] * (bs - len(sel)))
-            out = alloc(ds.batch_spec(bs))
+            sel = sel[lo:lo + local]
+            out = alloc(ds.batch_spec(local))
             list(pool.map(lambda job: ds.get_into(job[1], job[0], out),
                           enumerate(sel)))
             yield out
@@ -53,7 +59,8 @@ def _eval_batches(ds: WindowDataset, bs: int, alloc: Callable
 
 def predict_drive(cfg: Config, eval_step, state, drive: Drive,
                   batch_size: Optional[int] = None, device: DeviceLike = None,
-                  ring: Optional[PinnedRing] = None
+                  ring: Optional[PinnedRing] = None,
+                  mesh: Optional[Mesh] = None
                   ) -> Tuple[np.ndarray, np.ndarray]:
     """Predict (dx, dq) for every consecutive frame pair of a drive.
 
@@ -63,11 +70,18 @@ def predict_drive(cfg: Config, eval_step, state, drive: Drive,
     ``eval_step`` is ``train/step.py::build_train_step``'s; ``device`` is
     CUDA unless ``"cpu"``; ``ring`` the staging buffers to assemble into
     (the trainer's; by default the prefetcher makes its own on the card).
+    With a ``mesh`` of several ranks the global batch is rounded to a
+    multiple of them, each rank assembles its rows onto its device and
+    ``eval_step`` (built with the mesh) gathers the predictions.
 
     Returns (dx [n-1, 3], dq [n-1, 4]) float32.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     bs = batch_size or cfg.train.batch_size
+    n_data = 1 if mesh is None else mesh.data
+    bs = max((bs // n_data) * n_data, n_data)
+    local = bs // n_data
+    lo = 0 if mesh is None else mesh.rank * local
     # Evaluation must cover every consecutive pair: always slide windows
     # with stride 1 (a stride-8 training config would otherwise skip tail
     # pairs of each drive).
@@ -80,8 +94,8 @@ def predict_drive(cfg: Config, eval_step, state, drive: Drive,
 
     alloc = ring.take if ring is not None else empty_batch
     starts_done = 0
-    it = DevicePrefetcher(_eval_batches(ds, bs, alloc), dev, depth=2,
-                          ring=ring)
+    it = DevicePrefetcher(_eval_batches(ds, bs, alloc, lo, local), dev,
+                          depth=2, ring=ring)
     try:
         for batch in it:
             x, q, _ = eval_step(state, batch)
@@ -111,13 +125,14 @@ def predict_drive(cfg: Config, eval_step, state, drive: Drive,
 
 def evaluate_drive(cfg: Config, eval_step, state, drive: Drive,
                    out_dir: Optional[str] = None, device: DeviceLike = None,
-                   ring: Optional[PinnedRing] = None) -> Dict[str, float]:
+                   ring: Optional[PinnedRing] = None,
+                   mesh: Optional[Mesh] = None) -> Dict[str, float]:
     """Full per-drive evaluation: trajectory + ATE/RPE/KITTI errors, and
     with ``out_dir`` the KITTI pose files ``<drive>_pred.txt`` and
     ``<drive>_gt.txt`` (and ``<drive>_traj.png`` where matplotlib
     imports)."""
     dx, dq = predict_drive(cfg, eval_step, state, drive, device=device,
-                           ring=ring)
+                           ring=ring, mesh=mesh)
     pred = chain_relative_np(dx, dq)
     gt = gt_trajectory(drive)
     # GT is drive-local already; express both from the first evaluated frame.

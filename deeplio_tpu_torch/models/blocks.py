@@ -152,23 +152,56 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     them with the unbiased one): ``ra = (1 - m) * ra + m * stat`` with
     ``m = 0.01`` (flax ``momentum=0.99``). The statistics are taken in
     float32 whatever the activation dtype. Eval mode is stock BatchNorm.
+
+    With a process ``group`` (set by ``models/zoo.py::sync_batchnorm``)
+    the statistics are the whole data axis's, as flax's
+    ``BatchNorm(axis_name="data")`` computes them: the float32 ``mean(x)``
+    and ``mean(x * x)`` over (N, H, W), stacked and averaged over the
+    group in one autograd-aware ``all_reduce`` (its backward sums the
+    cotangents over the ranks, the transpose of ``pmean``), the variance
+    ``max(mu2 - mu * mu, 0)``; ``(x - mu) * (rsqrt(var + eps) * scale) +
+    bias`` in float32, cast back to the input's dtype. The running update
+    takes the same global statistics, so it stays equal on every rank.
     """
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.01)
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.group is not None:
+            return self._group_forward(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
                                        correction=0)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self._update_running(mean, var)
         return y
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor):
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+
+    def _group_forward(self, x: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+        from torch.distributed.nn.functional import all_reduce
+
+        xf = x.float()
+        stats = torch.stack([xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))])
+        stats = all_reduce(stats, group=self.group) / dist.get_world_size(
+            self.group)
+        mean, mu2 = stats[0], stats[1]
+        var = (mu2 - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = ((xf - mean[:, None, None]) * mul[:, None, None]
+             + self.bias[:, None, None])
+        with torch.no_grad():
+            self._update_running(mean, var)
+        return y.to(x.dtype)
 
 
 class ConvBN(nn.Module):

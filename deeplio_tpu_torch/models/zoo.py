@@ -2,7 +2,8 @@
 ``deeplio_tpu/models/zoo.py``: ``DeepIO``, ``DeepLO``, ``DeepLIO`` with
 every IMU and odometry net (LSTM, GRU, bidirectional, FC), every stem's
 path of ``_lidar_features``, ``build_model`` and
-``factorize_stem_variables``).
+``factorize_stem_variables``; ``sync_batchnorm`` is the counterpart of
+``init_model(axis_name="data")``).
 
 Forward contract, as in the JAX package::
 
@@ -45,6 +46,7 @@ from torch import nn
 
 from deeplio_tpu_torch.config.schema import Config, ModelConfig
 from deeplio_tpu_torch.device import DeviceLike, resolve_device
+from deeplio_tpu_torch.models.blocks import FlaxBatchNorm2d
 from deeplio_tpu_torch.models.feat_nets import (
     FusionLayer,
     ImuFeatFC,
@@ -276,6 +278,18 @@ def build_model(cfg: Config, device: DeviceLike = None,
     if seed is not None:
         init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
+
+
+def sync_batchnorm(model: nn.Module, group) -> nn.Module:
+    """Hand every ``FlaxBatchNorm2d`` of ``model`` the process group whose
+    ranks share its batch statistics (``None`` takes them back to one
+    rank's): the counterpart of building the JAX model with
+    ``axis_name="data"``, and of ``nn.SyncBatchNorm.convert_sync_batchnorm``
+    for the port's own BatchNorm. Returns ``model``."""
+    for mod in model.modules():
+        if isinstance(mod, FlaxBatchNorm2d):
+            mod.group = group
+    return model
 
 
 def factorize_stem_variables(variables: Dict[str, Any],

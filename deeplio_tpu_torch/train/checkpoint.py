@@ -11,6 +11,11 @@ file is written to a temporary name and moved into place with
 are synchronous: ``torch.save`` copies the card's tensors to the host as
 it writes.
 
+Multi-process: every process calls ``maybe_save`` (with the same
+arguments, as every rank of a data-parallel run holds the same state);
+only the primary writes, and every process waits at a barrier until it
+has. Every process can restore from the shared directory.
+
 ``save_params``/``load_params`` keep one parameter snapshot (the best
 model, a warm start); ``load_pointseg_backbone`` grafts a snapshot's
 PointSeg encoder into a model and leaves every other tensor as it was.
@@ -27,6 +32,7 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
+from deeplio_tpu_torch.parallel import multihost
 from deeplio_tpu_torch.train.state import TrainState
 
 STATE_FILE = "state.pt"
@@ -74,11 +80,16 @@ class CheckpointManager:
                           or step % self.save_every_steps != 0):
             return False
         steps = self.all_steps()
-        if step in steps:
-            if not (force and metrics and not self.metrics(step)):
-                return False
-            if len(steps) <= 1:
-                return False
+        write = step not in steps or (
+            bool(force and metrics and not self.metrics(step))
+            and len(steps) > 1)
+        if write and multihost.is_primary():
+            self._write(state, metrics, step)
+        multihost.barrier()
+        return write
+
+    def _write(self, state: TrainState, metrics: Optional[dict],
+               step: int) -> None:
         t0 = time.perf_counter()
         d = self._dir(step)
         os.makedirs(d, exist_ok=True)
@@ -90,7 +101,6 @@ class CheckpointManager:
         for old in self.all_steps()[:-self.keep] if self.keep > 0 else ():
             shutil.rmtree(self._dir(old))
         self.save_ms.append((time.perf_counter() - t0) * 1e3)
-        return True
 
     def metrics(self, step: int) -> Dict[str, float]:
         """The metrics saved with ``step`` ({} for a periodic save)."""

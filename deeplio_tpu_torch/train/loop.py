@@ -1,7 +1,8 @@
 """Training loop (counterpart of ``deeplio_tpu/train/loop.py``; reference:
 the Trainer/Worker classes around ``train.py``): dataset -> prefetcher ->
 train step, with metrics, validation, checkpoints, the best model and
-resume, on one device. The batches come from the host (scans read or
+resume, on one device or on each rank of a data-parallel run. The
+batches come from the host (scans read or
 synthesised per batch, or cached projections with ``cache-projections``)
 or, with ``device-dataset``, are gathered from a bank of every scan staged
 on the device once.
@@ -12,6 +13,15 @@ scalar names (loss, loss_x, loss_q, ...); a TensorBoard mirror is written
 when ``torch.utils.tensorboard`` imports. The step's metrics stay on the
 device until a log step reads them, so the loop does not wait for the card
 between log steps.
+
+Data parallelism (``data-parallel``, one process per device, joined by
+``parallel/multihost.py::maybe_initialize`` before the Trainer is built):
+every rank feeds its own contiguous rows of each global batch to the
+data-parallel step, and the ranks hold the same state throughout. Side
+effects are the primary's: ``metrics.jsonl``, the checkpoints, ``best/``
+and ``trainer_meta.json`` (the other ranks log nothing and wait at the
+checkpoints' barriers). The validation metrics are the ranks' means, so
+every rank takes the same best-model and plateau decisions.
 """
 
 from __future__ import annotations
@@ -28,8 +38,9 @@ from deeplio_tpu_torch.data import device_bank as dbank
 from deeplio_tpu_torch.data.dataset import build_dataset, build_drives
 from deeplio_tpu_torch.data.pipeline import DevicePrefetcher, PinnedRing
 from deeplio_tpu_torch.data.proj_cache import ProjectionCache
-from deeplio_tpu_torch.device import DeviceLike, resolve_device
+from deeplio_tpu_torch.device import DeviceLike
 from deeplio_tpu_torch.models.zoo import build_model
+from deeplio_tpu_torch.parallel.mesh import Mesh, make_mesh
 from deeplio_tpu_torch.train.checkpoint import (
     CheckpointManager,
     load_params,
@@ -71,6 +82,16 @@ class MetricsWriter:
             self._tb.close()
 
 
+class _NullMetrics:
+    """The metrics sink of the non-primary ranks."""
+
+    def write(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
+
+
 def _host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
     """Device scalars -> floats, in one copy (one wait for the card)."""
     keys = list(metrics)
@@ -82,7 +103,10 @@ class Trainer:
     """Train a config's model on its KITTI or synthetic drives.
 
     ``device`` is CUDA unless ``"cpu"`` is passed (no fallback: without a
-    GPU the default raises). ``resume`` restores the latest checkpoint and
+    GPU the default raises); under data parallelism it is the rank's
+    (``cuda:<local rank>`` by default). ``mesh`` defaults to
+    ``make_mesh(train.data-parallel)``: the whole world of processes, one
+    in a plain run. ``resume`` restores the latest checkpoint and
     ``trainer_meta.json`` (best validation loss, epochs done, plateau
     state) from ``workdir``; ``eval_only`` builds no training split. A
     validation split whose drives are missing on disk leaves ``val_ds``
@@ -94,12 +118,18 @@ class Trainer:
 
     def __init__(self, cfg: Config, workdir: str = "runs/default",
                  resume: bool = False, eval_only: bool = False,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.workdir = workdir
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(
+            cfg.train.data_parallel, device)
+        self.device = self.mesh.device
         self.log = get_app_logger()
+        self.primary = self.mesh.rank == 0
         bs = cfg.train.batch_size
+        if bs % self.mesh.data:
+            raise ValueError(f"batch-size {bs} not divisible by "
+                             f"data-parallel size {self.mesh.data}")
 
         self.image_cache = None
         # as in JAX, DeepIO projects nothing, so it caches nothing
@@ -140,7 +170,8 @@ class Trainer:
             self.log.info("loaded pretrained model from %s",
                           cfg.model.model_path)
         self.state: TrainState = create_train_state(cfg, model,
-                                                    steps_per_epoch)
+                                                    steps_per_epoch,
+                                                    mesh=self.mesh)
 
         self.spc = max(int(cfg.train.steps_per_call), 1)
         if self.train_ds is not None and self.spc > steps_per_epoch:
@@ -150,7 +181,7 @@ class Trainer:
                 f"steps-per-call {self.spc} exceeds the {steps_per_epoch} "
                 f"steps per epoch (batch-size {bs}, {len(self.train_ds)} "
                 f"windows): every epoch would drop all its batches")
-        self.train_step, self.eval_step = build_train_step(cfg)
+        self.train_step, self.eval_step = build_train_step(cfg, self.mesh)
         self._train_bank = self._val_bank = None
         self.bank_ms: Dict[str, float] = {}
         if cfg.train.device_dataset and not eval_only:
@@ -184,7 +215,8 @@ class Trainer:
             except FileNotFoundError:
                 pass
         self._save_boundary = self.state.step   # periodic-save watermark
-        self.metrics = MetricsWriter(os.path.join(workdir, "metrics.jsonl"))
+        self.metrics = (MetricsWriter(os.path.join(workdir, "metrics.jsonl"))
+                        if self.primary else _NullMetrics())
 
     @property
     def step(self) -> int:
@@ -193,6 +225,8 @@ class Trainer:
     def _stage_banks(self) -> None:
         """Build the host banks of both splits and copy them to the device
         once (``bank_ms``: host build and copy ms, and the MB)."""
+        if self.mesh.data > 1:
+            raise ValueError("device-dataset is single-process only")
         if not self.train_ds.with_points:
             raise ValueError("device-dataset needs a dataset of raw points "
                              "(arch deeplo or deeplio, no cache-projections)")
@@ -230,7 +264,9 @@ class Trainer:
     def _prefetch(self, ds, **kw) -> DevicePrefetcher:
         bs = self.cfg.train.batch_size
         alloc = self.ring.take if self.ring is not None else None
-        return DevicePrefetcher(ds.iter_batches(bs, alloc=alloc, **kw),
+        return DevicePrefetcher(ds.iter_batches(
+            bs, alloc=alloc, process_index=self.mesh.rank,
+            process_count=self.mesh.data, **kw),
                                 self.device, depth=self.cfg.train.prefetch,
                                 ring=self.ring)
 
@@ -324,17 +360,21 @@ class Trainer:
             if self.plateau.lr != old_lr:
                 self.log.info("plateau: lr %.2e -> %.2e", old_lr,
                               self.plateau.lr)
+        # val is the ranks' mean: every rank decides the same way
         if val["loss"] < self.best_val:
             self.best_val = val["loss"]
             # a snapshot of its own: the step-labelled checkpoints keep
             # only the newest few, which would drop an older best
-            save_params(os.path.join(self.workdir, "best"), self.state.model,
-                        overwrite=True)
+            if self.primary:
+                save_params(os.path.join(self.workdir, "best"),
+                            self.state.model, overwrite=True)
             self.ckpt.maybe_save(self.state, metrics=val, force=True,
                                  step=step)
         self._write_meta()
 
     def _write_meta(self) -> None:
+        if not self.primary:
+            return
         tmp = f"{self._meta_path}.tmp.{os.getpid()}"
         with open(tmp, "w") as f:
             json.dump({"best_val": self.best_val,

@@ -1,7 +1,7 @@
 """The training and eval steps (counterpart of
 ``deeplio_tpu/train/step.py``: ``make_model_batch`` on the classic
-pair-concat and the pair-split paths and ``build_train_step`` on one
-device).
+pair-concat and the pair-split paths, and ``build_train_step`` on one
+device or, under data parallelism, on each rank of a mesh).
 
 Raw batch contract (``data/dataset.py`` output, on the device):
 
@@ -23,15 +23,29 @@ optax's global-norm clip and the optimizer's update (Adam, AdamW or SGD
 with momentum). The phases run under the profiler
 spans ``train.augment``, ``train.project``, ``train.forward``,
 ``train.backward`` and ``train.update`` (a few microseconds each when no
-profiler runs).
+profiler runs). The forward and the loss are the state's ``trainables``
+(``train/state.py::Trainables``).
+
+Data parallelism (``build_train_step(cfg, mesh)`` with a mesh whose
+process group is set, JAX's shard_map step): each rank runs the step
+above on its own rows, with its own generator (``train/state.py``). The
+state's ``trainables`` are in ``DistributedDataParallel``, which
+averages the gradients (JAX's ``pmean``) before the optimizer
+clips and applies them; the BatchNorm statistics are the data axis's
+(``models/blocks.py::FlaxBatchNorm2d``). The loss metrics are averaged
+over the ranks in one ``all_reduce``. The eval step averages its metrics
+and gathers the predictions, so every rank holds the global batch's.
+With no mesh, or a mesh of one process with no group, both steps are the
+one-device steps.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.nn.parallel import DistributedDataParallel
 from torch.profiler import record_function
 
 from deeplio_tpu_torch.config.schema import Config
@@ -41,6 +55,7 @@ from deeplio_tpu_torch.models.blocks import space_to_depth_pairs
 from deeplio_tpu_torch.models.zoo import DTYPES
 from deeplio_tpu_torch.ops.augment import yaw_augment
 from deeplio_tpu_torch.ops.projection import make_projector
+from deeplio_tpu_torch.parallel.mesh import Mesh
 from deeplio_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -107,7 +122,28 @@ def make_model_batch(cfg: Config, projector: Callable, raw: Batch) -> Batch:
     return mb
 
 
-def build_train_step(cfg: Config) -> Tuple[Callable, Callable]:
+def _mean_over(mesh: Mesh, metrics: Batch) -> Batch:
+    """Scalar metrics averaged over the mesh's ranks (one all_reduce)."""
+    import torch.distributed as dist
+
+    keys = list(metrics)
+    v = torch.stack([metrics[k].float() for k in keys])
+    dist.all_reduce(v, group=mesh.group)
+    v = v / mesh.data
+    return {k: v[i] for i, k in enumerate(keys)}
+
+
+def _gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along dim 0, in rank order."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(t) for _ in range(mesh.data)]
+    dist.all_gather(parts, t.contiguous(), group=mesh.group)
+    return torch.cat(parts)
+
+
+def build_train_step(cfg: Config, mesh: Optional[Mesh] = None
+                     ) -> Tuple[Callable, Callable]:
     """Returns ``(train_step, eval_step)``:
 
     ``train_step(state, raw) -> (state, metrics)`` updates ``state`` in
@@ -115,30 +151,40 @@ def build_train_step(cfg: Config) -> Tuple[Callable, Callable]:
     model in eval mode. The metrics are detached scalar tensors on the
     device (``loss``, ``loss_x``, ``loss_q``, ``sx``/``sq`` for LWS as they
     were before the update, and ``grad_norm``, the norm before clipping).
+
+    With a ``mesh`` that has a process group, ``raw`` is this rank's rows
+    and ``state`` was made by ``create_train_state(..., mesh=mesh)``; the
+    metrics are the ranks' means and ``grad_norm`` is the averaged
+    gradient's, and ``eval_step``'s predictions are the global batch's.
     """
     ds = cfg.datasets
     projector = make_projector(ds.projection, ds.channels, ds.mean, ds.std,
                                out_dtype=DTYPES[cfg.model.compute_dtype],
                                layout="planes")
+    dp = mesh is not None and mesh.group is not None
 
     def train_step(state: TrainState, raw: Batch):
-        model = state.model.train()
         if ds.augment_yaw:
             with record_function("train.augment"):
                 raw = yaw_augment(raw, state.generator)
         with record_function("train.project"), torch.no_grad():
             mb = make_model_batch(cfg, projector, raw)
         with record_function("train.forward"):
-            x_pred, q_pred = model(mb, state.generator)
-            total, metrics = pose_loss(cfg.loss, state.loss_params, x_pred,
-                                       q_pred, raw["x_gt"], raw["q_gt"],
-                                       raw.get("valid"))
+            if dp and not isinstance(state.trainables,
+                                     DistributedDataParallel):
+                raise ValueError("a data-parallel step needs the state of "
+                                 "create_train_state(..., mesh=mesh)")
+            total, metrics = state.trainables.train()(mb, raw,
+                                                      state.generator)
             metrics = {k: v.detach().clone() for k, v in metrics.items()}
         with record_function("train.backward"):
             state.optimizer.zero_grad()
             total.backward()
         with record_function("train.update"):
-            metrics["grad_norm"] = state.optimizer.step(state.step)
+            grad_norm = state.optimizer.step(state.step)
+        if dp:
+            metrics = _mean_over(mesh, metrics)
+        metrics["grad_norm"] = grad_norm
         state.step += 1
         return state, metrics
 
@@ -149,7 +195,10 @@ def build_train_step(cfg: Config) -> Tuple[Callable, Callable]:
         x_pred, q_pred = model(mb)
         _, metrics = pose_loss(cfg.loss, state.loss_params, x_pred, q_pred,
                                raw["x_gt"], raw["q_gt"], raw.get("valid"))
-        return x_pred, q_pred, {k: v.detach().clone()
-                                for k, v in metrics.items()}
+        metrics = {k: v.detach().clone() for k, v in metrics.items()}
+        if dp:
+            metrics = _mean_over(mesh, metrics)
+            x_pred, q_pred = _gather(mesh, x_pred), _gather(mesh, q_pred)
+        return x_pred, q_pred, metrics
 
     return train_step, eval_step

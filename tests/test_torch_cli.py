@@ -28,7 +28,7 @@ from deeplio_tpu_torch.cli import stream as stream_cli
 from deeplio_tpu_torch.cli import test as test_cli
 from deeplio_tpu_torch.cli import train as train_cli
 from deeplio_tpu_torch.cli._common import restore_trainer
-from deeplio_tpu_torch.config import ConfigError, load_config
+from deeplio_tpu_torch.config import load_config
 from deeplio_tpu_torch.data.dataset import build_drives
 from deeplio_tpu_torch.eval.runner import evaluate_drive
 from deeplio_tpu_torch.models.zoo import build_model
@@ -229,14 +229,31 @@ def test_no_checkpoint_exits(cli, tmp_path):
                   "--device", "cpu"])
 
 
-@pytest.mark.parametrize("flags", [["--data-parallel", "2"],
-                                   ["--num-processes", "2"],
-                                   ["--coordinator", "localhost:1234"]])
-def test_data_parallel_raises_naming_item_6(flags, tmp_path):
+@pytest.mark.parametrize("flags,error", [
+    (["--data-parallel", "2"], r"mesh 2x1 needs 2 devices, have 1"),
+    (["--coordinator", "localhost:1234", "--num-processes", "2"],
+     "requires DEEPLIO_NUM_PROCESSES and DEEPLIO_PROCESS_ID"),
+    (["--coordinator", "localhost:1234"],
+     "requires DEEPLIO_NUM_PROCESSES and DEEPLIO_PROCESS_ID")],
+    ids=["flags0", "flags1", "flags2"])
+def test_data_parallel_raises_naming_item_6(flags, error, tmp_path,
+                                            monkeypatch):
+    """The data-parallel flags parse to the JAX CLI's values. In one
+    process with no cluster, ``--data-parallel 2`` raises ``make_mesh``'s
+    error (two devices wanted, one process), and a coordinator without the
+    process count and id raises ``maybe_initialize``'s, as in JAX, before
+    the work directory is made."""
+    for var in ("DEEPLIO_COORDINATOR", "DEEPLIO_NUM_PROCESSES",
+                "DEEPLIO_PROCESS_ID", "MASTER_ADDR", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
     cfg_path = write_config(tmp_path / "tiny.yaml")
-    with pytest.raises(ConfigError, match="Queue 1 item 6"):
-        train_cli.main(["-c", cfg_path, "--workdir", str(tmp_path / "w"),
-                        "--device", "cpu", *flags])
+    argv = ["-c", cfg_path, "--workdir", str(tmp_path / "w"), *flags]
+    keys = ("data_parallel", "coordinator", "num_processes", "process_id")
+    got, want = vars(train_cli.parse_args(argv)), vars(
+        jax_train_cli.parse_args(argv))
+    assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
+    with pytest.raises(ValueError, match=error):
+        train_cli.main(argv + ["--device", "cpu"])
     assert not (tmp_path / "w").exists()
 
 

@@ -179,7 +179,8 @@ _FIELDS = {("optimizer", "name"): ("optim", "name"),
            ("optimizer", "momentum"): ("optim", "momentum"),
            ("lidar-feat-pointseg", "stem"): ("model", "lidar", "stem"),
            ("lidar-feat-pointseg", "fire"): ("model", "lidar", "fire"),
-           ("param-dtype",): ("model", "param_dtype")}
+           ("param-dtype",): ("model", "param_dtype"),
+           ("train", "data-parallel"): ("train", "data_parallel")}
 
 
 def _field(cfg, path):
@@ -193,26 +194,22 @@ def _field(cfg, path):
     (("optimizer", "weight-decay"), 0.1, True),
     (("lidar-feat-pointseg", "stem"), "factorized", True),
     (("param-dtype",), "bfloat16", True),
-    (("train", "data-parallel"), 2, False),
+    (("train", "data-parallel"), 2, True),
     (("datasets", "backend"), "sort-sentinel", True),
     (("lidar-feat-pointseg", "fire"), "mixed", True),
-    (("train", "data-parallel"), 4, False),
+    (("train", "data-parallel"), 4, True),
     (("datasets", "backend"), "ring", True),
 ])
 def test_untrained_settings_raise_naming_their_queue(kitti, path, value,
                                                     ported):
-    """A setting the port cannot train yet (data parallelism) names its
-    ROADMAP queue item; the settings this test refused before they were
-    ported parse as JAX parses them: the backends with and without
-    ``packed``, the optimizer, stem, Fire and ``param-dtype`` to JAX's
-    values (and SGD's momentum to JAX's default 0.9)."""
+    """The settings this test refused before they were ported (``ported``
+    says so of every one now) parse as JAX parses them: the backends with
+    and without ``packed``, the optimizer, stem, Fire, ``param-dtype`` and
+    ``data-parallel`` (2 and 4: the processes of a run) to JAX's values
+    (and SGD's momentum to JAX's default 0.9)."""
+    assert ported
     d = copy.deepcopy(kitti)
     _set(d, path, value)
-    if not ported:
-        with pytest.raises(ConfigError,
-                           match=r"PyTorch port yet; .*Queue 1 item 6"):
-            load_config_dict(d)
-        return
     if path[0] != "datasets":
         port, ref = load_config_dict(d), jax_load_dict(d)
         assert _field(port, path) == _field(ref, path) == value

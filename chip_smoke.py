@@ -230,6 +230,41 @@ batch and phase 11's tree:
     ``metrics.jsonl``, checkpoint, ``best/`` and ``trainer_meta.json``
     written once, by rank 0.
 
+Slice 12, the projection's prologue and epilogue as hand-written kernels
+(``csrc/proj_io.cu``, the operators ``deeplio::proj_prologue`` and
+``deeplio::proj_epilogue`` of ``ops/projection_io.py``) around both
+selections on the packed routes:
+
+19. both kernels held bit for bit (as integers: signed zeros and NaN bits
+    count) against their plain versions on the same card tensors, on both
+    routes at B = 1, 9, 16 and 144, on the tree's ring scans and slice 2's
+    unordered synthetic batch, and on eight full-width edge cases (a pure
+    invalid tail, interleaved invalid points, an all-invalid scan, a NaN
+    remission on valid points, ranges past the key ceiling, ranges at or
+    below 1e-6, a scan in no order, NaN on invalid points), as planes and
+    as strided [B, N, 4] views, the epilogue in each form (the 5-channel
+    image in float32, the configuration's normalised channels in
+    bfloat16, float16 and float32); each kernel, the whole projection
+    and the plain composition it replaces timed (graph replay) at B = 1,
+    16 and 144 beside their bounds; one ``make_projector`` call profiled
+    alone at B = 144 (3 device launches on ``pallas``, 4 on
+    ``pallas-ring``); a slice-2 step (scatter) and a ring-route step on a
+    tree batch at B = 144 profiled with the kernels and with the plain
+    prologue and epilogue in turns: ``train.project``'s device ms and the
+    kernels of its call. Every main-path run of phases 1 to 18 (the
+    stream's ticks, each step loop, fit, the command lines, the
+    artifact, the prefill, pretraining, the data-parallel steps) sets the
+    two operators' counts to 0 just before it, as it does the
+    selections', and reads them just after: one prologue and one
+    epilogue per projection on a packed route, none on the others; the
+    ``kernels`` line sums those runs only. Phase 4 also profiles the
+    stream with the plain prologue and epilogue (kernels a frame each
+    way). A call's device work is counted from a CUDA graph of it
+    (``utils/timing.py::graph_work``): on the card's machine the profiler
+    drops records (after some seconds with no work on the card it
+    records no device event at all), so its readings are printed beside,
+    not checked.
+
 After phase 4, the cost of the operator binding: a stream with the ring
 kernel behind ``torch.ops.deeplio.ring_select`` and with its CUDA
 implementation called directly, in turns (frames/s each way).
@@ -241,6 +276,7 @@ check fails. The last line is the JSON object
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -268,7 +304,15 @@ from deeplio_tpu_torch.eval.streaming import StreamingOdometry
 from deeplio_tpu_torch.models.from_flax import to_flax_variables
 from deeplio_tpu_torch.models.zoo import build_model
 from deeplio_tpu_torch.ops import _kernels
+from deeplio_tpu_torch.ops import projection_io as pio
 from deeplio_tpu_torch.ops.projection import make_projector, rq_bits_for
+from deeplio_tpu_torch.ops.projection_io import (
+    epilogue_form,
+    proj_epilogue,
+    proj_epilogue_reference,
+    proj_prologue,
+    proj_prologue_reference,
+)
 from deeplio_tpu_torch.ops.projection_ring import SENTINEL as SENTINEL_RING
 from deeplio_tpu_torch.ops.projection_ring import (
     project_batch_ring_planes,
@@ -289,6 +333,7 @@ from deeplio_tpu_torch.ops.projection_scatter import (
 from deeplio_tpu_torch.train import Trainer
 from deeplio_tpu_torch.train.state import create_train_state
 from deeplio_tpu_torch.train.step import batch_to_device, build_train_step
+from deeplio_tpu_torch.utils.timing import graph_work
 
 ROOT = pathlib.Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "deeplio_kitti_tpu.yaml"
@@ -627,11 +672,12 @@ def phase_slice(dev, gpu):
     so = StreamingOdometry(cfg, model, chunk=16, device=dev)
     so.run(drive)                                  # warm-up
     torch.cuda.synchronize()
-    ring_select.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     poses, dx, dq = so.run(drive)                  # main path (synchronises)
     wall = time.perf_counter() - t0
     launches = ring_select.launches
+    io_take(launches if packed_route(cfg) else 0)
     check(launches == FRAMES,
           f"ring kernel launched {launches} times for {FRAMES} frames")
     check(all(np.isfinite(a).all() for a in (poses, dx, dq)),
@@ -732,6 +778,16 @@ def phase_profile(so, gpu, frames: int = 8):
         print(f"profile kernel {e.key[:160]}: "
               f"{e.self_device_time_total / frames:.1f} us/frame, "
               f"{e.count / frames:.1f} launches/frame")
+    # the same frames with the projection's plain prologue and epilogue
+    with plain_io(), profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+        so.run(short)
+    plain = device_kernels(prof.key_averages(), "stream.")
+    n_plain = sum(e.count for e in plain) / frames
+    busy_plain = sum(e.self_device_time_total for e in plain) / 1e3 / frames
+    print(f"profile: {n_k:.0f} device kernels/frame and {busy_ms:.3f} ms "
+          f"busy with the prologue and epilogue kernels, {n_plain:.0f} and "
+          f"{busy_plain:.3f} ms with their plain versions [{gpu}]")
 
 
 # ------------------------------------------------------------- slice 2
@@ -871,8 +927,7 @@ def phase_train(dev, gpu, host):
         state, m = train_step(state, raw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    scatter_select.launches = 0
-    ring_select.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     metrics = []
     for _ in range(TIMED_STEPS):
@@ -881,6 +936,7 @@ def phase_train(dev, gpu, host):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = scatter_select.launches
+    io_take(launches if packed_route(cfg) else 0)
     check(launches == TIMED_STEPS,
           f"scatter kernel launched {launches} times in {TIMED_STEPS} steps")
     check(ring_select.launches == 0, "the training slice ran the ring kernel")
@@ -1189,12 +1245,13 @@ def phase_fit(dev, gpu, workdir: pathlib.Path, cfg=None):
           f"drive 0 frame 1 [{gpu}]")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    scatter_select.launches = 0
+    _zero_counts()
     t0, start = time.perf_counter(), time.time()
     trainer.fit(epochs=FIT_EPOCHS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = scatter_select.launches
+    io_take(launches if packed_route(cfg) else 0)
     want = FIT_EPOCHS * (spe + n_val)
     check(launches == want, f"fit: {launches} scatter launches, want {want} "
           f"(one per train step and per validation batch)")
@@ -1231,11 +1288,12 @@ def phase_fit(dev, gpu, workdir: pathlib.Path, cfg=None):
     print(f"fit: resumed at step {resumed.step}, state bit-equal to the "
           f"saved one (parameters, BatchNorm buffers, sx/sq, Adam moments "
           f"and step, CUDA generator); restore {restore_ms:.1f} ms [{gpu}]")
-    scatter_select.launches = 0
+    _zero_counts()
     start = time.time()
     resumed.fit(epochs=FIT_RESUME_EPOCHS)
     torch.cuda.synchronize()
     r_launches = scatter_select.launches
+    io_take(r_launches if packed_route(cfg) else 0)
     want = FIT_RESUME_EPOCHS * (spe + n_val)
     check(r_launches == want, f"resumed fit: {r_launches} scatter launches, "
           f"want {want}")
@@ -1338,13 +1396,13 @@ def _kitti_fit(trainer, gpu, label: str):
     it; returns (ms/step, ring launches, scatter launches)."""
     bs = trainer.cfg.train.batch_size
     spe = trainer.train_ds.steps_per_epoch(bs)
-    torch.cuda.synchronize()
-    ring_select.launches = scatter_select.launches = 0
+    _zero_counts()
     t0, start = time.perf_counter(), time.time()
     trainer.fit(epochs=KITTI_EPOCHS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     ring, scatter = ring_select.launches, scatter_select.launches
+    io_take(ring + scatter if packed_route(trainer.cfg) else 0)
     records = _records(trainer.workdir)
     check(all(np.isfinite(r["loss"]) for r in records),
           f"{label}: non-finite loss")
@@ -1421,7 +1479,7 @@ def phase_kitti_runs(dev, gpu, root, over=None):
     torch.cuda.empty_cache()
 
     # run C: every frame projected once into the cache, fit on the images
-    ring_select.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     cache_t = Trainer(kitti_config(root, over, cache_projections=True),
                       workdir=str(root / "run_c"), device=dev)
@@ -1429,6 +1487,7 @@ def phase_kitti_runs(dev, gpu, root, over=None):
     build_s = time.perf_counter() - t0
     cache = cache_t.image_cache
     prefill = ring_select.launches
+    io_take(prefill if packed_route(cache_t.cfg) else 0)
     spans = {cache._path(d): d for d in cache_t.train_ds.drives
              + cache_t.val_ds.drives}
     chunks = sum(-(-len(d) // PREFILL_CHUNK) for d in spans.values())
@@ -1527,11 +1586,12 @@ def phase_kitti_stream(dev, gpu, root, cfg):
                            chunk=16, device=dev)
     so.run(drive)                                    # warm-up
     torch.cuda.synchronize()
-    ring_select.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     poses, dx, dq = so.run(drive)
     wall = time.perf_counter() - t0
     launches = ring_select.launches
+    io_take(launches if packed_route(cfg) else 0)
     check(launches == STREAM_FRAMES, f"streamed {STREAM_FRAMES} KITTI "
           f"frames with {launches} ring launches")
     check(all(np.isfinite(a).all() for a in (poses, dx, dq))
@@ -1606,8 +1666,41 @@ def _timed(fn, seconds: list):
 
 
 def _zero_counts() -> None:
+    """Sets every kernel's count to 0: both selections', the projection
+    prologue's and its epilogue's."""
     torch.cuda.synchronize()
     ring_select.launches = scatter_select.launches = 0
+    proj_prologue.launches = proj_epilogue.launches = 0
+
+
+# the projection prologue's launches on each slice's main paths, as
+# io_take reads them after each run: {slice: launches}
+IO_LAUNCHES = {}
+IO_SLICE = [None]                   # the slice io_take adds to
+
+
+def packed_route(cfg) -> bool:
+    """Whether ``cfg``'s projector runs the prologue and epilogue
+    operators around its selection: ``pallas`` and ``pallas-ring`` always
+    (their slot-aligned routes launch no selection either), ``ring``,
+    ``sort`` and ``sort-sentinel`` under ``packed``."""
+    p = cfg.datasets.projection
+    return p.backend in ("pallas", "pallas-ring") or p.packed
+
+
+def io_take(want: int) -> int:
+    """The prologue's and the epilogue's launches in the main-path run
+    just ended, their counts set to 0 just before it
+    (:func:`_zero_counts`): each must be ``want``, the run's projections
+    on the packed routes (one of each a projection). Adds them to the
+    slice's count and returns them."""
+    torch.cuda.synchronize()
+    pro, epi = proj_prologue.launches, proj_epilogue.launches
+    check(pro == epi == want, f"{IO_SLICE[0]}: {pro} prologue and {epi} "
+          f"epilogue launches in a run, want {want} of each (one a "
+          f"projection on a packed route)")
+    IO_LAUNCHES[IO_SLICE[0]] = IO_LAUNCHES.get(IO_SLICE[0], 0) + pro
+    return pro
 
 
 def phase_cli_eval(gpu, common, cfg, label: str, extra=(),
@@ -1671,6 +1764,7 @@ def phase_cli_eval(gpu, common, cfg, label: str, extra=(),
     counts = {"ring": ring_select.launches,
               "scatter": scatter_select.launches}
     ring, scatter = counts["ring"], counts["scatter"]
+    io_take(ring + scatter if packed_route(cfg) else 0)
     launched = counts.pop(kernel)
     (other,) = counts.values()
     check(launched == batches and other == 0, f"eval {label}: {ring} ring "
@@ -1753,18 +1847,18 @@ def phase_cli_export(dev, gpu, common, cfg, wd, per_tick: int = 1,
     for fn, c0 in ((step, init_carry), (eager, so.init_carry)):
         _serve(fn, c0(), chunks[:1], so.to_device)             # warm-up
     op = ring_select if kernel == "ring" else scatter_select
-    _zero_counts()
     walls = {"artifact": [], "eager": []}
     got = None
     for name in ("artifact", "eager", "eager", "artifact"):
         fn, c0 = ((step, init_carry) if name == "artifact"
                   else (eager, so.init_carry))
-        before = op.launches
+        _zero_counts()
         t0 = time.perf_counter()
         out = _serve(fn, c0(), chunks, so.to_device)
         walls[name].append(time.perf_counter() - t0)
         if name == "artifact" and got is None:
-            got, art_launches = out, op.launches - before
+            got, art_launches = out, op.launches
+            io_take(art_launches if packed_route(cfg) else 0)
         elif name == "eager":
             want = out
     frames = sum(n for n, _ in chunks)
@@ -1810,6 +1904,7 @@ def phase_cli(dev, gpu, root, over=None):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     ring, scatter = ring_select.launches, scatter_select.launches
+    io_take(ring + scatter if packed_route(cfg) else 0)
     records = _records(wd)
     steps = [r["step"] for r in records if r["split"] == "train"]
     # 2 train steps and 1 validation batch (phase 11's splits)
@@ -1830,6 +1925,7 @@ def phase_cli(dev, gpu, root, over=None):
     _zero_counts()
     scores = stream_cli.main(common + ["--chunk", "16"])
     ring = ring_select.launches
+    io_take(ring if packed_route(cfg) else 0)
     (name, s), = scores.items()
     check(ring == s["frames"] and np.isfinite(s["ate_m"]),
           f"cli stream: {ring} ring launches for {s['frames']} frames")
@@ -1906,8 +2002,10 @@ def _pretrain_run(dev, gpu, cfg_path, out, steps: int, warmup: int,
     PRETRAIN_B for ``steps`` steps, both selections spied on; checks
     ``per_step`` (ring, scatter) launches a step (by default one of each:
     the model input through the ring kernel, the label image through the
-    scatter kernel) and the first step's selections against the plain
-    versions. Returns (result, ms/step over the steps after ``warmup``,
+    scatter kernel), the projections on packed routes among them (the
+    model input's on a packed route, the label image's with label files
+    or under ``packed``) and the first step's selections against the
+    plain versions. Returns (result, ms/step over the steps after ``warmup``,
     the ring and scatter launches, the scatter spy, the first step's
     device batch)."""
     from deeplio_tpu_torch.cli import pretrain_pointseg as pre_cli
@@ -1931,6 +2029,9 @@ def _pretrain_run(dev, gpu, cfg_path, out, steps: int, warmup: int,
         pring.ring_select, pscat.scatter_select = ring.op, scatter.op
         tpre.build_pretrain_step = build
     launches = (ring_select.launches, scatter_select.launches)
+    cfg = load_config(cfg_path)
+    io_take(steps * (int(packed_route(cfg)) + int(
+        bool(cfg.datasets.labels_path) or cfg.datasets.projection.packed)))
     want = tuple(k * steps for k in per_step)
     check(launches == want, f"pretrain {label}: {launches[0]} ring and "
           f"{launches[1]} scatter launches in {steps} steps, want {want}")
@@ -2061,6 +2162,7 @@ def phase_pretrain_graft(dev, gpu, root, out, over=None, d=None,
         trainer.state, m = trainer.train_step(trainer.state, raw)
         torch.cuda.synchronize()
         launches = (ring_select.launches, scatter_select.launches)
+        io_take(sum(launches) if packed_route(cfg) else 0)
         loss = float(m["loss"])
     finally:
         trainer.close()
@@ -2432,6 +2534,7 @@ def phase_variant_cli(dev, gpu, root, over=None):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     ring, scatter = ring_select.launches, scatter_select.launches
+    io_take(ring + scatter if packed_route(cfg) else 0)
     records = _records(wd)
     steps = [r["step"] for r in records if r["split"] == "train"]
     n_val = sum(1 for r in records if r["split"] == "val")
@@ -2485,6 +2588,7 @@ def phase_variant_synth(dev, gpu, root, over=None):
         finally:
             trainer.close()
         ring, scatter = ring_select.launches, scatter_select.launches
+        io_take(ring + scatter if packed_route(cfg) else 0)
         want = (spe + n_val) if cfg.model.uses_lidar else 0
         records = _records(wd)
         check(trainer.step == spe and scatter == want and ring == 0
@@ -2506,6 +2610,7 @@ def phase_variant_synth(dev, gpu, root, over=None):
             scores = stream_cli.main(["-c", str(path), "--workdir", str(wd),
                                       "--device", dev.type])
             launches = scatter_select.launches
+            io_take(launches if packed_route(cfg) else 0)
             (drive, sc), = scores.items()
             check(launches == sc["frames"] and np.isfinite(sc["ate_m"])
                   and ring_select.launches == 0,
@@ -2572,9 +2677,11 @@ def flagship_config(over=None, stem=None, f32=False, **ds):
 
 
 def _timed_steps(state, train_step, raw, steps: int = TIMED_STEPS,
-                 warmup: int = WARMUP_STEPS):
+                 warmup: int = WARMUP_STEPS, *, packed: bool):
     """``steps`` steps after ``warmup``, the counts set to 0 just before
-    them; (ms/step, ring launches, scatter launches, metrics)."""
+    them and the prologue's and epilogue's read after them (a launch of
+    each per selection when ``packed``: the step projects on a packed
+    route); (ms/step, ring launches, scatter launches, metrics)."""
     for _ in range(warmup):
         state, m = train_step(state, raw)
     _zero_counts()
@@ -2586,6 +2693,7 @@ def _timed_steps(state, train_step, raw, steps: int = TIMED_STEPS,
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / steps
     ring, scatter = ring_select.launches, scatter_select.launches
+    io_take(ring + scatter if packed else 0)
     vals = [_metrics(m) for m in metrics]
     check(all(np.isfinite(list(v.values())).all() for v in vals),
           "non-finite training metrics")
@@ -2609,7 +2717,8 @@ def phase_flagship_steps(dev, gpu, over=None):
         state = create_train_state(cfg, model)
         train_step, _ = build_train_step(cfg)
         raw = batch_to_device(host, dev)
-        ms, ring, scatter, vals = _timed_steps(state, train_step, raw)
+        ms, ring, scatter, vals = _timed_steps(state, train_step, raw,
+                                               packed=packed_route(cfg))
         want = 0 if aligned == "halves" else TIMED_STEPS
         check(ring == want and scatter == 0,
               f"flagship {aligned}: {ring} ring and {scatter} scatter "
@@ -2786,6 +2895,7 @@ def _flagship_cli_train(dev, gpu, root, label, over, **ds):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         ring, scatter = ring_select.launches, scatter_select.launches
+        io_take(ring + scatter if packed_route(cfg) else 0)
     finally:
         train_cli.Trainer = real
     (trainer,) = _Recorded.made
@@ -2859,6 +2969,7 @@ def phase_flagship_cli(dev, gpu, root, over=None):
 
     _zero_counts()
     scores = stream_cli.main(common + ["--chunk", "16"])
+    io_take(0)
     (name, s), = scores.items()
     check(ring_select.launches == 0 and np.isfinite(s["ate_m"]),
           f"flagship cli stream: {ring_select.launches} ring launches")
@@ -2911,7 +3022,8 @@ def phase_flagship_stems(dev, gpu, over=None):
                            ("classic", classic, ccfg)) * 2:
         state = create_train_state(c, model)
         train_step, _ = build_train_step(c)
-        ms, *_ = _timed_steps(state, train_step, raw)
+        ms, *_ = _timed_steps(state, train_step, raw,
+                              packed=packed_route(c))
         step_ms.setdefault(name, []).append(ms)
     print(f"flagship stems, same weights, B = {TRAIN_B} x 8 pairs at "
           f"{H}x{W}, bfloat16 (in turns): the stem with its input copies "
@@ -3103,7 +3215,8 @@ def phase_slice9_steps(dev, gpu, root, step_ms, over=None):
         train_step, _ = build_train_step(cfg)
         raw = batch_to_device(host, dev)
         steps = 3 if fc else TIMED_STEPS
-        ms, ring, scatter, vals = _timed_steps(state, train_step, raw, steps)
+        ms, ring, scatter, vals = _timed_steps(state, train_step, raw, steps,
+                                               packed=packed_route(cfg))
         want = (0, steps) if fc else (steps, 0)
         check((ring, scatter) == want, f"{label}: {ring} ring and {scatter} "
               f"scatter launches in {steps} steps, want {want}")
@@ -3192,6 +3305,8 @@ def phase_slice9_cli(dev, gpu, root, over=None):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     ring, scatter = ring_select.launches, scatter_select.launches
+    packed = packed_route(load_config_dict(d))
+    io_take(ring + scatter if packed else 0)
     records = _records(wd)
     steps = [r["step"] for r in records if r["split"] == "train"]
     n_val = sum(1 for r in records if r["split"] == "val")
@@ -3217,6 +3332,7 @@ def phase_slice9_cli(dev, gpu, root, over=None):
     _zero_counts()
     scores = stream_cli.main(common + ["--chunk", "16"])
     launches = ring_select.launches
+    io_take(launches if packed else 0)
     (name, s), = scores.items()
     check(launches == s["frames"] and np.isfinite(s["ate_m"])
           and scatter_select.launches == 0,
@@ -3337,7 +3453,8 @@ def phase_slice10_steps(dev, gpu, root, step_ms, over=None):
         state, args, outs, _ = _spy_step(state, train_step, raw, kernel,
                                          plain, label)
         ms, ring, scatter, vals = _timed_steps(state, train_step, raw,
-                                               warmup=WARMUP_STEPS - 1)
+                                               warmup=WARMUP_STEPS - 1,
+                                               packed=packed_route(cfg))
         want = (TIMED_STEPS, 0) if kernel == "ring" else (0, TIMED_STEPS)
         check((ring, scatter) == want, f"{label}: {ring} ring and "
               f"{scatter} scatter launches in {TIMED_STEPS} steps, want "
@@ -3442,6 +3559,7 @@ def phase_slice10_cli(dev, gpu, root, over=None):
         secs = time.perf_counter() - t0
         launched = op.launches
         other = ring_select.launches + scatter_select.launches - launched
+        io_take(launched + other if packed_route(cfg) else 0)
         records = _records(wd)
         steps = [r["step"] for r in records if r["split"] == "train"]
         n_val = sum(1 for r in records if r["split"] == "val")
@@ -3478,6 +3596,8 @@ def phase_slice10_cli(dev, gpu, root, over=None):
             _zero_counts()
             train_cli.main(common + ["--epochs", "1", "--resume"])
             torch.cuda.synchronize()
+            io_take(ring_select.launches + scatter_select.launches
+                    if packed_route(cfg) else 0)
             records = _records(wd)
             steps = [r["step"] for r in records if r["split"] == "train"]
             check(steps == [1, 2, 3, 4] and ring_select.launches == 3,
@@ -3489,6 +3609,8 @@ def phase_slice10_cli(dev, gpu, root, over=None):
             ring_n += ring_select.launches
             _zero_counts()
             scores = stream_cli.main(common + ["--chunk", "16"])
+            io_take(ring_select.launches + scatter_select.launches
+                    if packed_route(cfg) else 0)
             (name, s), = scores.items()
             check(ring_select.launches == s["frames"]
                   and scatter_select.launches == 0
@@ -3685,6 +3807,7 @@ def _dp_rank(rank, world, port, device, tmp, root, over, out):
                                          f"{label} float32")
         res["f32"] = (scatter_select.launches, ring_select.launches,
                       int(args[0].shape[0]))
+        io_take(sum(res["f32"][:2]) if packed_route(cfg) else 0)
         del args, outs
         r = _dp_result(state, m)
         np.savez(pathlib.Path(tmp) / f"rank{rank}.npz", **r["variables"])
@@ -3706,7 +3829,8 @@ def _dp_rank(rank, world, port, device, tmp, root, over, out):
                                          f"{label} ring")
         spied = (ring_select.launches, scatter_select.launches)
         ms, ring, scatter, vals = _timed_steps(state, train_step, raw,
-                                               steps=DP_RING_STEPS, warmup=0)
+                                               steps=DP_RING_STEPS, warmup=0,
+                                               packed=packed_route(cfg))
         k_ms, bound_ms, b = _dp_kernel_ms("ring", args, outs)
         res["ring"] = (spied, ring, scatter, b, ms, vals[0]["loss"],
                        vals[-1]["loss"], k_ms, bound_ms)
@@ -3723,7 +3847,11 @@ def _dp_rank(rank, world, port, device, tmp, root, over, out):
         res["fit"] = (ring_select.launches, scatter_select.launches,
                       trainer.step, trainer.mesh.data,
                       (time.perf_counter() - t0) * 1e3)
+        io_take(sum(res["fit"][:2]) if packed_route(cfg) else 0)
         trainer.close()
+        # the prologue's launches on the rank's main paths (a, the timed
+        # steps of b, c), each read by io_take
+        res["io"] = sum(IO_LAUNCHES.values())
         res["seconds"] = time.perf_counter() - t_start
         out.put((rank, True, res))
     except BaseException:                      # reported by the parent
@@ -3785,7 +3913,8 @@ def phase_dp_one(dev, gpu, host, over=None):
             else:
                 state, _ = train_step(state, raw)
             ms, ring, scatter, vals = _timed_steps(state, train_step, raw,
-                                                   warmup=WARMUP_STEPS - 1)
+                                                   warmup=WARMUP_STEPS - 1,
+                                                   packed=packed_route(cfg))
             check((ring, scatter) == (0, TIMED_STEPS), f"{label} {name}: "
                   f"{ring} ring and {scatter} scatter launches in "
                   f"{TIMED_STEPS} steps")
@@ -3903,6 +4032,8 @@ def phase_dp_two(dev, gpu, host, root, want, old, over=None):
                   f"{res['seconds']:.1f} s in the rank [{gpu}]")
             scatter += f_scatter
             ring += r_ring + fit_ring
+            IO_LAUNCHES[IO_SLICE[0]] = (IO_LAUNCHES.get(IO_SLICE[0], 0)
+                                        + res["io"])
         wd = pathlib.Path(root) / "dp_fit"
         records = _records(wd)
         steps = [r["step"] for r in records if r["split"] == "train"]
@@ -3946,6 +4077,372 @@ def phase_dp(dev, gpu, host, root, over=None):
     return s1 + s2, ring
 
 
+# ------------------------------------------------------------ slice 12
+
+IO_BATCHES = (1, 9, 16, 144)        # held bit for bit at each
+IO_TIMED = (1, 16, 144)             # and timed at these
+IO_PLAIN_REPS = 10                  # replays of the plain versions' graphs
+IMG5_NAMES = ("x", "y", "z", "remission", "depth")
+# each kernel's largest difference from its plain version (phase 19)
+IO_WORST = {"prologue": 0.0, "epilogue": 0.0}
+
+
+@contextlib.contextmanager
+def io_counted(label: str, expect: bool = True):
+    """One slice's main paths: :func:`io_take` adds the prologue launches
+    of each run to ``label``'s count; with ``expect``, the slice must have
+    launched some."""
+    IO_SLICE[0] = label
+    IO_LAUNCHES[label] = 0
+    try:
+        yield
+    finally:
+        IO_SLICE[0] = None
+    n = IO_LAUNCHES[label]
+    print(f"proj_io launches on the main paths of {label}: prologue {n}, "
+          f"epilogue {n}")
+    if expect:
+        check(n > 0, f"{label}: no projection on a packed route")
+
+
+@contextlib.contextmanager
+def plain_io():
+    """The projection's plain prologue and epilogue in place of the
+    operators (the PyTorch composition the kernels replace), for a
+    before/after in one call."""
+    saved = (pio.proj_prologue, pio.proj_epilogue)
+    pio.proj_prologue = pio.proj_prologue_reference
+    pio.proj_epilogue = pio.proj_epilogue_reference
+    try:
+        yield
+    finally:
+        pio.proj_prologue, pio.proj_epilogue = saved
+
+
+def io_forms(cfg):
+    """The epilogue's output forms: the 5-channel image in float32, and
+    the configuration's normalised channels in bfloat16, float16 and
+    float32."""
+    ds = cfg.datasets
+    out = {"img5 f32": epilogue_form(IMG5_NAMES)}
+    for name, dt in (("bf16", torch.bfloat16), ("f16", torch.float16),
+                     ("f32", torch.float32)):
+        out[f"norm{len(ds.channels)} {name}"] = epilogue_form(
+            ds.channels, ds.mean, ds.std, dt)
+    return out
+
+
+def _io_bits(t):
+    t = t.contiguous()
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _io_select(route, words):
+    if route == "ring":
+        return ring_select(*words, H * W)
+    return scatter_select(*words[1:], H * W, RQ_BITS)
+
+
+def _io_eargs(route, sel, n, form):
+    return (*sel, n, H, W, route, form["channels"], form["mean"],
+            form["std"], form["out_dtype"])
+
+
+def _io_check(label, route, planes, valid, forms):
+    """Both kernels against their plain versions on the same card tensors,
+    bit for bit as integers (signed zeros and NaN bits count), the
+    epilogue in every form. Returns (prologue words, selected words)."""
+    args = (*planes, valid, H, W, FU, FD, route)
+    got = proj_prologue(*args)
+    want = proj_prologue_reference(*args)
+    torch.cuda.synchronize()
+    check(all(g.shape == w.shape for g, w in zip(got, want)),
+          f"proj_prologue {label} ({route}): shapes differ")
+    IO_WORST["prologue"] = max([IO_WORST["prologue"]] + [
+        float((g.long() - w.long()).abs().max()) for g, w in zip(got, want)
+        if g.numel()])
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"proj_prologue {label} ({route}) differs from its plain version")
+    sel = _io_select(route, got)
+    for name, form in forms.items():
+        ea = _io_eargs(route, sel, planes[0].shape[1], form)
+        gi, gm = proj_epilogue(*ea)
+        wi, wm = proj_epilogue_reference(*ea)
+        torch.cuda.synchronize()
+        for g, w in ((gi, wi), (gm, wm)):
+            g, w = g.float(), w.float()
+            same = (g == w) | (g.isnan() & w.isnan())
+            d = torch.where(same, 0.0, (g - w).abs().nan_to_num(
+                nan=float("inf")))
+            IO_WORST["epilogue"] = max(IO_WORST["epilogue"], float(d.max()))
+        check(gi.dtype == wi.dtype and gi.shape == wi.shape
+              and torch.equal(_io_bits(gi), _io_bits(wi))
+              and torch.equal(_io_bits(gm), _io_bits(wm)),
+              f"proj_epilogue {label} ({route}, {name}) differs from its "
+              f"plain version")
+    return got, sel
+
+
+def io_edge_batch(rng):
+    """Eight full-width ring scans, one edge case each: a pure invalid
+    tail, interleaved invalid points, every point invalid, a NaN
+    remission on valid points, ranges past the key ceiling (and 1e20 m),
+    ranges of 0 and at or below 1e-6, a scan in no order, and points
+    that are NaN where invalid."""
+    pts = synthetic_ring_batch(rng, 8, N)
+    valid = np.ones((8, N), bool)
+    valid[0, N * 5 // 8:] = False
+    valid[1] = rng.uniform(size=N) >= 0.3
+    valid[2] = False
+    pts[3, ::97, 3] = np.nan
+    pts[4, ::50, :3] *= np.float32(5e3)
+    pts[4, 7, :3] = np.float32(1e20)
+    pts[5, ::31, :3] = 0.0
+    pts[5, 5::31, :3] = np.float32(3e-7)
+    pts[6] = pts[6, rng.permutation(N)]
+    valid[7, ::7] = False
+    pts[7, ~valid[7]] = np.nan
+    return pts, valid
+
+
+def io_bounds(route, words, sel, form):
+    """Bytes each stage must move and their time at 3.35 TB/s: the
+    prologue reads 17 B a point (four float32 planes, the valid byte) and
+    writes 16 (ring: pix, key, two words) or 12; the selection as
+    :func:`selection_bound`; the epilogue reads 12 B a pixel and writes
+    the image and the float32 mask. Returns {stage: (bytes, ms)} with
+    "projection" their sum."""
+    b, n = words[1].shape
+    pro = (17 + (16 if route == "ring" else 12)) * b * n
+    kernel = "ring" if route == "ring" else "scatter"
+    sel_bytes, _, landed = selection_bound(
+        kernel, words if route == "ring" else words[1:], sel)
+    c = len(form["channels"])
+    size = torch.empty((), dtype=form["out_dtype"]).element_size()
+    epi = (12 + c * size + 4) * b * H * W
+    out = {"prologue": pro, "selection": sel_bytes, "epilogue": epi,
+           "projection": pro + sel_bytes + epi}
+    return {k: (v, v / HBM_BYTES_PER_S * 1e3) for k, v in out.items()}, landed
+
+
+def _io_projector(cfg, route):
+    ds = cfg.datasets
+    proj = dataclasses.replace(
+        ds.projection, backend="pallas-ring" if route == "ring" else "pallas",
+        kernel_aligned="off")
+    from deeplio_tpu_torch.models.zoo import DTYPES
+    return make_projector(proj, ds.channels, ds.mean, ds.std,
+                          out_dtype=DTYPES[cfg.model.compute_dtype],
+                          layout="planes")
+
+
+def _io_timings(route, planes, valid, cfg, gpu):
+    """Device times (graph replay) at one B: each kernel and its plain
+    version, the whole projection (``make_projector``'s function in the
+    training form) and the plain composition it replaces (plain
+    prologue, the selection kernel, plain epilogue), beside their bounds.
+    Returns (prologue ms, plain, epilogue ms, plain, projection ms,
+    plain, bounds)."""
+    b, n = planes[0].shape
+    form = io_forms(cfg)[f"norm{len(cfg.datasets.channels)} bf16"]
+    args = (*planes, valid, H, W, FU, FD, route)
+    words = proj_prologue(*args)
+    sel = _io_select(route, words)
+    ea = _io_eargs(route, sel, n, form)
+    fn = _io_projector(cfg, route)
+    bounds, landed = io_bounds(route, words, sel, form)
+
+    def plain_projection():
+        w = proj_prologue_reference(*args)
+        return proj_epilogue_reference(
+            *_io_eargs(route, _io_select(route, w), n, form))
+
+    t = (graph_ms(lambda: proj_prologue(*args)),
+         graph_ms(lambda: proj_prologue_reference(*args), reps=IO_PLAIN_REPS),
+         graph_ms(lambda: proj_epilogue(*ea)),
+         graph_ms(lambda: proj_epilogue_reference(*ea), reps=IO_PLAIN_REPS),
+         graph_ms(lambda: fn(planes, valid)),
+         graph_ms(plain_projection, reps=IO_PLAIN_REPS))
+    print(f"timing proj_io {route} B={b} (tree scans, {landed} pixels "
+          f"landed): device (graph replay) prologue {t[0]:.4f} ms (plain "
+          f"{t[1]:.4f}, bound {bounds['prologue'][1] * 1e3:.3f} us), "
+          f"epilogue in bf16 {t[2]:.4f} ms (plain {t[3]:.4f}, bound "
+          f"{bounds['epilogue'][1] * 1e3:.3f} us), the whole projection "
+          f"{t[4]:.4f} ms (plain composition {t[5]:.4f}, bound of the "
+          f"three stages {bounds['projection'][1] * 1e3:.3f} us: "
+          f"{bounds['projection'][0]} B at 3.35 TB/s) [{gpu}]")
+    return t + (bounds,)
+
+
+def tally(labels) -> str:
+    """``a x2, b x1``: how often each label occurs."""
+    import collections
+    return ", ".join(f"{k} x{n}"
+                     for k, n in collections.Counter(labels).items())
+
+
+def profiled_span(fn, span: str, wrap: bool = False):
+    """``fn()`` under the profiler, and what it reports for the CPU span
+    ``span`` (``wrap``: a span put around the call): the device ms and
+    the kernels launched by the operators inside it, each counted once
+    (one event of each operator id: a span's own device time counts a
+    custom operator's kernels twice, its nested events sharing the id).
+    The profiler may drop records on the card's machine (``graph_work``),
+    so this is a reading, not a check. Returns (fn's result, device ms,
+    kernels)."""
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(span) if wrap else contextlib.nullcontext():
+            out = fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = [e for e in events if e.name == span
+             and e.device_type.name == "CPU"]
+    check(len(spans) == 1, f"{len(spans)} {span} spans in the profile")
+    t0, t1 = spans[0].time_range.start, spans[0].time_range.end
+    by_id = {}
+    for e in events:
+        if (e.device_type.name == "CPU" and e.kernels
+                and t0 <= e.time_range.start <= t1):
+            by_id.setdefault(e.id, e)
+    ks = [k for e in by_id.values() for k in e.kernels]
+    return out, sum(k.duration for k in ks) / 1e3, len(ks)
+
+
+def _io_step(dev, gpu, cfg, host, route, bound_ms, plain_ms):
+    """``train.project`` at a B = 144 step of ``cfg``, with the kernels
+    and with the plain prologue and epilogue in turns (kernels, plain,
+    kernels): the span's work (``make_model_batch`` with the step's
+    projector) replayed in a CUDA graph for its device ms, and its nodes
+    counted (``graph_work``); one step profiled each time, and the
+    profiler's reading of the span printed beside. Returns (kernel ms,
+    plain ms, kernels, plain kernels)."""
+    from deeplio_tpu_torch.train.step import make_model_batch
+    model = build_model(cfg, device=dev, seed=0)
+    state = create_train_state(cfg, model)
+    train_step, _ = build_train_step(cfg)
+    raw = batch_to_device(host, dev)
+    projector = _io_projector(cfg, route)
+    for _ in range(2):
+        state, _ = train_step(state, raw)
+    out = {}
+    for label, ctx in (("kernels", contextlib.nullcontext),
+                       ("plain", plain_io), ("kernels again",
+                                             contextlib.nullcontext)):
+        with ctx():
+            state, _ = train_step(state, raw)
+            (state, _), prof_ms, prof_k = profiled_span(
+                lambda: train_step(state, raw), "train.project")
+
+            def span():
+                return make_model_batch(cfg, projector, raw)
+
+            ms = graph_ms(span)
+            nodes = graph_work(span)[0]
+        out[label] = (ms, len(nodes))
+        print(f"proj_io step {route} B={raw['points_valid'].shape[0]} "
+              f"({label}): train.project {ms:.4f} ms of device time in "
+              f"{len(nodes)} kernels ({tally(nodes)}); "
+              f"the profiler's reading of the step's span: {prof_ms:.4f} "
+              f"ms in {prof_k} kernels [{gpu}]")
+    ms = min(out["kernels"][0], out["kernels again"][0])
+    print(f"proj_io step {route}: train.project {ms:.4f} ms with the "
+          f"kernels against {out['plain'][0]:.4f} ms with the plain "
+          f"prologue and epilogue; {out['kernels'][1]} against "
+          f"{out['plain'][1]} kernels; the projection alone: plain "
+          f"composition {plain_ms:.4f} ms, bound {bound_ms * 1e3:.3f} us "
+          f"[{gpu}]")
+    del state, model, train_step, raw
+    torch.cuda.empty_cache()
+    return ms, out["plain"][0], out["kernels"][1], out["plain"][1]
+
+
+def phase_proj_io(dev, gpu, root, host, over=None):
+    """Phase 19: the projection's prologue and epilogue kernels. Both
+    held bit for bit against their plain versions on both routes at B =
+    1, 9, 16 and 144, on the tree's ring scans and slice 2's unordered
+    synthetic batch, and on the edge cases, in each output form; timed
+    beside their plain versions and bounds at B = 1, 16 and 144; one
+    projector call profiled (3 launches on ``pallas``, 4 on
+    ``pallas-ring``); a slice-2 step (scatter) and a ring-route step on
+    the tree at B = 144 profiled with the kernels and with the plain
+    prologue and epilogue. Returns {"prologue" | "epilogue": (ms, plain
+    ms, bound ms)} at B = 144 on the ring route, and the steps."""
+    from deeplio_tpu_torch.data.dataset import build_dataset
+    t0 = time.perf_counter()
+    ring_cfg = kitti_config(root, over)
+    tree = next(build_dataset(ring_cfg, "train").iter_batches(
+        ring_cfg.train.batch_size, shuffle=False))
+    forms = io_forms(ring_cfg)
+    keys = ("points_x", "points_y", "points_z", "points_rem")
+    cases = 0
+    for source, batch in (("tree", tree), ("synthetic", host)):
+        planes = [torch.from_numpy(batch[k]).to(dev) for k in keys]
+        valid = torch.from_numpy(batch["points_valid"]).to(dev)
+        for route in ("ring", "scatter"):
+            for b in IO_BATCHES:
+                _io_check(f"{source} B={b}", route,
+                          [p[:b] for p in planes], valid[:b], forms)
+                cases += 1
+        del planes, valid
+    pts, valid = io_edge_batch(np.random.default_rng(12))
+    p = torch.from_numpy(pts).to(dev)
+    v = torch.from_numpy(valid).to(dev)
+    for route in ("ring", "scatter"):
+        for layout, planes in (("planes", [p[..., c].contiguous()
+                                           for c in range(4)]),
+                               ("[B, N, 4]", [p[..., c] for c in range(4)])):
+            _, sel = _io_check(f"edge cases as {layout}", route, planes, v,
+                               forms)
+            cases += 1
+        check(bool((sel[0][2] == SENTINEL).all()),
+              f"edge cases ({route}): the all-invalid scan landed")
+    del p, v
+    print(f"proj_io: both kernels bit-equal to their plain versions in "
+          f"{cases} cases x {len(forms)} forms ({', '.join(forms)}) "
+          f"[{gpu}]")
+
+    planes = [torch.from_numpy(tree[k]).to(dev) for k in keys]
+    valid = torch.from_numpy(tree["points_valid"]).to(dev)
+    times = {}
+    for route in ("ring", "scatter"):
+        for b in IO_TIMED:
+            times[route, b] = _io_timings(route, [q[:b] for q in planes],
+                                          valid[:b], ring_cfg, gpu)
+        fn = _io_projector(ring_cfg, route)
+        fn(planes, valid)
+        _, prof_ms, prof_k = profiled_span(
+            lambda: fn(planes, valid), "proj_io.projector", wrap=True)
+        nodes = graph_work(lambda: fn(planes, valid))[0]
+        want = 4 if route == "ring" else 3
+        print(f"proj_io projector {route} B={planes[0].shape[0]}: "
+              f"{len(nodes)} device launches from planes to image and mask "
+              f"({tally(nodes)}); the profiler around "
+              f"the call alone read {prof_k} kernels, {prof_ms:.4f} ms "
+              f"[{gpu}]")
+        check(len(nodes) == want, f"projector on {route}: {len(nodes)} "
+              f"launches, want {want}")
+    del planes, valid
+    torch.cuda.empty_cache()
+
+    steps = {}
+    bound = {r: times[r, IO_TIMED[-1]][6]["projection"][1]
+             for r in ("ring", "scatter")}
+    plain = {r: times[r, IO_TIMED[-1]][5] for r in ("ring", "scatter")}
+    steps["scatter"] = _io_step(dev, gpu, slice2_config(**(over or {})),
+                                host, "scatter", bound["scatter"],
+                                plain["scatter"])
+    steps["ring"] = _io_step(dev, gpu, ring_cfg, tree, "ring",
+                             bound["ring"], plain["ring"])
+    print(f"proj_io phase: {time.perf_counter() - t0:.1f} s [{gpu}]")
+    r = times["ring", IO_TIMED[-1]]
+    return {"prologue": (r[0], r[1], r[6]["prologue"][1]),
+            "epilogue": (r[2], r[3], r[6]["epilogue"][1])}, steps
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one GPU",
@@ -3970,7 +4467,8 @@ def main() -> int:
     rng = np.random.default_rng(0)
     # slice 1: streaming odometry, ring kernel
     worst = phase_kernel(dev, rng)
-    launches, fps, so = phase_slice(dev, gpu)
+    with io_counted("slice 1's stream"):
+        launches, fps, so = phase_slice(dev, gpu)
     phase_profile(so, gpu)
     phase_dispatch(dev, gpu)
     phase_timings(dev, rng, gpu)
@@ -3985,7 +4483,9 @@ def main() -> int:
           f"{N} points ({int(host['points_valid'].sum())} valid) built in "
           f"{time.perf_counter() - t0:.1f} s")
     s_worst = phase_scatter_kernel(dev, rng, host)
-    s_launches, step_ms, state, train_step, raw = phase_train(dev, gpu, host)
+    with io_counted("slice 2's steps"):
+        s_launches, step_ms, state, train_step, raw = phase_train(dev, gpu,
+                                                                  host)
     phase_train_profile(state, train_step, raw, gpu, step_ms)
     del state
     torch.cuda.empty_cache()
@@ -3998,7 +4498,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # slice 3: the training loop (Trainer), scatter kernel
-    f_launches, fit_ms = phase_fit(dev, gpu, ROOT / "build" / "fit_run")
+    with io_counted("slice 3's fit"):
+        f_launches, fit_ms = phase_fit(dev, gpu, ROOT / "build" / "fit_run")
     print(f"fit rate: {fit_ms:.2f} ms/step, "
           f"{TRAIN_PAIRS / fit_ms * 1e3:.1f} pairs/s inside fit, against "
           f"{step_ms:.2f} ms/step for the bare step above [{gpu}]")
@@ -4013,42 +4514,55 @@ def main() -> int:
     import tempfile
     root = pathlib.Path(tempfile.mkdtemp(prefix="kitti_smoke_"))
     try:
-        k_launches, k_times, _ = phase_kitti(dev, gpu, root)
-        c_launches = phase_cli(dev, gpu, root)
+        with io_counted("slice 4's KITTI paths"):
+            k_launches, k_times, _ = phase_kitti(dev, gpu, root)
+        with io_counted("slice 5's command lines"):
+            c_launches = phase_cli(dev, gpu, root)
         # slice 6: PointSeg pretraining on the same tree, both kernels at
         # B = 16
         t0 = time.perf_counter()
-        p_ring, p_scatter = phase_pretrain(
-            dev, gpu, root, ring16_ms=k_times[PREFILL_CHUNK][0])
+        with io_counted("slice 6's pretraining"):
+            p_ring, p_scatter = phase_pretrain(
+                dev, gpu, root, ring16_ms=k_times[PREFILL_CHUNK][0])
         print(f"pretrain phase: {time.perf_counter() - t0:.1f} s [{gpu}]")
         # slice 7: the model zoo as shipped, deeplio_kitti.yaml on the
         # same tree through the scatter kernel at B = 96
         t0 = time.perf_counter()
-        v_launches, v_worst, v_times, v_step_ms = phase_variants(dev, gpu,
-                                                                 root)
+        with io_counted("slice 7's model zoo"):
+            v_launches, v_worst, v_times, v_step_ms = phase_variants(
+                dev, gpu, root)
         print(f"variants phase: {time.perf_counter() - t0:.1f} s [{gpu}]")
         # slice 8: the JAX package's flagship as shipped (halves, no
         # kernel), its tower through the ring kernel at B = 144 (off,
         # and auto on the tree's scans)
         t0 = time.perf_counter()
-        f_ring, f_worst, f_halves_ms, f_off_ms = phase_flagship(dev, gpu,
-                                                                root)
+        with io_counted("slice 8's flagship"):
+            f_ring, f_worst, f_halves_ms, f_off_ms = phase_flagship(
+                dev, gpu, root)
         print(f"flagship phase: {time.perf_counter() - t0:.1f} s [{gpu}]")
         # slice 9: every backend and channel and the rest of the zoo on
         # the same tree, both kernels with index payloads at B = 144
         t0 = time.perf_counter()
-        n_ring, n_scatter, n_worst, n_times = phase_slice9(dev, gpu, root,
-                                                           step_ms)
+        # every main path of slice 9 projects with exact payloads
+        with io_counted("slice 9's backends", expect=False):
+            n_ring, n_scatter, n_worst, n_times = phase_slice9(
+                dev, gpu, root, step_ms)
         print(f"slice9 phase: {time.perf_counter() - t0:.1f} s [{gpu}]")
         # slice 10: every optimizer, stem and Fire on the same tree, the
         # ring kernel under A and the scatter kernel under B at B = 144
         t0 = time.perf_counter()
-        t_ring, t_scatter, t_steps = phase_slice10(dev, gpu, root, step_ms)
+        with io_counted("slice 10's towers"):
+            t_ring, t_scatter, t_steps = phase_slice10(dev, gpu, root,
+                                                       step_ms)
         print(f"slice10 phase: {time.perf_counter() - t0:.1f} s [{gpu}]")
         # slice 11: data parallelism, NCCL at world 1 and two gloo ranks
         # on the card, through the scatter kernel (slice 2's batch) and
         # the ring kernel (the tree)
-        d_scatter, d_ring = phase_dp(dev, gpu, host, root)
+        with io_counted("slice 11's data-parallel steps"):
+            d_scatter, d_ring = phase_dp(dev, gpu, host, root)
+        # slice 12: the projection's prologue and epilogue kernels around
+        # both selections, on the tree and slice 2's batch
+        io_times, io_steps = phase_proj_io(dev, gpu, root, host)
         del host
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -4077,6 +4591,17 @@ def main() -> int:
           f"{n_times['ring carry'][0]:.4f} ms; inside slice 10's steps: "
           f"the ring kernel (A) {t_steps['A'][3]:.4f} ms, the scatter "
           f"kernel (B) {t_steps['B'][3]:.4f} ms [{gpu}]")
+    io_total = sum(IO_LAUNCHES.values())
+    print(f"kernels: proj_prologue and proj_epilogue (launches {io_total} "
+          f"each on the main paths: "
+          f"{'; '.join(f'{k} {n}' for k, n in IO_LAUNCHES.items())}; a "
+          f"prologue launch on the ring route is two kernels, the pure-tail "
+          f"pre-pass and the main pass; bit-exact); train.project at B = 144 with the kernels "
+          f"against the plain prologue and epilogue: scatter "
+          f"{io_steps['scatter'][0]:.4f} / {io_steps['scatter'][1]:.4f} ms "
+          f"({io_steps['scatter'][2]} / {io_steps['scatter'][3]} kernels), "
+          f"ring {io_steps['ring'][0]:.4f} / {io_steps['ring'][1]:.4f} ms "
+          f"({io_steps['ring'][2]} / {io_steps['ring'][3]} kernels) [{gpu}]")
     print(json.dumps({"kernels": [{
         "name": "ring_project",
         "route": "cuda",
@@ -4102,7 +4627,27 @@ def main() -> int:
         "bound_ms": s_bound_ms,
         "bound_by": "bytes",
         "library_ms": s_lib_ms,
-    }]}))
+    }] + [{
+        "name": f"proj_{stage}",
+        "route": "cuda",
+        "source": "deeplio_tpu_torch/csrc/proj_io.cu",
+        "replaces": replaces,
+        "launches": io_total,
+        "max_abs_err": IO_WORST[stage],
+        "ms": io_times[stage][0],
+        "plain_ms": io_times[stage][1],
+        "bound_ms": io_times[stage][2],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "note": note,
+    } for stage, replaces, note in (
+        ("prologue", "deeplio_tpu/ops/projection_pallas_ring.py:490",
+         "a launch on the ring route is two kernels, the pure-tail "
+         "pre-pass and the main pass, and ms times both (ring route, "
+         "B = 144); one kernel on the scatter route"),
+        ("epilogue", "deeplio_tpu/ops/projection_pallas_ring.py:593",
+         "one kernel a launch; ms on the ring route at B = 144, bf16 "
+         "normalised"))]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

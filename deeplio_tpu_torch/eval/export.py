@@ -13,12 +13,14 @@ inside:
       manifest.json        shapes, dtypes, device, config provenance
 
 The selections are the ``torch.library`` operators
-``deeplio::ring_select`` and ``deeplio::scatter_select``, one node each
+``deeplio::ring_select`` and ``deeplio::scatter_select``, and on the
+packed routes the projection's prologue and epilogue are
+``deeplio::proj_prologue`` and ``deeplio::proj_epilogue``, one node each
 per tick in the exported graph: on the card they launch the CUDA kernels,
 on the CPU their plain versions. A serving process needs only
-``load_streaming_artifact``, which imports ``torch`` and the two modules
-that register those operators: no model zoo, no config parsing, no
-checkpoint plumbing.
+``load_streaming_artifact``, which imports ``torch`` and the modules that
+register those operators: no model zoo, no config parsing, no checkpoint
+plumbing.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from typing import Callable, Tuple
 
 import torch
 
-# registers deeplio::ring_select and deeplio::scatter_select
+# registers deeplio::ring_select and deeplio::scatter_select, and through
+# them deeplio::proj_prologue and deeplio::proj_epilogue
 from deeplio_tpu_torch.ops import projection_ring, projection_scatter  # noqa: F401
 
 KIND = "deeplio_tpu_torch.streaming_step"

@@ -46,7 +46,8 @@ read scans laid out on a fixed grid of ``n = H * W * spp`` slots, ring-major,
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Callable, Dict, Optional, Sequence, Tuple
+import functools
+from typing import TYPE_CHECKING, Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -208,6 +209,39 @@ def normalize_channels(img: torch.Tensor, mask: torch.Tensor,
                        mean: torch.Tensor, std: torch.Tensor) -> torch.Tensor:
     """Per-channel (x - mean) / std, zeroing empty pixels."""
     return (img - mean) / std * mask[..., None]
+
+
+@functools.lru_cache(maxsize=None)
+def _norm_consts(mean: Tuple[float, ...], std: Tuple[float, ...],
+                 device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """mean and std as float32 tensors on ``device``, made once, so that a
+    call copies nothing to the card (nor inside a CUDA graph's
+    capture)."""
+    return tuple(torch.tensor(v, dtype=torch.float32, device=device)
+                 for v in (mean, std))
+
+
+def finish_image(img5: torch.Tensor, mask: torch.Tensor,
+                 channels: Sequence[str], mean: Sequence[float] = (),
+                 std: Sequence[float] = (),
+                 out_dtype: Optional[torch.dtype] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The model's image from the 5-channel one, in PyTorch: the
+    ``channels`` (``normals`` included, :func:`assemble_channels`),
+    normalised with ``mean`` and ``std`` as float32 values
+    (:func:`normalize_channels`) or else times the mask, then cast to
+    ``out_dtype`` (kept for ``None``). The plain composition of
+    ``make_projector`` and of the epilogue operator's plain version."""
+    img = assemble_channels(img5, mask, channels)
+    if len(mean):
+        f32 = (tuple(np.asarray(v, np.float32).tolist())
+               for v in (mean, std))
+        img = normalize_channels(img, mask, *_norm_consts(*f32, img.device))
+    else:
+        img = img * mask[..., None]
+    if out_dtype is not None:
+        img = img.to(out_dtype)
+    return img, mask
 
 
 def check_ring_order(points: np.ndarray, valid: np.ndarray, H: int, W: int,
@@ -394,15 +428,25 @@ def make_projector(cfg_proj: ProjectionConfig, channels: Sequence[str],
     channels); ``mean`` and ``std`` then have an entry for each of the
     three.
 
+    On the packed routes that launch a selection (``pallas-ring`` on the
+    ring kernel, ``pallas``, and ``ring``, ``sort`` and ``sort-sentinel``
+    under ``packed``) with no ``normals``, the epilogue operator
+    (``projection_io.proj_epilogue``) writes the final image: channels,
+    normalisation and ``out_dtype`` in one pass, so a projection is three
+    launches on the card (four on the ring route). Every other route
+    assembles the image from the 5-channel one in PyTorch.
+
     Under ``pallas-ring``, ``kernel-aligned`` picks the route, as JAX's
     ``_aligned_check_mode`` does: ``auto`` takes the checked slot-aligned
     route when the scan capacity is a multiple of H*W and the ring kernel
     otherwise; ``on`` and ``trust`` (unchecked) and ``halves`` raise
     ``ValueError`` at the call on a capacity that is not.
     """
-    import functools
-
-    from deeplio_tpu_torch.ops import projection_ring, projection_scatter
+    from deeplio_tpu_torch.ops import (
+        projection_io,
+        projection_ring,
+        projection_scatter,
+    )
 
     H, W = cfg_proj.height, cfg_proj.width
     fu, fd = cfg_proj.fov_up_deg, cfg_proj.fov_down_deg
@@ -410,6 +454,32 @@ def make_projector(cfg_proj: ProjectionConfig, channels: Sequence[str],
     if aligned not in ("auto", "on", "off", "trust", "halves"):
         raise ValueError(f"kernel-aligned must be auto|on|off|trust|halves, "
                          f"got {aligned!r}")
+    if layout not in ("aos", "planes"):
+        raise ValueError(f"layout must be aos|planes, got {layout!r}")
+    if bool(mean) != bool(std):
+        raise ValueError(
+            "normalization requires both mean and std (or neither)")
+    c = num_channels(channels)
+    for name, vals in (("mean", mean), ("std", std)):
+        if vals and len(vals) != c:
+            raise ValueError(f"normalization {name} has {len(vals)} "
+                             f"entries for {c} channels {tuple(channels)}")
+    def finish(img5, mask):
+        return finish_image(img5, mask, channels, mean, std, out_dtype)
+
+    def assembled(fn):
+        return lambda *a: finish(*fn(*a))
+
+    def packed(mod, name):
+        """A packed route's planes function ``mod.name`` (looked up at the
+        call), its epilogue writing the final image unless ``normals``
+        needs the 5-channel one."""
+        if "normals" in channels:
+            return assembled(lambda *a: getattr(mod, name)(*a))
+        form = projection_io.epilogue_form(channels, mean, std, out_dtype)
+        return lambda *a: getattr(mod, name)(*a, **form)
+
+    ring_kernel = packed(projection_ring, "project_batch_ring_planes")
 
     def ring_planes(x, y, z, rem, vld, *geom):
         n = x.shape[-1]
@@ -424,45 +494,40 @@ def make_projector(cfg_proj: ProjectionConfig, channels: Sequence[str],
         else:
             mode = None            # auto: no shape can meet the contract
         if mode is None:
-            return projection_ring.project_batch_ring_planes(
-                x, y, z, rem, vld, *geom)
+            return ring_kernel(x, y, z, rem, vld, *geom)
         if mode == "halves":
-            return project_batch_ring_halves_planes(x, y, z, rem, vld, *geom)
-        return project_batch_ring_aligned_planes(
+            return finish(*project_batch_ring_halves_planes(
+                x, y, z, rem, vld, *geom))
+        return finish(*project_batch_ring_aligned_planes(
             x, y, z, rem, vld, *geom, check=mode,
             fallback=functools.partial(
                 projection_ring.project_batch_ring_planes, H=H, W=W,
-                fov_up_deg=fu, fov_down_deg=fd))
+                fov_up_deg=fu, fov_down_deg=fd)))
 
-    payload = "carry-f16" if cfg_proj.packed else "carry"
-    # sort-sentinel (JAX's project_batch) keeps sort's winners: the same
-    # key, the stable sort's ties; its exact depth is the winner's range
-    sorted_planes = functools.partial(
-        projection_scatter.project_batch_sorted_planes, payload=payload)
+    if cfg_proj.packed:
+        ring_fn = ring_kernel
+        # sort and sort-sentinel select sort's winners; packed, they are
+        # the scatter route
+        sorted_fn = packed(projection_scatter,
+                           "project_batch_scatter_planes")
+    else:
+        ring_fn = assembled(functools.partial(
+            projection_ring.project_batch_ring_planes, payload="carry"))
+        # sort-sentinel (JAX's project_batch) keeps sort's winners: the
+        # same key, the stable sort's ties; its exact depth is the
+        # winner's range
+        sorted_fn = assembled(functools.partial(
+            projection_scatter.project_batch_sorted_planes, payload="carry"))
     planes_fn = {
         "pallas-ring": ring_planes,
-        "pallas": projection_scatter.project_batch_scatter_planes,
-        "ring": functools.partial(projection_ring.project_batch_ring_planes,
-                                  payload=payload),
-        "sort": sorted_planes,
-        "sort-sentinel": sorted_planes,
+        "pallas": packed(projection_scatter, "project_batch_scatter_planes"),
+        "ring": ring_fn,
+        "sort": sorted_fn,
+        "sort-sentinel": sorted_fn,
     }.get(cfg_proj.backend)
     if planes_fn is None:
         raise ValueError(f"unknown projection backend "
                          f"{cfg_proj.backend!r}")
-    if layout not in ("aos", "planes"):
-        raise ValueError(f"layout must be aos|planes, got {layout!r}")
-    if bool(mean) != bool(std):
-        raise ValueError(
-            "normalization requires both mean and std (or neither)")
-    c = num_channels(channels)
-    for name, vals in (("mean", mean), ("std", std)):
-        if vals and len(vals) != c:
-            raise ValueError(f"normalization {name} has {len(vals)} "
-                             f"entries for {c} channels {tuple(channels)}")
-    norm = ((np.asarray(mean, np.float32), np.asarray(std, np.float32))
-            if mean else None)
-    consts: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def project(points, valid: torch.Tensor):
         if layout == "planes":
@@ -474,18 +539,7 @@ def make_projector(cfg_proj: ProjectionConfig, channels: Sequence[str],
             n = points.shape[-2]
             pts = points.reshape(-1, n, 4)
             planes = [pts[..., k] for k in range(4)]
-        img5, mask = planes_fn(*planes, valid.reshape(-1, n), H, W, fu, fd)
-        img = assemble_channels(img5, mask, channels)
-        if norm is None:
-            img = img * mask[..., None]
-        else:
-            dev = img.device
-            if dev not in consts:
-                consts[dev] = (torch.from_numpy(norm[0]).to(dev),
-                               torch.from_numpy(norm[1]).to(dev))
-            img = normalize_channels(img, mask, *consts[dev])
-        if out_dtype is not None:
-            img = img.to(out_dtype)
+        img, mask = planes_fn(*planes, valid.reshape(-1, n), H, W, fu, fd)
         return img.reshape(lead + (H, W, c)), mask.reshape(lead + (H, W))
 
     return project

@@ -3,18 +3,23 @@
 
 The work splits in three, as in the JAX package:
 
-1. a PyTorch prologue (``ring_prologue``): per-point pixel, the winner key
-   ``rq << idx_bits | idx`` and two packed-f16 payload words;
+1. the prologue: per-point pixel, the winner key ``rq << idx_bits | idx``
+   and two packed-f16 payload words. The operator
+   ``projection_io.proj_prologue`` (route ``"ring"``) launches
+   ``csrc/proj_io.cu`` on the card; its plain version is
+   :func:`ring_prologue`;
 2. the selection (``ring_select``): for each scan, a running max of the
    pixel along the points, then per pixel the minimum key and the payload
    of the point that holds it. On a CUDA tensor this launches the
    hand-written kernel ``csrc/ring_project.cu``; on a CPU tensor it runs
    the plain PyTorch version ``ring_select_reference``;
-3. a PyTorch epilogue (``ring_epilogue``): unpack the payloads, depth from
-   the quantized range, mask.
+3. the epilogue: unpack the payloads, depth from the quantized range,
+   mask, and (for ``make_projector``) the channel stack, normalisation and
+   cast. The operator ``projection_io.proj_epilogue``; its plain version
+   builds on :func:`ring_epilogue`.
 
-Prologue and epilogue are shared by both selections, so on the card the
-kernel is held bit-exact against its plain version.
+The selection takes the same words from either prologue, so on the card
+each kernel is held bit-exact against its plain version.
 
 Two payloads, as the JAX package's ``project_batch_ring`` has them:
 ``carry-f16`` (``packed: true``, the ``pallas-ring`` backend) carries the
@@ -29,11 +34,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from deeplio_tpu_torch.ops import _kernels
+from deeplio_tpu_torch.ops import _kernels, projection_io
+from deeplio_tpu_torch.ops.projection_io import IMG5
 from deeplio_tpu_torch.ops.projection import (
     idx_key_layout,
     pack_f16x2,
@@ -225,20 +231,30 @@ def project_batch_ring_planes(
     valid: torch.Tensor, H: int, W: int,
     fov_up_deg: float, fov_down_deg: float,
     select: Optional[Callable] = None, payload: str = "carry-f16",
+    channels: Sequence[int] = IMG5, mean: Sequence[float] = (),
+    std: Sequence[float] = (), out_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Planes x/y/z/rem [B, N] float32, valid [B, N] bool ->
     (img [B, H, W, 5] float32, mask [B, H, W] float32).
 
     ``payload="carry-f16"``: the contract of the JAX package's
     ``project_batch_ring_pallas``, and of ``project_batch_ring(payload=
-    "carry-f16")``. ``payload="carry"``: ``project_batch_ring(payload=
-    "carry")``'s, exact float32 channels through
-    :func:`ring_gather_epilogue`, the payload words zero. ``select``
-    defaults to :func:`ring_select`: one launch for the whole batch.
+    "carry-f16")``: the prologue and epilogue operators of
+    ``projection_io`` around the selection. ``channels``, ``mean``,
+    ``std`` and ``out_dtype`` are the epilogue's (``make_projector``'s
+    image, [B, H, W, len(channels)]); the defaults give the 5-channel
+    image. ``payload="carry"``: ``project_batch_ring(payload="carry")``'s,
+    exact float32 channels through :func:`ring_gather_epilogue`, the
+    payload words zero (5 channels only). ``select`` defaults to
+    :func:`ring_select`: one launch for the whole batch.
     """
     n = x.shape[1]
     n_pix = H * W
     if payload == "carry":
+        if (tuple(channels), tuple(mean), out_dtype) != (IMG5, (),
+                                                          torch.float32):
+            raise ValueError("payload='carry' gives the 5-channel float32 "
+                             "image only")
         pix, key = ring_keys(x, y, z, valid, H, W, fov_up_deg, fov_down_deg)
         zero = torch.zeros_like(key)
         okey, _, _ = (select or ring_select)(pix, key, zero, zero, n_pix)
@@ -246,10 +262,12 @@ def project_batch_ring_planes(
     if payload != "carry-f16":
         raise ValueError(f"payload must be {'|'.join(PAYLOADS)}, got "
                          f"{payload!r}")
-    pix, key, p1, p2 = ring_prologue(x, y, z, rem, valid, H, W,
-                                     fov_up_deg, fov_down_deg)
+    pix, key, p1, p2 = projection_io.proj_prologue(
+        x, y, z, rem, valid, H, W, fov_up_deg, fov_down_deg, "ring")
     okey, op1, op2 = (select or ring_select)(pix, key, p1, p2, n_pix)
-    return ring_epilogue(okey, op1, op2, n, H, W)
+    return projection_io.proj_epilogue(okey, op1, op2, n, H, W, "ring",
+                                       list(channels), list(mean),
+                                       list(std), out_dtype)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -4,9 +4,11 @@
 
 The work splits in three, as in the JAX package:
 
-1. a PyTorch prologue (``scatter_prologue``): per point the pixel-major key
-   ``pix << rq_bits | rq`` (INT32_MAX for an invalid point) and two
-   packed-f16 payload words;
+1. the prologue: per point the pixel-major key ``pix << rq_bits | rq``
+   (INT32_MAX for an invalid point) and two packed-f16 payload words. The
+   operator ``projection_io.proj_prologue`` (route ``"scatter"``) launches
+   ``csrc/proj_io.cu`` on the card; its plain version is
+   :func:`scatter_prologue`;
 2. the selection (``scatter_select``): for each scan, per pixel the point
    with the smallest key, ties to the smaller index, and its payload
    words. On a CUDA tensor this launches the hand-written kernel
@@ -14,11 +16,13 @@ The work splits in three, as in the JAX package:
    minima in the shared memory of a cluster of CTAs, no global scratch);
    on a CPU tensor it runs the plain PyTorch version
    ``scatter_select_reference``;
-3. a PyTorch epilogue (``scatter_epilogue``): unpack the payloads, depth
-   from the quantized range, mask.
+3. the epilogue: unpack the payloads, depth from the quantized range,
+   mask, and (for ``make_projector``) the channel stack, normalisation and
+   cast. The operator ``projection_io.proj_epilogue``; its plain version
+   builds on :func:`scatter_epilogue`.
 
-Prologue and epilogue are shared by both selections, so on the card the
-kernel is held bit-exact against its plain version. The result equals the
+The selection takes the same words from either prologue, so on the card
+each kernel is held bit-exact against its plain version. The result equals the
 JAX package's ``project_batch(packed=True)``: the closest point wins a
 pixel whatever the order of the scan.
 
@@ -37,11 +41,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from deeplio_tpu_torch.ops import _kernels
+from deeplio_tpu_torch.ops import _kernels, projection_io
+from deeplio_tpu_torch.ops.projection_io import IMG5
 from deeplio_tpu_torch.ops.projection import (
     pack_f16x2,
     rq_bits_for,
@@ -247,19 +252,27 @@ def project_batch_scatter_planes(
     valid: torch.Tensor, H: int, W: int,
     fov_up_deg: float, fov_down_deg: float,
     select: Optional[Callable] = None,
+    channels: Sequence[int] = IMG5, mean: Sequence[float] = (),
+    std: Sequence[float] = (), out_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Planes x/y/z/rem [B, N] float32, valid [B, N] bool ->
     (img [B, H, W, 5] float32, mask [B, H, W] float32).
 
     Same contract as the JAX package's ``project_batch_pallas``, for any
-    N and any H*W (the CUDA kernel needs no padding). ``select`` defaults
-    to :func:`scatter_select`.
+    N and any H*W (the CUDA kernel needs no padding): the prologue and
+    epilogue operators of ``projection_io`` around the selection.
+    ``channels``, ``mean``, ``std`` and ``out_dtype`` are the epilogue's
+    (``make_projector``'s image, [B, H, W, len(channels)]); the defaults
+    give the 5-channel image. ``select`` defaults to
+    :func:`scatter_select`.
     """
-    key, xy, zr = scatter_prologue(x, y, z, rem, valid, H, W,
-                                   fov_up_deg, fov_down_deg)
+    _, key, xy, zr = projection_io.proj_prologue(
+        x, y, z, rem, valid, H, W, fov_up_deg, fov_down_deg, "scatter")
     kmin, xyo, zro = (select or scatter_select)(key, xy, zr, H * W,
                                                 rq_bits_for(H * W))
-    return scatter_epilogue(kmin, xyo, zro, H, W)
+    return projection_io.proj_epilogue(kmin, xyo, zro, x.shape[1], H, W,
+                                       "scatter", list(channels), list(mean),
+                                       list(std), out_dtype)
 
 
 PAYLOADS = ("carry", "carry-f16")

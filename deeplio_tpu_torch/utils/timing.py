@@ -13,11 +13,15 @@ What holds on the card:
    reads): cycle several distinct inputs.
 
 Host-clock times of a short call include the host's own issue time;
-``chip_smoke.py::graph_ms`` (CUDA-graph replay) gives device time alone.
+``chip_smoke.py::graph_ms`` (CUDA-graph replay) gives device time alone,
+and :func:`graph_work` lists the device work of one call.
 """
 
 from __future__ import annotations
 
+import os
+import re
+import tempfile
 import time
 from typing import Callable, Sequence
 
@@ -69,3 +73,45 @@ def throughput(fn: Callable, inputs: Sequence, items_per_call: int,
     """Items/second of ``fn`` (e.g. frame-pairs/s of a train step)."""
     dt = time_fn(fn, inputs, iters=iters, warmup=warmup)
     return items_per_call / dt
+
+
+_NODE = re.compile(r'^\s*"graph_\d+_node_\d+"\s*\[', re.M)
+# a kernel's name inside its mangled symbol, else the node's kind
+_KERNEL = re.compile(r"\d([a-z][a-z_]*_kernel)")
+_KIND = re.compile(r"\b(KERNEL|MEMSET|MEMCPY|MEM_ALLOC|MEM_FREE|HOST|EMPTY"
+                   r"|EVENT_\w+)")
+
+
+def graph_work(fn: Callable):
+    """The device work one ``fn()`` call enqueues, read without the
+    profiler (which drops records on some machines): ``fn`` run once on a
+    side stream, then captured in a CUDA graph whose DOT dump is read,
+    one label a node (a kernel's name, or the node's kind: a memset, a
+    copy). The graph is then replayed once, so that ``fn``'s outputs hold
+    its results. Returns (labels, ``fn``'s outputs, the graph, which owns
+    the outputs' memory: keep it while they are used)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    # kept, so the dump can read the captured graph
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.instantiate()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "graph.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            dot = f.read()
+    labels = []
+    for block in _NODE.split(dot)[1:]:
+        m = _KERNEL.search(block) or _KIND.search(block)
+        labels.append(m.group(1) if m else block[:40].replace("\n", " "))
+    if not labels:
+        raise RuntimeError(f"no node in the captured graph's DOT dump: "
+                           f"{dot[:800]!r}")
+    graph.replay()
+    return labels, out, graph

@@ -1,7 +1,8 @@
-"""The CUDA kernels (ring and point-scatter projection) against their plain
-PyTorch versions, the training loop's prefetcher and resume, and the KITTI
-data path (the device bank's gather, the projection cache's prefill, fit
-on a devkit tree), on the card.
+"""The CUDA kernels (ring and point-scatter projection, and the
+projection's prologue and epilogue) against their plain PyTorch versions,
+the training loop's prefetcher and resume, and the KITTI data path (the
+device bank's gather, the projection cache's prefill, fit on a devkit
+tree), on the card.
 
 Every test here needs a CUDA device and skips without one (the kernel has
 no CPU mode). This file imports neither JAX nor the JAX package, so it runs
@@ -24,6 +25,7 @@ torch = pytest.importorskip("torch")
 from deeplio_tpu_torch.data.synthetic import synthetic_ring_batch  # noqa: E402
 from deeplio_tpu_torch.ops import projection_ring as tring  # noqa: E402
 from deeplio_tpu_torch.ops import projection_scatter as tsc  # noqa: E402
+from deeplio_tpu_torch.utils.timing import graph_work  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 H, W, FU, FD = 32, 128, 3.0, -25.0
@@ -1209,3 +1211,154 @@ def test_slice10_stream_tick_on_the_card(cuda, which):
     for got, want in zip(out["cuda"][1:], out["cpu"][1:]):     # dx, dq
         assert np.isfinite(got).all()
         assert np.abs(got - want).max() <= 1e-2 * np.abs(want).max()
+
+
+# ------------------------- the projection's prologue and epilogue kernels
+
+IO_FORMS = {
+    "img5-f32": ((0, 1, 2, 3, 4), (), (), torch.float32),
+    "norm5-bf16": ((0, 1, 2, 3, 4), (0.0, 0.0, -1.0, 0.25, 12.0),
+                   (12.0, 12.0, 1.5, 0.16, 12.0), torch.bfloat16),
+    "norm5-f16": ((0, 1, 2, 3, 4), (0.0, 0.0, -1.0, 0.25, 12.0),
+                  (12.0, 12.0, 1.5, 0.16, 12.0), torch.float16),
+    "norm5-f32": ((0, 1, 2, 3, 4), (0.0, 0.0, -1.0, 0.25, 12.0),
+                  (12.0, 12.0, 1.5, 0.16, 12.0), torch.float32),
+    "depth-x-bf16": ((4, 0), (), (), torch.bfloat16),
+}
+
+
+def _int_bits(t):
+    t = t.contiguous()
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _io_edge_batch(rng, b, n):
+    """Ring scans with the prologue's edge cases: a pure invalid tail,
+    interleaved invalid points, an all-invalid scan, a NaN remission on
+    valid points, ranges past the key ceiling and at or below 1e-6."""
+    pts = synthetic_ring_batch(rng, b, -(-n // H) * H, rings=H)[:, :n].copy()
+    valid = np.ones((b, n), bool)
+    valid[0, n * 5 // 8:] = False
+    if b > 1:
+        valid[1] = rng.uniform(size=n) >= 0.3
+        pts[1, ::97, 3] = np.nan
+    if b > 2:
+        valid[2] = False
+        pts[2, ::50, :3] *= np.float32(5e3)
+        pts[2, ::31, :3] = 0.0
+        pts[2, 5::31, :3] = np.float32(3e-7)
+    return pts, valid
+
+
+@pytest.mark.parametrize("route", ["ring", "scatter"])
+@pytest.mark.parametrize("b,n", [(1, 5), (3, 1023), (3, 4097), (2, 131072)])
+def test_proj_io_kernels_match_plain(cuda, route, b, n):
+    """Both kernels against their plain versions on the same card
+    tensors, bit for bit as integers (signed zeros and NaN bits count),
+    in every output form; planes laid out as [B, N, 4] (strided) and
+    contiguous."""
+    from deeplio_tpu_torch.ops import projection_io as tio
+    rng = np.random.default_rng(n + b)
+    pts, valid = _io_edge_batch(rng, b, n)
+    p = torch.from_numpy(pts).to(cuda)
+    v = torch.from_numpy(valid).to(cuda)
+    for planes in ([p[..., c] for c in range(4)],
+                   [p[..., c].contiguous() for c in range(4)]):
+        args = (*planes, v, H, W, FU, FD, route)
+        got = tio.proj_prologue(*args)
+        want = tio.proj_prologue_reference(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and torch.equal(g, w)
+    if route == "ring":
+        sel = tring.ring_select(*got, H * W)
+    else:
+        sel = tsc.scatter_select(*got[1:], H * W, tsc.rq_bits_for(H * W))
+    for chans, mean, std, dt in IO_FORMS.values():
+        eargs = (*sel, n, H, W, route, list(chans), list(mean), list(std),
+                 dt)
+        gi, gm = tio.proj_epilogue(*eargs)
+        wi, wm = tio.proj_epilogue_reference(*eargs)
+        torch.cuda.synchronize()
+        assert gi.dtype == wi.dtype == dt
+        assert torch.equal(_int_bits(gi), _int_bits(wi))
+        assert torch.equal(_int_bits(gm), _int_bits(wm))
+
+
+@pytest.mark.parametrize("route", ["ring", "scatter"])
+def test_proj_io_on_a_side_stream_in_a_graph_counts_launches(cuda, route):
+    """Each operator launches its kernel (one count a call, the ring's two
+    passes included), runs on a side stream, is captured in a CUDA graph
+    (the count moves at capture, not at replay) and equals its plain
+    version, called and replayed."""
+    from deeplio_tpu_torch.ops import projection_io as tio
+    rng = np.random.default_rng(4)
+    pts, valid = _io_edge_batch(rng, 3, 8192)
+    p = torch.from_numpy(pts).to(cuda)
+    args = (*[p[..., c].contiguous() for c in range(4)],
+            torch.from_numpy(valid).to(cuda), H, W, FU, FD, route)
+    words = tio.proj_prologue_reference(*args)
+    sel = (tring.ring_select_reference(*words, H * W) if route == "ring"
+           else tsc.scatter_select_reference(*words[1:], H * W,
+                                             tsc.rq_bits_for(H * W)))
+    chans, mean, std, dt = IO_FORMS["norm5-bf16"]
+    eargs = (*sel, 8192, H, W, route, list(chans), list(mean), list(std), dt)
+    want = (words, tio.proj_epilogue_reference(*eargs))
+    ops = ((tio.proj_prologue, args), (tio.proj_epilogue, eargs))
+    before = [op.launches for op, _ in ops]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = [op(*a) for op, a in ops]
+    side.synchronize()
+    assert [op.launches for op, _ in ops] == [n + 1 for n in before]
+    for g, w in zip(got, want):
+        assert all(torch.equal(_int_bits(a), _int_bits(r))
+                   for a, r in zip(g, w))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [op(*a) for op, a in ops]
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert [op.launches for op, _ in ops] == [n + 2 for n in before]
+    for g, w in zip(outs, want):
+        assert all(torch.equal(_int_bits(a), _int_bits(r))
+                   for a, r in zip(g, w))
+
+
+@pytest.mark.parametrize("backend,kernels", [("pallas", 3),
+                                             ("pallas-ring", 4)])
+def test_projector_is_three_or_four_launches(cuda, backend, kernels):
+    """One call of make_projector's function, planes to the returned
+    normalised bf16 image and mask: the prologue (two passes on the ring
+    route), the selection and the epilogue, and no other device work,
+    counted in a CUDA graph of the call; bit for bit the plain
+    composition's result."""
+    from deeplio_tpu_torch.config.schema import ProjectionConfig
+    from deeplio_tpu_torch.ops import projection as tproj
+    from deeplio_tpu_torch.ops import projection_io as tio
+    chans, mean, std, dt = IO_FORMS["norm5-bf16"]
+    names = ("x", "y", "z", "remission", "depth")
+    cfg = ProjectionConfig(height=H, width=W, max_points=8192, packed=True,
+                           backend=backend)
+    fn = tproj.make_projector(cfg, names, mean, std, out_dtype=dt,
+                              layout="planes")
+    rng = np.random.default_rng(6)
+    pts, valid = _io_edge_batch(rng, 4, 8192)
+    p = torch.from_numpy(pts).to(cuda)
+    planes = [p[..., c].contiguous() for c in range(4)]
+    v = torch.from_numpy(valid).to(cuda)
+    nodes, (img, mask), _graph = graph_work(lambda: fn(planes, v))
+    torch.cuda.synchronize()
+    assert len(nodes) == kernels, nodes
+    route = "ring" if backend == "pallas-ring" else "scatter"
+    words = tio.proj_prologue_reference(*planes, v, H, W, FU, FD, route)
+    sel = (tring.ring_select(*words, H * W) if route == "ring"
+           else tsc.scatter_select(*words[1:], H * W,
+                                   tsc.rq_bits_for(H * W)))
+    wi, wm = tio.proj_epilogue_reference(*sel, 8192, H, W, route,
+                                         list(chans), list(mean), list(std),
+                                         dt)
+    assert torch.equal(_int_bits(img), _int_bits(wi))
+    assert torch.equal(mask, wm)

@@ -2180,8 +2180,7 @@ def phase_pretrain_graft(dev, gpu, root, out, over=None, d=None,
 def phase_pretrain_profile(dev, cfg, batch, gpu, step_ms: float):
     """torch.profiler over one pretraining step on the first batch, after
     a warm-up step: device busy and idle share (against the run's ms/step
-    and the profiled wall), the spans, both kernels' shares, the top
-    kernels."""
+    and the profiled wall), both kernels' shares, the top kernels."""
     from torch.profiler import ProfilerActivity, profile
     from deeplio_tpu_torch.models.zoo import init_parameters
     from deeplio_tpu_torch.train import pretrain as tpre
@@ -2210,16 +2209,6 @@ def phase_pretrain_profile(dev, cfg, batch, gpu, step_ms: float):
           f"{max(0.0, 1 - busy / step_ms):.3f} against the run's "
           f"{step_ms:.2f} ms/step (scans read inside), "
           f"{sum(e.count for e in kernels)} device kernels [{gpu}]")
-    own = {e.key: e.device_time_total / 1e3 for e in events
-           if e.key.startswith("pretrain.") and e.device_type.name == "CPU"}
-    for e in events:
-        if e.key in own and e.device_type.name == "CPU":
-            dev_ms = own[e.key]
-            if e.key == "pretrain.backward":
-                dev_ms = busy - sum(v for k, v in own.items() if k != e.key)
-            print(f"pretrain profile span {e.key}: host "
-                  f"{e.cpu_time_total / 1e3:.3f} ms, its kernels "
-                  f"{dev_ms:.3f} ms")
     for name, names in (("ring_project", RING_KERNELS),
                         ("proj_scatter", SCATTER_KERNELS)):
         sel = [e for e in kernels if any(p in e.key for p in names)]

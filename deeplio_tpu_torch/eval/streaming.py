@@ -21,9 +21,11 @@ identity motion is a ``torch.where`` and not a Python branch.
 copies (one pinned, asynchronous copy per chunk) and the frames of one
 step call; results do not depend on it.
 
-Each tick is annotated with three profiler spans, ``stream.project``,
-``stream.model`` and ``stream.compose`` (a few microseconds each when no
-profiler is running); ``chip_smoke.py`` reads them to split the tick.
+Each tick runs under three layer spans (``utils/timing.py::span``):
+``stream.project`` (the projection, the pair and the IMU window),
+``stream.model`` and ``stream.compose`` (the first frame's select and the
+composition); ``StreamingOdometry.to_device``'s copies run under
+``stream.to_device``.
 """
 
 from __future__ import annotations
@@ -33,7 +35,6 @@ from typing import Callable, Dict, Iterator, Tuple
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from deeplio_tpu_torch.config.schema import Config
 from deeplio_tpu_torch.data.drives import Drive
@@ -41,6 +42,7 @@ from deeplio_tpu_torch.device import DeviceLike, resolve_device
 from deeplio_tpu_torch.models.blocks import space_to_depth_pairs
 from deeplio_tpu_torch.ops.projection import make_projector
 from deeplio_tpu_torch.utils import spatial as sp
+from deeplio_tpu_torch.utils.timing import span
 
 Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 # the inputs of one chunk, in the order StreamingStep takes them
@@ -85,19 +87,20 @@ class StreamingStep(nn.Module):
                 imu_mask=None):
         poses, dxs, dqs = [], [], []
         for j in range(points.shape[0]):
-            with record_function("stream.project"):
+            with span("stream.project"):
                 img, _ = self.projector(points[j:j + 1], valid[j:j + 1])
-            img = img[0]
-            batch = self.pair(prev_img, img)
-            if imu is not None:
-                batch["imu"] = imu[j][None, None]
-                batch["imu_mask"] = imu_mask[j][None, None]
-            with record_function("stream.model"):
+                img = img[0]
+                batch = self.pair(prev_img, img)
+                if imu is not None:
+                    batch["imu"] = imu[j][None, None]
+                    batch["imu_mask"] = imu_mask[j][None, None]
+            with span("stream.model"):
                 x, q = self.model(batch, combos=PAIR)
-            go = started > 0                  # first frame: identity motion
-            dx = torch.where(go, x[0, 0], torch.zeros_like(x[0, 0]))
-            dq = torch.where(go, q[0, 0], q.new_tensor([1.0, 0.0, 0.0, 0.0]))
-            with record_function("stream.compose"):
+            with span("stream.compose"):
+                go = started > 0              # first frame: identity motion
+                dx = torch.where(go, x[0, 0], torch.zeros_like(x[0, 0]))
+                dq = torch.where(go, q[0, 0],
+                                 q.new_tensor([1.0, 0.0, 0.0, 0.0]))
                 pose = sp.apply_relative(pose, dx, dq)
             poses.append(pose)
             dxs.append(dx)
@@ -168,11 +171,12 @@ class StreamingOdometry:
     def to_device(self, chunk: Dict[str, np.ndarray]
                   ) -> Dict[str, torch.Tensor]:
         out = {}
-        for k, v in chunk.items():
-            t = torch.from_numpy(v)
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out[k] = t
+        with span("stream.to_device"):
+            for k, v in chunk.items():
+                t = torch.from_numpy(v)
+                if self.device.type == "cuda":
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+                out[k] = t
         return out
 
     @torch.no_grad()

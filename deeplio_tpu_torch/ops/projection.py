@@ -47,10 +47,11 @@ read scans laid out on a fixed grid of ``n = H * W * spp`` slots, ring-major,
 from __future__ import annotations
 
 import functools
-from typing import TYPE_CHECKING, Callable, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch._guards import detect_fake_mode
 
 if TYPE_CHECKING:   # the serving artifact's loader imports no config
     from deeplio_tpu_torch.config.schema import ProjectionConfig
@@ -211,14 +212,25 @@ def normalize_channels(img: torch.Tensor, mask: torch.Tensor,
     return (img - mean) / std * mask[..., None]
 
 
-@functools.lru_cache(maxsize=None)
+_NORM_CONSTS: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
 def _norm_consts(mean: Tuple[float, ...], std: Tuple[float, ...],
                  device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """mean and std as float32 tensors on ``device``, made once, so that a
     call copies nothing to the card (nor inside a CUDA graph's
-    capture)."""
-    return tuple(torch.tensor(v, dtype=torch.float32, device=device)
-                 for v in (mean, std))
+    capture). Under a fake mode (``torch.export``'s trace) they are made
+    for the trace and not kept: a kept fake tensor would reach every
+    later eager call."""
+    fake = detect_fake_mode() is not None
+    key = (mean, std, device)
+    if fake or key not in _NORM_CONSTS:
+        consts = tuple(torch.tensor(v, dtype=torch.float32, device=device)
+                       for v in (mean, std))
+        if fake:
+            return consts
+        _NORM_CONSTS[key] = consts
+    return _NORM_CONSTS[key]
 
 
 def finish_image(img5: torch.Tensor, mask: torch.Tensor,

@@ -39,9 +39,7 @@ Each step projects its B scans twice:
 
 Then the forward pass in training mode (flax BatchNorm semantics), the
 loss, backward and ``torch.optim.Adam(lr)`` with optax's epsilon, no clip
-and no schedule (``optax.adam(lr)``). The phases run under the profiler
-spans ``pretrain.project``, ``pretrain.forward``, ``pretrain.backward``
-and ``pretrain.update``.
+and no schedule (``optax.adam(lr)``).
 """
 
 from __future__ import annotations
@@ -53,7 +51,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from deeplio_tpu_torch.config.schema import Config, ConfigError
 from deeplio_tpu_torch.device import DeviceLike, resolve_device
@@ -264,18 +261,14 @@ def build_pretrain_step(cfg: Config, model: nn.Module,
 
     def step(batch):
         model.train()
-        with record_function("pretrain.project"):
-            x, target = inputs(batch)
-        with record_function("pretrain.forward"):
-            with torch.autocast(x.device.type, dtype=dtype,
-                                enabled=dtype != torch.float32):
-                logits = model(x, combos)
-            loss = masked_xent(logits, target, num_classes)
-        with record_function("pretrain.backward"):
-            optimizer.zero_grad()
-            loss.backward()
-        with record_function("pretrain.update"):
-            optimizer.step()
+        x, target = inputs(batch)
+        with torch.autocast(x.device.type, dtype=dtype,
+                            enabled=dtype != torch.float32):
+            logits = model(x, combos)
+        loss = masked_xent(logits, target, num_classes)
+        optimizer.zero_grad()
+        loss.backward()
+        optimizer.step()
         acc = (logits.detach().argmax(1) == target).float().mean()
         return loss.detach(), acc
 

@@ -20,11 +20,12 @@ per window (or the frames, or their space-to-depth pairs, as the stem
 takes them), the forward pass in training mode (BatchNorm batch
 statistics and their running update, dropout), the pose loss, backward,
 optax's global-norm clip and the optimizer's update (Adam, AdamW or SGD
-with momentum). The phases run under the profiler
-spans ``train.augment``, ``train.project``, ``train.forward``,
-``train.backward`` and ``train.update`` (a few microseconds each when no
-profiler runs). The forward and the loss are the state's ``trainables``
-(``train/state.py::Trainables``).
+with momentum). The phases run under the layer spans
+(``utils/timing.py::span``) ``train.augment``, ``train.project``,
+``train.forward``, ``train.backward`` and ``train.update``; an eval call
+under ``eval.project`` (the model batch) and ``eval.model`` (the
+forward, the loss and its metrics). The forward and the loss are the
+state's ``trainables`` (``train/state.py::Trainables``).
 
 Data parallelism (``build_train_step(cfg, mesh)`` with a mesh whose
 process group is set, JAX's shard_map step): each rank runs the step
@@ -46,7 +47,6 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch.nn.parallel import DistributedDataParallel
-from torch.profiler import record_function
 
 from deeplio_tpu_torch.config.schema import Config
 from deeplio_tpu_torch.device import DeviceLike, resolve_device
@@ -57,6 +57,7 @@ from deeplio_tpu_torch.ops.augment import yaw_augment
 from deeplio_tpu_torch.ops.projection import make_projector
 from deeplio_tpu_torch.parallel.mesh import Mesh
 from deeplio_tpu_torch.train.state import TrainState
+from deeplio_tpu_torch.utils.timing import span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -165,11 +166,11 @@ def build_train_step(cfg: Config, mesh: Optional[Mesh] = None
 
     def train_step(state: TrainState, raw: Batch):
         if ds.augment_yaw:
-            with record_function("train.augment"):
+            with span("train.augment"):
                 raw = yaw_augment(raw, state.generator)
-        with record_function("train.project"), torch.no_grad():
+        with span("train.project"), torch.no_grad():
             mb = make_model_batch(cfg, projector, raw)
-        with record_function("train.forward"):
+        with span("train.forward"):
             if dp and not isinstance(state.trainables,
                                      DistributedDataParallel):
                 raise ValueError("a data-parallel step needs the state of "
@@ -177,10 +178,10 @@ def build_train_step(cfg: Config, mesh: Optional[Mesh] = None
             total, metrics = state.trainables.train()(mb, raw,
                                                       state.generator)
             metrics = {k: v.detach().clone() for k, v in metrics.items()}
-        with record_function("train.backward"):
+        with span("train.backward"):
             state.optimizer.zero_grad()
             total.backward()
-        with record_function("train.update"):
+        with span("train.update"):
             grad_norm = state.optimizer.step(state.step)
         if dp:
             metrics = _mean_over(mesh, metrics)
@@ -190,12 +191,14 @@ def build_train_step(cfg: Config, mesh: Optional[Mesh] = None
 
     @torch.no_grad()
     def eval_step(state: TrainState, raw: Batch):
-        model = state.model.eval()
-        mb = make_model_batch(cfg, projector, raw)
-        x_pred, q_pred = model(mb)
-        _, metrics = pose_loss(cfg.loss, state.loss_params, x_pred, q_pred,
-                               raw["x_gt"], raw["q_gt"], raw.get("valid"))
-        metrics = {k: v.detach().clone() for k, v in metrics.items()}
+        with span("eval.project"):
+            mb = make_model_batch(cfg, projector, raw)
+        with span("eval.model"):
+            x_pred, q_pred = state.model.eval()(mb)
+            _, metrics = pose_loss(cfg.loss, state.loss_params, x_pred,
+                                   q_pred, raw["x_gt"], raw["q_gt"],
+                                   raw.get("valid"))
+            metrics = {k: v.detach().clone() for k, v in metrics.items()}
         if dp:
             metrics = _mean_over(mesh, metrics)
             x_pred, q_pred = _gather(mesh, x_pred), _gather(mesh, q_pred)

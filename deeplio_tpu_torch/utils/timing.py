@@ -1,4 +1,4 @@
-"""Device timing and a throughput harness (counterpart of
+"""Device timing and the port's layer spans (counterpart of
 ``deeplio_tpu/utils/timing.py``).
 
 What holds on the card:
@@ -15,18 +15,31 @@ What holds on the card:
 Host-clock times of a short call include the host's own issue time;
 ``chip_smoke.py::graph_ms`` (CUDA-graph replay) gives device time alone,
 and :func:`graph_work` lists the device work of one call.
+
+Layer spans: the training and eval steps and the streaming tick mark
+each layer's host work with :func:`span` (``train.*``, ``eval.*``,
+``stream.*``). A span costs a flag check and a profiler check when
+nothing listens. Under ``torch.profiler`` it is a ``record_function``
+annotation, on the trace's clock beside the device's operations. Inside
+``with recording() as rec:`` it appends a :class:`SpanRecord` to ``rec``
+on ``time.perf_counter_ns``'s clock. Both may listen at once. A span
+decides when it is entered, so a step traced by ``torch.export`` with
+neither listening holds no span.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import re
 import tempfile
+import threading
 import time
-from typing import Callable, Sequence
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.autograd.profiler import record_function
 
 
 def _first_leaf(tree):
@@ -47,32 +60,84 @@ def sync(tree) -> float:
     return float(np.asarray(leaf).reshape(-1)[0])
 
 
-def time_fn(fn: Callable, inputs: Sequence, iters: int = 10,
-            warmup: int = 2) -> float:
-    """Average seconds per call of ``fn`` over distinct ``inputs`` cycled.
+class SpanRecord(NamedTuple):
+    """One span as the recorder keeps it: host times in ns on
+    ``time.perf_counter_ns``'s clock, ``parent`` the innermost span open
+    on the same thread when it began (None at the top)."""
 
-    ``fn`` must return tensors whose values depend on the full computation
-    being measured.
-    """
-    if not inputs:
-        raise ValueError("time_fn needs at least one input")
-    out = None
-    for i in range(warmup):
-        out = fn(inputs[i % len(inputs)])
-    if out is not None:
-        sync(out)
-    t0 = time.perf_counter()
-    for i in range(iters):
-        out = fn(inputs[i % len(inputs)])
-    sync(out)
-    return (time.perf_counter() - t0) / iters
+    name: str
+    parent: Optional[str]
+    start_ns: int
+    end_ns: int
+    thread: int
 
 
-def throughput(fn: Callable, inputs: Sequence, items_per_call: int,
-               iters: int = 10, warmup: int = 2) -> float:
-    """Items/second of ``fn`` (e.g. frame-pairs/s of a train step)."""
-    dt = time_fn(fn, inputs, iters=iters, warmup=warmup)
-    return items_per_call / dt
+class Recording(list):
+    """The :class:`SpanRecord` s of one :func:`recording`, in the order
+    they began once its block is left."""
+
+    def __init__(self):
+        super().__init__()
+        self.open: Dict[int, List[str]] = {}    # thread -> open spans
+
+
+# the recording spans append to, or None
+_recording: Optional[Recording] = None
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Recording]:
+    """Record every span entered inside the block, on any thread."""
+    global _recording
+    rec, outer = Recording(), _recording
+    _recording = rec
+    try:
+        yield rec
+    finally:
+        _recording = outer
+        rec.sort(key=lambda r: r.start_ns)
+
+
+class _Span:
+    __slots__ = ("name", "rec", "annotation", "stack", "t0")
+
+    def __init__(self, name: str, rec: Optional[Recording], profiled: bool):
+        self.name, self.rec = name, rec
+        self.annotation = record_function(name) if profiled else None
+
+    def __enter__(self):
+        if self.annotation is not None:
+            self.annotation.__enter__()
+        if self.rec is not None:
+            self.stack = self.rec.open.setdefault(threading.get_ident(), [])
+            self.stack.append(self.name)
+            self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        if self.rec is not None:
+            t1 = time.perf_counter_ns()
+            self.stack.pop()
+            self.rec.append(SpanRecord(
+                self.name, self.stack[-1] if self.stack else None, self.t0,
+                t1, threading.get_ident()))
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager marking one layer's host work as ``name``: a
+    ``record_function`` annotation while ``torch.profiler`` runs, a
+    :class:`SpanRecord` inside :func:`recording`, nothing otherwise."""
+    rec = _recording
+    profiled = torch.autograd._profiler_enabled()
+    if rec is None and not profiled:
+        return _OFF
+    return _Span(name, rec, profiled)
 
 
 _NODE = re.compile(r'^\s*"graph_\d+_node_\d+"\s*\[', re.M)

@@ -253,21 +253,10 @@ def test_predict_drive_defaults_to_cuda(eval_pair, monkeypatch):
 
 
 def test_timing_harness_cycles_inputs_and_syncs():
-    """``utils/timing.py``: ``sync`` fetches the first leaf's first element;
-    ``time_fn`` cycles the distinct inputs and waits for the last call."""
+    """``utils/timing.py``: ``sync`` fetches the first leaf's first
+    element, through dicts, lists and tuples, of a tensor or an array."""
     from deeplio_tpu_torch.utils import timing
     assert timing.sync({"a": torch.tensor([[3.0, 4.0]]),
                         "b": torch.zeros(2)}) == 3.0
     assert timing.sync([np.array([2.5, 1.0])]) == 2.5
-    seen = []
-
-    def fn(x):
-        seen.append(int(x))
-        return x * 2
-
-    inputs = [torch.tensor(float(i)) for i in range(3)]
-    dt = timing.time_fn(fn, inputs, iters=4, warmup=2)
-    assert seen == [0, 1, 0, 1, 2, 0] and dt >= 0.0
-    assert timing.throughput(fn, inputs, items_per_call=8, iters=2) > 0
-    with pytest.raises(ValueError):
-        timing.time_fn(fn, [])
+    assert timing.sync((torch.tensor([-1.5]),)) == -1.5

@@ -197,3 +197,26 @@ def test_deeplo_artifact_takes_no_imu(tmp_path):
     assert manifest["arch"] == "deeplo"
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+def test_norm_constants_made_under_a_fake_mode_are_not_kept(monkeypatch):
+    """The projection's mean and std made first under a fake mode (as
+    ``torch.export`` traces the step) stay in that trace: the eager
+    projection after it gets plain tensors, made and kept then."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from deeplio_tpu_torch.ops import projection as proj
+    monkeypatch.setattr(proj, "_NORM_CONSTS", {})
+    mean, std = (1.0, 2.0, 3.0), (2.0, 4.0, 8.0)
+    with FakeTensorMode():
+        fake = proj._norm_consts(mean, std, torch.device("cpu"))
+    assert all(type(t) is not torch.Tensor for t in fake)
+    assert proj._NORM_CONSTS == {}
+    img5 = torch.arange(2 * 3 * 5, dtype=torch.float32).reshape(1, 2, 3, 5)
+    mask = torch.ones(1, 2, 3, dtype=torch.bool)
+    img, _ = proj.finish_image(img5, mask, ("x", "y", "z"), mean, std)
+    assert type(img) is torch.Tensor
+    want = (img5[..., :3] - torch.tensor(mean)) / torch.tensor(std)
+    assert torch.equal(img, want)
+    kept = proj._NORM_CONSTS[(mean, std, torch.device("cpu"))]
+    assert all(type(t) is torch.Tensor for t in kept)

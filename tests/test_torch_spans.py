@@ -1,0 +1,159 @@
+"""The port's layer spans (``utils/timing.py::span``): nothing when no one
+listens, a ``user_annotation`` under ``torch.profiler``, a record inside
+``recording()``; and the spans the training step, the eval step and the
+streaming tick record, on the CPU at a tiny size (the kitti-tpu model at
+16x128, 2048 points, float32)."""
+
+import json
+import pathlib
+import threading
+
+import pytest
+import yaml
+
+torch = pytest.importorskip("torch")
+
+from deeplio_tpu_torch.config import load_config_dict as port_config  # noqa: E402
+from deeplio_tpu_torch.data.dataset import WindowDataset  # noqa: E402
+from deeplio_tpu_torch.data.drives import SyntheticDrive  # noqa: E402
+from deeplio_tpu_torch.eval.streaming import StreamingOdometry  # noqa: E402
+from deeplio_tpu_torch.models.zoo import build_model  # noqa: E402
+from deeplio_tpu_torch.train.state import create_train_state  # noqa: E402
+from deeplio_tpu_torch.train.step import (  # noqa: E402
+    batch_to_device,
+    build_train_step,
+)
+from deeplio_tpu_torch.utils import timing  # noqa: E402
+from deeplio_tpu_torch.utils.timing import recording, span  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+KITTI_TPU = ROOT / "configs" / "deeplio_kitti_tpu.yaml"
+NPTS = 2048
+
+
+def _no_annotation(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered")
+    monkeypatch.setattr(timing, "record_function", refuse)
+
+
+def test_span_off_enters_nothing_and_records_nothing(monkeypatch):
+    _no_annotation(monkeypatch)
+    with recording() as rec:
+        pass
+    with span("train.forward"):
+        x = torch.ones(3) * 2
+    assert float(x.sum()) == 6.0
+    assert rec == [] and timing._recording is None
+
+
+def test_recorder_alone_enters_no_annotation(monkeypatch):
+    _no_annotation(monkeypatch)
+    with recording() as rec:
+        with span("a"):
+            with span("b"):
+                pass
+        with span("c"):
+            pass
+    assert [(r.name, r.parent) for r in rec] == [("a", None), ("b", "a"),
+                                                 ("c", None)]
+    a, b, c = rec
+    assert a.start_ns <= b.start_ns <= b.end_ns <= a.end_ns <= c.start_ns
+    assert c.start_ns <= c.end_ns
+    assert {r.thread for r in rec} == {threading.get_ident()}
+
+
+def test_recorder_keeps_each_threads_parents():
+    seen = []
+
+    def other():
+        with span("other"):
+            pass
+        seen.append(threading.get_ident())
+
+    with recording() as rec:
+        with span("outer"):
+            t = threading.Thread(target=other)
+            t.start()
+            t.join(timeout=60)
+    assert not t.is_alive()
+    by = {r.name: r for r in rec}
+    assert by["other"].parent is None and by["other"].thread == seen[0]
+    assert by["outer"].thread == threading.get_ident()
+
+
+def test_span_is_a_user_annotation_under_the_profiler(tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+    with recording() as rec:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with span("eval.project"):
+                torch.ones(4).add_(1)
+            with span("eval.model"):
+                torch.ones(4).mul_(2)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    names = [e["name"] for e in events
+             if e.get("cat") == "user_annotation"]
+    assert "eval.project" in names and "eval.model" in names
+    # the recorder listened at the same time
+    assert [r.name for r in rec] == ["eval.project", "eval.model"]
+
+
+def _config():
+    with open(KITTI_TPU) as f:
+        d = yaml.safe_load(f)
+    d["compute-dtype"] = "float32"
+    d["datasets"].update({"image-height": 16, "image-width": 128,
+                          "max-points": NPTS, "sequence-size": 3,
+                          "window-stride": 2})
+    d["train"]["batch-size"] = 2
+    return port_config(d)
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    cfg = _config()
+    host = next(iter(WindowDataset(
+        cfg.datasets, [SyntheticDrive(n_frames=7, max_points=NPTS)]
+    ).iter_batches(2, shuffle=False)))
+    model = build_model(cfg, device="cpu", seed=0)
+    return cfg, model, batch_to_device(host, "cpu")
+
+
+def _layers(rec):
+    """(name, parent) of each record, checking that none overlaps the
+    next: layer spans do not nest in one another."""
+    for r, nxt in zip(rec, rec[1:]):
+        assert r.start_ns <= r.end_ns <= nxt.start_ns
+    return [(r.name, r.parent) for r in rec]
+
+
+def test_train_and_eval_steps_record_their_layers(tiny):
+    cfg, model, raw = tiny
+    state = create_train_state(cfg, model, seed=0)
+    train_step, eval_step = build_train_step(cfg)
+    with recording() as rec:
+        state, metrics = train_step(state, raw)
+    assert _layers(rec) == [("train.project", None), ("train.forward", None),
+                            ("train.backward", None), ("train.update", None)]
+    assert torch.isfinite(metrics["loss"])
+    with recording() as rec:
+        x, q, _ = eval_step(state, raw)
+    assert _layers(rec) == [("eval.project", None), ("eval.model", None)]
+    assert x.shape[:2] == q.shape[:2] == raw["x_gt"].shape[:2]
+
+
+def test_stream_tick_records_its_layers(tiny):
+    cfg, model, _ = tiny
+    so = StreamingOdometry(cfg, model, chunk=1, device="cpu")
+    _, host = next(so.host_chunks(SyntheticDrive(n_frames=2,
+                                                 max_points=NPTS)))
+    carry = so.init_carry()
+    with recording() as rec, torch.no_grad():
+        chunk = so.to_device(host)
+        *carry, poses, _, _ = so.step(*carry, *(chunk[k] for k in so.keys))
+    assert _layers(rec) == [("stream.to_device", None),
+                            ("stream.project", None), ("stream.model", None),
+                            ("stream.compose", None)]
+    assert poses.shape == (1, 4, 4)

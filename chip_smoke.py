@@ -39,9 +39,10 @@ slice configuration being the file above with ``backend: pallas`` and
    the selected words and the whole projector must be bit-identical;
 7. ``train_step`` in bfloat16 from seeded weights on 16 windows of 9
    unordered synthetic frames: 3 warm-up and 10 timed steps, exactly one
-   scatter launch per step, finite losses; 20 steps on one batch without
-   augmentation or dropout must lower the loss; one float32 step on the
-   card against the same step on the CPU at 16x128;
+   scatter launch per step, each timed step a replay of the step's CUDA
+   graph (``train_step.graph_counts()``, printed), finite losses; 20 steps
+   on one batch without augmentation or dropout must lower the loss; one
+   float32 step on the card against the same step on the CPU at 16x128;
 8. a torch.profiler trace of training steps;
 9. the scatter kernel's timings, as in 5, and at B = 144 on the same
    scans with every key invalid (no atomics, no gathers).
@@ -56,8 +57,10 @@ checkpoints, resume), the slice-2 configuration with ``synthetic: true``:
     ``resume=True`` and ``fit(epochs=1)``. Checks: steps 6 then 9, the
     checkpoint labels of the JAX package's rules, the restored state
     bit-equal to the saved one, finite losses, one validation per epoch,
-    one scatter launch per train step and per validation batch, and the
-    prefetcher's full-width batches equal to ``batch_to_device``'s. Prints
+    one scatter launch per train step and per validation batch, each
+    Trainer's steps after its first a replay of the step's CUDA graph
+    (the counts printed), and the prefetcher's full-width batches equal
+    to ``batch_to_device``'s. Prints
     ms/step inside ``fit``, the host's batch build, the copy and the
     loop's wait for data, checkpoint save and restore ms and size, and the
     peak device memory.
@@ -928,6 +931,7 @@ def phase_train(dev, gpu, host):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
+    warm = train_step.graph_counts()
     t0 = time.perf_counter()
     metrics = []
     for _ in range(TIMED_STEPS):
@@ -935,10 +939,15 @@ def phase_train(dev, gpu, host):
         metrics.append(m)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    counts = train_step.graph_counts()
     launches = scatter_select.launches
     io_take(launches if packed_route(cfg) else 0)
     check(launches == TIMED_STEPS,
           f"scatter kernel launched {launches} times in {TIMED_STEPS} steps")
+    check(counts["replays"] - warm["replays"] == TIMED_STEPS
+          and counts["captures"] == warm["captures"] == 1,
+          f"the timed steps did not all replay the step's CUDA graph: "
+          f"{warm} after warm-up, {counts} after")
     check(ring_select.launches == 0, "the training slice ran the ring kernel")
     ms = [_metrics(m) for m in metrics]
     check(all(np.isfinite(list(m.values())).all() for m in ms),
@@ -950,7 +959,8 @@ def phase_train(dev, gpu, host):
           f"ms/step, {TRAIN_PAIRS / step_ms * 1e3:.1f} pairs/s, scatter "
           f"launches {launches} (one per step, {TRAIN_B * TRAIN_S} scans "
           f"each), peak memory {peak_gb:.2f} GB; batch host-to-device "
-          f"{h2d_ms:.1f} ms, outside the step [{gpu}]")
+          f"{h2d_ms:.1f} ms, outside the step; step graph counts {counts} "
+          f"({warm} after the {WARMUP_STEPS} warm-up steps) [{gpu}]")
     print(f"train: first timed step loss {ms[0]['loss']:.5g} grad_norm "
           f"{ms[0]['grad_norm']:.5g}; last loss {ms[-1]['loss']:.5g} "
           f"grad_norm {ms[-1]['grad_norm']:.5g}")
@@ -1255,6 +1265,11 @@ def phase_fit(dev, gpu, workdir: pathlib.Path, cfg=None):
     want = FIT_EPOCHS * (spe + n_val)
     check(launches == want, f"fit: {launches} scatter launches, want {want} "
           f"(one per train step and per validation batch)")
+    counts = trainer.train_step.graph_counts()
+    steps = FIT_EPOCHS * spe
+    check(counts == {"captures": 1, "replays": steps - 1, "eager": 1},
+          f"fit: step graph counts {counts}, want every step after the "
+          f"first replayed ({steps} steps)")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(trainer.step == FIT_EPOCHS * spe, f"fit ended at step "
           f"{trainer.step}")
@@ -1272,7 +1287,8 @@ def phase_fit(dev, gpu, workdir: pathlib.Path, cfg=None):
           f"{wall:.2f} s; {med:.2f} ms/step, median of the step-to-step gaps "
           f"{', '.join(f'{g:.2f}' for g in gaps)} ms (those with no "
           f"validation or checkpoint save), {TRAIN_PAIRS / med * 1e3:.1f} "
-          f"pairs/s; scatter launches {launches}; peak device memory "
+          f"pairs/s; scatter launches {launches}; step graph counts "
+          f"{counts}; peak device memory "
           f"{peak_gb:.2f} GB; checkpoints {labels}, save "
           f"{', '.join(f'{m:.1f}' for m in save_ms)} ms "
           f"({size_mb:.1f} MB each) [{gpu}]")
@@ -1299,6 +1315,11 @@ def phase_fit(dev, gpu, workdir: pathlib.Path, cfg=None):
           f"want {want}")
     end = (FIT_EPOCHS + FIT_RESUME_EPOCHS) * spe
     check(resumed.step == end, f"resumed fit ended at step {resumed.step}")
+    r_counts = resumed.train_step.graph_counts()
+    steps = FIT_RESUME_EPOCHS * spe
+    check(r_counts == {"captures": 1, "replays": steps - 1, "eager": 1},
+          f"resumed fit: step graph counts {r_counts}, want every step "
+          f"after the first replayed ({steps} steps)")
     labels = resumed.ckpt.all_steps()
     check(labels == RESUME_LABELS, f"checkpoint labels after the resume "
           f"{labels}, want {RESUME_LABELS}")
@@ -1319,7 +1340,8 @@ def phase_fit(dev, gpu, workdir: pathlib.Path, cfg=None):
     print(f"fit run 2 (resumed, scans synthesised by the producer thread "
           f"as the epoch reads them): step-to-step gaps "
           f"{', '.join(f'{g:.2f}' for g in r_gaps)} ms (no validation or "
-          f"save in them); scatter launches {r_launches}; checkpoints "
+          f"save in them); scatter launches {r_launches}; step graph "
+          f"counts {r_counts}; checkpoints "
           f"{labels}; losses: step 1 {train[0]['loss']:.5g}, step {end} "
           f"{train[-1]['loss']:.5g}; validation "
           f"{', '.join(f'{r["loss"]:.5g}' for r in val)} [{gpu}]")

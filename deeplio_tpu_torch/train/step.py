@@ -25,7 +25,11 @@ with momentum). The phases run under the layer spans
 ``train.forward``, ``train.backward`` and ``train.update``; an eval call
 under ``eval.project`` (the model batch) and ``eval.model`` (the
 forward, the loss and its metrics). The forward and the loss are the
-state's ``trainables`` (``train/state.py::Trainables``).
+state's ``trainables`` (``train/state.py::Trainables``). On one CUDA
+device, outside autograd's anomaly mode, the forward, the loss and the
+backward run as one CUDA graph from the second step of each input layout
+on (``train/graph.py``); the spans are the same, ``train.backward`` empty
+on a replay.
 
 Data parallelism (``build_train_step(cfg, mesh)`` with a mesh whose
 process group is set, JAX's shard_map step): each rank runs the step
@@ -56,6 +60,7 @@ from deeplio_tpu_torch.models.zoo import DTYPES
 from deeplio_tpu_torch.ops.augment import yaw_augment
 from deeplio_tpu_torch.ops.projection import make_projector
 from deeplio_tpu_torch.parallel.mesh import Mesh
+from deeplio_tpu_torch.train.graph import StepGraphs
 from deeplio_tpu_torch.train.state import TrainState
 from deeplio_tpu_torch.utils.timing import span
 
@@ -157,6 +162,11 @@ def build_train_step(cfg: Config, mesh: Optional[Mesh] = None
     and ``state`` was made by ``create_train_state(..., mesh=mesh)``; the
     metrics are the ranks' means and ``grad_norm`` is the averaged
     gradient's, and ``eval_step``'s predictions are the global batch's.
+
+    ``train_step.graph_counts()`` tallies its steps by path
+    (``captures``, ``replays``, ``eager``: ``train/graph.py``);
+    ``train_step.eager`` is the same step with the forward and backward
+    always eager, the reference the card's tests hold the graph against.
     """
     ds = cfg.datasets
     projector = make_projector(ds.projection, ds.channels, ds.mean, ds.std,
@@ -164,12 +174,7 @@ def build_train_step(cfg: Config, mesh: Optional[Mesh] = None
                                layout="planes")
     dp = mesh is not None and mesh.group is not None
 
-    def train_step(state: TrainState, raw: Batch):
-        if ds.augment_yaw:
-            with span("train.augment"):
-                raw = yaw_augment(raw, state.generator)
-        with span("train.project"), torch.no_grad():
-            mb = make_model_batch(cfg, projector, raw)
+    def forward_backward(state: TrainState, mb: Batch, raw: Batch):
         with span("train.forward"):
             if dp and not isinstance(state.trainables,
                                      DistributedDataParallel):
@@ -181,6 +186,20 @@ def build_train_step(cfg: Config, mesh: Optional[Mesh] = None
         with span("train.backward"):
             state.optimizer.zero_grad()
             total.backward()
+        return metrics
+
+    graphs = StepGraphs(forward_backward)
+    # the data-parallel step stays eager: DDP's hooks reduce the
+    # gradients across ranks as the backward runs
+    model_step = graphs.eager if dp else graphs
+
+    def step(state: TrainState, raw: Batch, run: Callable):
+        if ds.augment_yaw:
+            with span("train.augment"):
+                raw = yaw_augment(raw, state.generator)
+        with span("train.project"), torch.no_grad():
+            mb = make_model_batch(cfg, projector, raw)
+        metrics = run(state, mb, raw)
         with span("train.update"):
             grad_norm = state.optimizer.step(state.step)
         if dp:
@@ -188,6 +207,15 @@ def build_train_step(cfg: Config, mesh: Optional[Mesh] = None
         metrics["grad_norm"] = grad_norm
         state.step += 1
         return state, metrics
+
+    def train_step(state: TrainState, raw: Batch):
+        return step(state, raw, model_step)
+
+    def eager_train_step(state: TrainState, raw: Batch):
+        return step(state, raw, forward_backward)
+
+    train_step.eager = eager_train_step
+    train_step.graph_counts = graphs.graph_counts
 
     @torch.no_grad()
     def eval_step(state: TrainState, raw: Batch):

@@ -1362,3 +1362,151 @@ def test_projector_is_three_or_four_launches(cuda, backend, kernels):
                                          dt)
     assert torch.equal(_int_bits(img), _int_bits(wi))
     assert torch.equal(mask, wm)
+
+
+# ------------------------------------------ the training step's CUDA graph
+
+def _graph_setup(cuda):
+    """``deeplio_kitti_tpu`` at 16x128 as ``_loop_cfg`` cuts it (bfloat16,
+    dropout 0.25, yaw augmentation on), its model, and ``batches(n)``: the
+    batches of ``n`` windows of a 13-frame drive (three of 2, two of 3)."""
+    from deeplio_tpu_torch.data.dataset import WindowDataset
+    from deeplio_tpu_torch.data.drives import SyntheticDrive
+    from deeplio_tpu_torch.models.zoo import build_model
+    from deeplio_tpu_torch.train.step import batch_to_device
+    cfg = _loop_cfg(**{"augment-yaw": True})
+    ds = WindowDataset(cfg.datasets,
+                       [SyntheticDrive(n_frames=13, max_points=2048)])
+
+    def batches(n):
+        return [batch_to_device(h, cuda)
+                for h in ds.iter_batches(n, shuffle=False)]
+    return cfg, build_model(cfg, cuda, seed=0), batches
+
+
+def _fresh(cfg, model):
+    from deeplio_tpu_torch.train.state import create_train_state
+    return create_train_state(cfg, copy.deepcopy(model), 10, seed=7)
+
+
+@pytest.fixture
+def deterministic():
+    """cuDNN on its deterministic algorithms: the graph and the eager step
+    run the same kernels, so they must give the same bits."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = saved
+
+
+def test_train_step_graph_equals_the_eager_step(cuda, deterministic):
+    """From one state, the step through its CUDA graph and the eager step
+    (``train_step.eager``) over 4 steps of one batch shape, 3 steps of a
+    second (3 windows: a second graph) and one more of the first, with
+    dropout and yaw augmentation: each step's loss and ``grad_norm``, the
+    generator's state, BatchNorm's running statistics and the parameters
+    bit for bit (so within the port's one- and three-step tolerances,
+    ``tests/test_torch_train.py``); each kept ``loss`` reads its own step's
+    value after the later steps; the counters read each path."""
+    from deeplio_tpu_torch.train.step import build_train_step
+    cfg, model, batches = _graph_setup(cuda)
+    two, three = batches(2), batches(3)
+    assert len(two) == 3 and len(three) == 2
+    seq = [two[0], two[1], two[2], two[0], three[0], three[1], three[0],
+           two[1]]
+    train_step, _ = build_train_step(cfg)
+    graphed, eager = _fresh(cfg, model), _fresh(cfg, model)
+    kept, read = [], []
+    for raw in seq:
+        graphed, mg = train_step(graphed, raw)
+        eager, me = train_step.eager(eager, raw)
+        kept.append(mg["loss"])
+        read.append(float(mg["loss"]))
+        for k in ("loss", "grad_norm", "sx", "sq"):
+            assert torch.equal(mg[k], me[k]), k
+        assert torch.equal(graphed.generator.get_state(),
+                           eager.generator.get_state())
+        for k, v in eager.model.state_dict().items():
+            assert torch.equal(graphed.model.state_dict()[k], v), k
+    # e, c + r, r, r on 2 windows; e, c + r, r on 3; r on 2
+    assert train_step.graph_counts() == {"captures": 2, "replays": 6,
+                                         "eager": 2}
+    assert [float(v) for v in kept] == read
+    assert len(set(read)) == len(read)
+    for k in ("sx", "sq"):
+        assert torch.equal(graphed.loss_params[k], eager.loss_params[k]), k
+
+
+def test_train_step_graph_resumes_exactly(cuda, deterministic, tmp_path):
+    """Two graphed steps (after the eager first), a checkpoint through
+    ``CheckpointManager``, a fresh model, state and step restored from it
+    and two more steps: bit for bit the state of five uninterrupted
+    steps (parameters, BatchNorm buffers, sx/sq, Adam's state, the
+    generator), and the checkpoint's generator equal to the uninterrupted
+    run's after its third step."""
+    from deeplio_tpu_torch.models.zoo import build_model
+    from deeplio_tpu_torch.train.checkpoint import CheckpointManager
+    from deeplio_tpu_torch.train.step import build_train_step
+    cfg, model, batches = _graph_setup(cuda)
+    two = batches(2)
+    seq = [two[i % 3] for i in range(5)]
+    train_step, _ = build_train_step(cfg)
+    straight = _fresh(cfg, model)
+    for i, raw in enumerate(seq):
+        straight, _ = train_step(straight, raw)
+        if i == 2:
+            gen3 = straight.generator.get_state()
+    assert train_step.graph_counts() == {"captures": 1, "replays": 4,
+                                         "eager": 1}
+    want = copy.deepcopy(straight.state_dict())
+
+    first_step, _ = build_train_step(cfg)
+    first = _fresh(cfg, model)
+    for raw in seq[:3]:
+        first, _ = first_step(first, raw)
+    assert first_step.graph_counts()["replays"] == 2
+    ckpt = CheckpointManager(str(tmp_path), save_every_steps=0)
+    ckpt.maybe_save(first, force=True)
+    resumed = _fresh(cfg, build_model(cfg, cuda, seed=1))
+    ckpt.restore(resumed)
+    assert torch.equal(resumed.generator.get_state(), gen3)
+    resumed_step, _ = build_train_step(cfg)
+    for raw in seq[3:]:
+        resumed, _ = resumed_step(resumed, raw)
+    got = resumed.state_dict()
+    assert got["step"] == want["step"] == 5
+    for k, v in want["model"].items():
+        assert torch.equal(got["model"][k], v), k
+    for k, v in want["loss_params"].items():
+        assert torch.equal(got["loss_params"][k], v), k
+    for i, st in want["optimizer"]["inner"]["state"].items():
+        for k, v in st.items():
+            assert torch.equal(got["optimizer"]["inner"]["state"][i][k], v), \
+                (i, k)
+    assert torch.equal(got["generator"], want["generator"])
+
+
+def test_train_step_runs_eagerly_in_anomaly_mode(cuda, deterministic):
+    """Under autograd's anomaly mode (``cli/train.py --debug-nans``), whose
+    NaN check reads each backward output on the host, the step captures
+    no graph: three steps run eagerly and equal ``train_step.eager`` bit
+    for bit; out of it, the next step warms up and the one after captures
+    and replays."""
+    from deeplio_tpu_torch.train.step import build_train_step
+    cfg, model, batches = _graph_setup(cuda)
+    two = batches(2)
+    train_step, _ = build_train_step(cfg)
+    stepped, eager = _fresh(cfg, model), _fresh(cfg, model)
+    with torch.autograd.detect_anomaly():
+        for raw in two:
+            stepped, mg = train_step(stepped, raw)
+            eager, me = train_step.eager(eager, raw)
+            for k in ("loss", "grad_norm"):
+                assert torch.equal(mg[k], me[k]), k
+    assert train_step.graph_counts() == {"captures": 0, "replays": 0,
+                                         "eager": 3}
+    for raw in two[:2]:
+        stepped, _ = train_step(stepped, raw)
+    assert train_step.graph_counts() == {"captures": 1, "replays": 1,
+                                         "eager": 4}
+    assert all(torch.isfinite(p).all() for p in stepped.optimizer.params)

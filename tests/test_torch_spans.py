@@ -2,8 +2,10 @@
 listens, a ``user_annotation`` under ``torch.profiler``, a record inside
 ``recording()``; and the spans the training step, the eval step and the
 streaming tick record, on the CPU at a tiny size (the kitti-tpu model at
-16x128, 2048 points, float32)."""
+16x128, 2048 points, float32), where the training step runs no CUDA
+graph."""
 
+import copy
 import json
 import pathlib
 import threading
@@ -142,6 +144,38 @@ def test_train_and_eval_steps_record_their_layers(tiny):
         x, q, _ = eval_step(state, raw)
     assert _layers(rec) == [("eval.project", None), ("eval.model", None)]
     assert x.shape[:2] == q.shape[:2] == raw["x_gt"].shape[:2]
+
+
+def test_train_step_on_the_cpu_is_eager_and_counted(tiny):
+    """Off the card ``train_step`` never captures a graph: every step runs
+    the eager forward and backward, the counters read eager steps only,
+    each step records the same four layers, and the step equals
+    ``train_step.eager`` bit for bit."""
+    cfg, model, raw = tiny
+    train_step, _ = build_train_step(cfg)
+    assert train_step.graph_counts() == {"captures": 0, "replays": 0,
+                                         "eager": 0}
+    start = copy.deepcopy(model.state_dict())
+    runs = []
+    for step in (train_step, train_step.eager):
+        model.load_state_dict(start)
+        state = create_train_state(cfg, model, seed=0)
+        losses = []
+        for _ in range(2):
+            with recording() as rec:
+                state, metrics = step(state, raw)
+            assert _layers(rec) == [
+                ("train.project", None), ("train.forward", None),
+                ("train.backward", None), ("train.update", None)]
+            losses.append(metrics["loss"])
+        runs.append((losses, copy.deepcopy(model.state_dict())))
+    assert train_step.graph_counts() == {"captures": 0, "replays": 0,
+                                         "eager": 2}
+    (got, got_sd), (want, want_sd) = runs
+    assert [float(v) for v in got] == [float(v) for v in want]
+    assert got[0] is not got[1] and float(got[0]) != float(got[1])
+    for k, v in want_sd.items():
+        assert torch.equal(got_sd[k], v), k
 
 
 def test_stream_tick_records_its_layers(tiny):

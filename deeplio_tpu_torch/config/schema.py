@@ -14,7 +14,9 @@ world, the segmentation labels of PointSeg pretraining (``labels-path``,
 ``label-map``, ``labels-num-classes``), the LiDAR towers (PointSeg with
 its ``classic``, ``cheap``, ``stride`` and ``stride-fold`` pools, its
 ``classic`` and ``pair-split`` stems and its ``encoder+decoder`` part,
-``lidar-feat-simple-0`` and ``-1``), the IMU and odometry nets (LSTM or
+``lidar-feat-simple-0`` and ``-1``, and the port's own
+``lidar-feat-darknet``: RangeNet++'s Darknet-21 or -53 encoder, which
+the JAX package does not have), the IMU and odometry nets (LSTM or
 GRU, the IMU one also bidirectional, or the FC nets), their dropout and
 warm starts, the slot-aligned projection
 routes (``kernel-aligned: auto | on | trust | halves``) and host slot
@@ -57,7 +59,9 @@ FOLD_STEMS = ("classic", "pair-split")
 FIRES = ("classic", "fused", "mixed")
 OPTIMIZERS = ("adam", "sgd")
 LIDAR_NETS = ("lidar-feat-pointseg", "lidar-feat-simple-0",
-              "lidar-feat-simple-1")
+              "lidar-feat-simple-1", "lidar-feat-darknet")
+# Darknet depths of RangeNet++ (models/darknet.py)
+DARKNET_LAYERS = (21, 53)
 ARCHS = ("deepio", "deeplo", "deeplio")
 IMU_NETS = ("imu-feat-rnn", "imu-feat-fc")
 ODOM_NETS = ("odom-feat-rnn", "odom-feat-fc")
@@ -342,6 +346,10 @@ class LidarFeatConfig:
     # first entry's stride folded into the stem (models/pointseg.py)
     pool: str = "classic"
     dropout: float = 0.0       # after the tower's Dense, training only
+    # lidar-feat-darknet: the Darknet depth (21 or 53) and the channel
+    # dropout after each of its five stages, training only
+    layers: int = 53
+    stage_dropout: float = 0.01
     # warm start of the PointSeg encoder from a snapshot
     # (train/checkpoint.py::load_pointseg_backbone)
     pretrained: bool = False
@@ -382,6 +390,11 @@ class LidarFeatConfig:
             raise ConfigError(
                 "pool=stride-fold requires part=encoder and a classic or "
                 f"pair-split stem (got part={part!r}, stem={stem!r})")
+        layers = int(_get(d, "layers", 53))
+        if layers not in DARKNET_LAYERS:
+            raise ConfigError(f"darknet layers must be "
+                              f"{'|'.join(map(str, DARKNET_LAYERS))}, got "
+                              f"{layers}")
         return LidarFeatConfig(
             name=name,
             part=part,
@@ -396,6 +409,9 @@ class LidarFeatConfig:
             fire=fire,
             pool=pool,
             dropout=_rate(_get(d, "dropout", 0.0), "lidar dropout"),
+            layers=layers,
+            stage_dropout=_rate(_get(d, "stage-dropout", 0.01),
+                                "darknet stage dropout"),
             pretrained=bool(_get(d, "pretrained", False)),
             model_path=str(_get(d, "model-path", "")),
         )

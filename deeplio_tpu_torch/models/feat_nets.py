@@ -1,7 +1,8 @@
 """Feature nets of the model zoo (counterpart of
 ``deeplio_tpu/models/feat_nets.py``: ``LidarPointSegFeat``,
 ``LidarSimpleFeat0``, ``LidarSimpleFeat1``, ``ImuFeatRnn``, ``ImuFeatFC``,
-``FusionLayer``, ``OdomFeatRNN``, ``OdomFeatFC``, ``PoseHeads``).
+``FusionLayer``, ``OdomFeatRNN``, ``OdomFeatFC``, ``PoseHeads``; and the
+port's own ``LidarDarknetFeat``, which the JAX package does not have).
 
 Dropout (the LiDAR towers after their Dense, ``PoseHeads`` before its
 layers) acts in training mode only, draws its masks from the generator
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from deeplio_tpu_torch.models.blocks import ConvBN, ConvInput
+from deeplio_tpu_torch.models.darknet import DarknetBackbone
 from deeplio_tpu_torch.models.pointseg import PointSegNet
 from deeplio_tpu_torch.ops.rnn import MaskedRNN
 
@@ -67,6 +69,32 @@ class LidarPointSegFeat(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 combos: Tuple[Tuple[int, int], ...] = ()) -> torch.Tensor:
         feat = self.ConvBN_1(self.ConvBN_0(self.pointseg(x, combos)))
+        feat = F.relu(self.Dense_0(feat.mean(dim=(-2, -1))))
+        return inverted_dropout(feat, self.dropout, self.training, generator)
+
+
+class LidarDarknetFeat(nn.Module):
+    """RangeNet++'s Darknet encoder (``models/darknet.py``) over
+    pair-stacked images [B, 2C, H, W], then :class:`LidarPointSegFeat`'s
+    tail: two strided 3x3 ConvBNs to 256 channels, spatial mean, Dense to
+    ``feature_size``, ReLU, dropout -> [B * P, F]. The masks are drawn in
+    the forward's order: the five stages' channel dropout, then the
+    tower's."""
+
+    def __init__(self, in_channels: int, feature_size: int = 512,
+                 layers: int = 53, dropout: float = 0.0,
+                 stage_dropout: float = 0.01):
+        super().__init__()
+        self.dropout = dropout
+        self.darknet = DarknetBackbone(in_channels, layers, stage_dropout)
+        self.ConvBN_0 = ConvBN(self.darknet.out_channels, 256, (3, 3),
+                               (2, 2))
+        self.ConvBN_1 = ConvBN(256, 256, (3, 3), (2, 2))
+        self.Dense_0 = nn.Linear(256, feature_size)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        feat = self.ConvBN_1(self.ConvBN_0(self.darknet(x, generator)))
         feat = F.relu(self.Dense_0(feat.mean(dim=(-2, -1))))
         return inverted_dropout(feat, self.dropout, self.training, generator)
 

@@ -3,7 +3,9 @@
 every IMU and odometry net (LSTM, GRU, bidirectional, FC), every stem's
 path of ``_lidar_features``, ``build_model`` and
 ``factorize_stem_variables``; ``sync_batchnorm`` is the counterpart of
-``init_model(axis_name="data")``).
+``init_model(axis_name="data")``). The LiDAR archs also take the port's
+own ``lidar-feat-darknet`` tower (``models/darknet.py``), which the JAX
+package does not have.
 
 Forward contract, as in the JAX package::
 
@@ -51,6 +53,7 @@ from deeplio_tpu_torch.models.feat_nets import (
     FusionLayer,
     ImuFeatFC,
     ImuFeatRnn,
+    LidarDarknetFeat,
     LidarPointSegFeat,
     LidarSimpleFeat0,
     LidarSimpleFeat1,
@@ -59,6 +62,7 @@ from deeplio_tpu_torch.models.feat_nets import (
     PoseHeads,
 )
 from deeplio_tpu_torch.ops.rnn import GruCellScan, LstmCellScan
+from deeplio_tpu_torch.utils.timing import span
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -76,6 +80,9 @@ def _lidar_net(cfg: ModelConfig, image_channels: int) -> nn.Module:
             2 * image_channels, lc.feature_size, lc.h_stride, lc.w_stride,
             lc.se, lc.el_squeeze, lc.dropout, lc.pool, lc.part, lc.stem,
             lc.fire)
+    if lc.name == "lidar-feat-darknet":
+        return LidarDarknetFeat(2 * image_channels, lc.feature_size,
+                                lc.layers, lc.dropout, lc.stage_dropout)
     simple = {"lidar-feat-simple-0": LidarSimpleFeat0,
               "lidar-feat-simple-1": LidarSimpleFeat1}.get(lc.name)
     if simple is None:
@@ -142,19 +149,21 @@ class _Odometry(nn.Module):
         ``pair-split`` the stem takes the two frames of each pair apart;
         under ``factorized`` it takes the window's frames [B, S, C, H, W]
         (a permuted view) and pairs them by ``combos`` (default the
-        model's)."""
-        if self.stem == "factorized":
-            return self.lidar_feat(
-                batch["frames"].permute(0, 1, 4, 2, 3), generator,
-                self.combos if combos is None else combos)
+        model's). Runs under the span ``model.lidar``, inside the step's
+        or the tick's model span."""
+        with span("model.lidar"):
+            if self.stem == "factorized":
+                return self.lidar_feat(
+                    batch["frames"].permute(0, 1, 4, 2, 3), generator,
+                    self.combos if combos is None else combos)
 
-        def nchw(key):                                        # NCHW view
-            return batch[key].flatten(0, 1).permute(0, 3, 1, 2)
+            def nchw(key):                                    # NCHW view
+                return batch[key].flatten(0, 1).permute(0, 3, 1, 2)
 
-        x = nchw("images")
-        if self.stem == "pair-split":
-            x = (x, nchw("images2"))
-        return self.lidar_feat(x, generator)
+            x = nchw("images")
+            if self.stem == "pair-split":
+                x = (x, nchw("images2"))
+            return self.lidar_feat(x, generator)
 
     def _imu(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The IMU encoder on each pair's window: [B * P, H]."""

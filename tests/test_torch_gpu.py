@@ -1510,3 +1510,45 @@ def test_train_step_runs_eagerly_in_anomaly_mode(cuda, deterministic):
     assert train_step.graph_counts() == {"captures": 1, "replays": 1,
                                          "eager": 4}
     assert all(torch.isfinite(p).all() for p in stepped.optimizer.params)
+
+
+def test_darknet_train_step_graph_equals_the_eager_step(cuda, deterministic):
+    """DeepLIO on the Darknet-53 tower (``configs/torch/
+    deeplio_darknet53.yaml`` at its widths and 64x1024 image, bfloat16,
+    channel dropout 0.01 after each stage, the heads' 0.25) at a reduced
+    batch, 2 windows of 3 frames (16384-point synthetic scans), so that
+    it fits beside the suite: from one state, 4 steps through the graph
+    (warm-up, capture, replays) and 4 eager steps, each step's loss and
+    ``grad_norm``, the generator's state, the parameters and BatchNorm's
+    running statistics bit for bit."""
+    from deeplio_tpu_torch.config import load_config_dict
+    from deeplio_tpu_torch.data.dataset import WindowDataset
+    from deeplio_tpu_torch.data.drives import SyntheticDrive
+    from deeplio_tpu_torch.models.zoo import build_model
+    from deeplio_tpu_torch.train.step import batch_to_device, build_train_step
+    with open(KITTI_TPU.parent / "torch" / "deeplio_darknet53.yaml") as f:
+        d = yaml.safe_load(f)
+    d["datasets"].update({"max-points": 16384, "synthetic": True})
+    cfg = load_config_dict(d)
+    ds = WindowDataset(cfg.datasets,
+                       [SyntheticDrive(n_frames=9, max_points=16384)])
+    batches = [batch_to_device(h, cuda)
+               for h in ds.iter_batches(2, shuffle=False)][:2]
+    assert len(batches) == 2
+    model = build_model(cfg, cuda, seed=0)
+    train_step, _ = build_train_step(cfg)
+    graphed, eager = _fresh(cfg, model), _fresh(cfg, model)
+    del model
+    for i in range(4):
+        raw = batches[i % 2]
+        graphed, mg = train_step(graphed, raw)
+        eager, me = train_step.eager(eager, raw)
+        for k in ("loss", "grad_norm", "sx", "sq"):
+            assert torch.equal(mg[k], me[k]), (i, k)
+        assert torch.isfinite(mg["loss"])
+        assert torch.equal(graphed.generator.get_state(),
+                           eager.generator.get_state())
+        for k, v in eager.model.state_dict().items():
+            assert torch.equal(graphed.model.state_dict()[k], v), (i, k)
+    assert train_step.graph_counts() == {"captures": 1, "replays": 3,
+                                         "eager": 1}

@@ -1,6 +1,12 @@
 """Every file under ``configs/`` loads in the port as shipped, with the
 JAX loader's values in every field both configs have, and each arch
-trains through ``Trainer.fit`` on the CPU.
+trains through ``Trainer.fit`` on the CPU; every file under
+``configs/torch/`` loads in the port and trains the same way.
+
+``configs/torch/`` holds the port-only configurations: those naming what
+only the port has (``lidar-feat-darknet``), which the JAX loader refuses.
+They live apart so that ``configs/*.yaml`` stays the set both packages
+load, held field by field against JAX's loader here.
 
 The fits take the shipped files with only the image (16x64), the scan
 capacity (1024 points) and the data cut (synthetic drives of a few
@@ -27,6 +33,7 @@ from deeplio_tpu_torch.train import Trainer  # noqa: E402
 
 CONFIGS = sorted((pathlib.Path(__file__).resolve().parents[1]
                   / "configs").glob("*.yaml"))
+PORT_ONLY = sorted((CONFIGS[0].parent / "torch").glob("*.yaml"))
 
 
 def _same_fields(port, ref, where):
@@ -120,3 +127,32 @@ def test_two_step_fit_per_arch(name, launches, tmp_path, monkeypatch):
     S = cfg.datasets.sequence_size
     assert calls == [("scatter_select", (2 * S, 1024))] * (
         launches * (2 + 2 * val_batches))
+
+
+@pytest.mark.parametrize("path", PORT_ONLY, ids=[p.stem for p in PORT_ONLY])
+def test_port_only_config_loads_and_fits_two_steps(path, tmp_path,
+                                                   monkeypatch):
+    """A ``configs/torch/`` file loads in the port as shipped and, cut as
+    :func:`_fit_dict` cuts the shipped files (the image, the scan
+    capacity, synthetic drives, batches of 2, float32), trains two steps
+    and validates once at its own widths through ``Trainer.fit``, on two
+    intra-op threads (a Darknet-53 step is some 50 GFLOP here; the suite's
+    six workers oversubscribe the cores at one thread a core)."""
+    import sys
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    assert load_config(path).model.arch in ("deepio", "deeplo", "deeplio")
+    cfg = load_config_dict(_fit_dict(str(path.relative_to(CONFIGS[0].parent))))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    trainer = Trainer(cfg, str(tmp_path / "run"), device="cpu")
+    try:
+        state = trainer.fit(epochs=1)
+    finally:
+        trainer.close()
+        torch.set_num_threads(threads)
+    assert state.step == 2
+    recs = [json.loads(line) for line in
+            (tmp_path / "run" / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in recs if r["split"] == "train"] == [1, 2]
+    assert [r["split"] for r in recs].count("val") == 1
+    assert all(np.isfinite(r["loss"]) for r in recs)

@@ -1,7 +1,8 @@
 """The port's layer spans (``utils/timing.py::span``): nothing when no one
 listens, a ``user_annotation`` under ``torch.profiler``, a record inside
 ``recording()``; and the spans the training step, the eval step and the
-streaming tick record, on the CPU at a tiny size (the kitti-tpu model at
+streaming tick record (the model's ``model.lidar`` nested in the layer
+that runs the model), on the CPU at a tiny size (the kitti-tpu model at
 16x128, 2048 points, float32), where the training step runs no CUDA
 graph."""
 
@@ -124,11 +125,24 @@ def tiny():
 
 
 def _layers(rec):
-    """(name, parent) of each record, checking that none overlaps the
-    next: layer spans do not nest in one another."""
-    for r, nxt in zip(rec, rec[1:]):
+    """(name, parent) of each record, checking that no top-level record
+    overlaps the next (layer spans do not nest in one another) and that
+    each nested one (the model's ``model.lidar``, inside the span that
+    runs the model) lies inside the last top-level record before it."""
+    top = [r for r in rec if r.parent is None]
+    for r, nxt in zip(top, top[1:]):
         assert r.start_ns <= r.end_ns <= nxt.start_ns
+    for r in rec:
+        if r.parent is not None:
+            outer = [t for t in top if t.start_ns <= r.start_ns][-1]
+            assert outer.name == r.parent
+            assert r.start_ns <= r.end_ns <= outer.end_ns
     return [(r.name, r.parent) for r in rec]
+
+
+TRAIN_LAYERS = [("train.project", None), ("train.forward", None),
+                ("model.lidar", "train.forward"), ("train.backward", None),
+                ("train.update", None)]
 
 
 def test_train_and_eval_steps_record_their_layers(tiny):
@@ -137,12 +151,12 @@ def test_train_and_eval_steps_record_their_layers(tiny):
     train_step, eval_step = build_train_step(cfg)
     with recording() as rec:
         state, metrics = train_step(state, raw)
-    assert _layers(rec) == [("train.project", None), ("train.forward", None),
-                            ("train.backward", None), ("train.update", None)]
+    assert _layers(rec) == TRAIN_LAYERS
     assert torch.isfinite(metrics["loss"])
     with recording() as rec:
         x, q, _ = eval_step(state, raw)
-    assert _layers(rec) == [("eval.project", None), ("eval.model", None)]
+    assert _layers(rec) == [("eval.project", None), ("eval.model", None),
+                            ("model.lidar", "eval.model")]
     assert x.shape[:2] == q.shape[:2] == raw["x_gt"].shape[:2]
 
 
@@ -164,9 +178,7 @@ def test_train_step_on_the_cpu_is_eager_and_counted(tiny):
         for _ in range(2):
             with recording() as rec:
                 state, metrics = step(state, raw)
-            assert _layers(rec) == [
-                ("train.project", None), ("train.forward", None),
-                ("train.backward", None), ("train.update", None)]
+            assert _layers(rec) == TRAIN_LAYERS
             losses.append(metrics["loss"])
         runs.append((losses, copy.deepcopy(model.state_dict())))
     assert train_step.graph_counts() == {"captures": 0, "replays": 0,
@@ -189,5 +201,6 @@ def test_stream_tick_records_its_layers(tiny):
         *carry, poses, _, _ = so.step(*carry, *(chunk[k] for k in so.keys))
     assert _layers(rec) == [("stream.to_device", None),
                             ("stream.project", None), ("stream.model", None),
+                            ("model.lidar", "stream.model"),
                             ("stream.compose", None)]
     assert poses.shape == (1, 4, 4)

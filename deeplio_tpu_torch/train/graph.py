@@ -1,53 +1,68 @@
-"""The training step's forward, loss and backward as one CUDA graph
-(``train/step.py::build_train_step``'s ``train_step`` on one CUDA device).
+"""The training step's forward, loss and backward, and the eval call's
+forward and loss, each as one CUDA graph (``train/step.py::
+build_train_step``'s ``train_step`` and ``eval_step`` on one CUDA device).
 
 On the card the tuned step's model issues some 3,000 kernel launches from
-the host, and the host takes longer to issue them than the card takes to
-run them. :class:`StepGraphs` captures the trainables' forward in
-training mode, the pose loss and the backward once for each layout of the
-step's inputs, and replays it on every later step: one graph launch in
-place of the launches. The projection before it and the optimizer after
-it stay eager.
+the host, an eval call's some 1,300, and the host takes longer to issue
+them than the card takes to run them. :class:`StepGraphs` captures the
+trainables' forward in training mode, the pose loss and the backward once
+for each layout of the step's inputs, and replays it on every later step:
+one graph launch in place of the launches. The projection before it and
+the optimizer after it stay eager. :class:`EvalGraphs` does the same for
+the eval call's forward in eval mode, the pose loss and its metrics; the
+projection before it stays eager, and so does the data-parallel reduction
+after it.
 
-Which path a step takes follows from what the step can observe: the graph
-on a state whose parameters are on a CUDA device, with autograd's anomaly
-mode off; the eager forward and backward everywhere else (the CPU, and
-anomaly mode, whose check of each backward output for NaN reads the value
-on the host, which a capture cannot do and a replay would skip). The
-data-parallel step calls :meth:`StepGraphs.eager` and never captures
-(``train/step.py``). For one key (the trainables, and the shape, strides
-and dtype of each model input and each ground-truth tensor):
+Which path a call takes follows from what the call can observe: the graph
+on a state whose parameters are on a CUDA device (for the training step
+also with autograd's anomaly mode off); the eager path everywhere else
+(the CPU, and anomaly mode, whose check of each backward output for NaN
+reads the value on the host, which a capture cannot do and a replay would
+skip). The data-parallel step and eval call call ``eager`` and never
+capture (``train/step.py``). For one key (the state's tensors the call
+reads, and the shape, strides and dtype of each model input and each
+ground-truth tensor):
 
-1. the first step runs eagerly, on the side stream the capture uses, and
+1. the first call runs eagerly, on the side stream the capture uses, and
    is the capture's warm-up;
-2. the second step copies its inputs into static buffers, captures the
+2. the second call copies its inputs into static buffers, captures the
    graph (which runs nothing, draws no dropout mask and moves no
    BatchNorm statistic), then replays it;
-3. every later step copies its inputs into the static buffers and replays.
+3. every later call copies its inputs into the static buffers and
+   replays.
 
-What a replay keeps equal to the eager step:
+A capture collects garbage first and holds the collector off until it
+ends: an object freed mid-capture may call the runtime from its
+destructor, which invalidates the capture.
 
-- dropout: ``state.generator`` is registered with the graph, so each
-  replay draws its masks from the generator's state at that moment and
-  advances it by the step's draws, as the eager step does (the capture
-  advances nothing), and a checkpoint's generator state stays exact;
+What a replay keeps equal to the eager call:
+
+- state updated in place: the parameters, BatchNorm's running statistics
+  and the LWS ``sx``/``sq`` are read where they live, so a replay reads
+  what the optimizer, the running update or a checkpoint's restore (each
+  a copy in place) left there;
+- dropout: ``state.generator`` is registered with the training graph, so
+  each replay draws its masks from the generator's state at that moment
+  and advances it by the step's draws, as the eager step does (the
+  capture advances nothing), and a checkpoint's generator state stays
+  exact; the eval call draws nothing;
 - gradients: the captured backward writes ``p.grad`` of every parameter
   (``sx`` and ``sq`` too) into buffers the graph owns. They are None when
   it is captured, so it writes them and accumulates nothing; replays do
   not zero them, and a replay binds them to the parameters again where
   something else (an eager step) set ``p.grad`` meanwhile;
-- outputs: the metrics are cloned from the graph's static outputs after
-  each replay, so a caller keeping step i's ``loss`` still reads step i's
-  value after step i + 1.
+- outputs: the metrics (and the eval call's predictions) are cloned from
+  the graph's static outputs after each replay, so a caller keeping call
+  i's ``loss`` or ``x_pred`` still reads call i's value after call i + 1.
 
-``counts`` tallies the steps by path (``captures``, ``replays``, ``eager``;
-a capturing step counts one capture and one replay).
+``counts`` tallies the calls by path (``captures``, ``replays``,
+``eager``; a capturing call counts one capture and one replay).
 """
 
 from __future__ import annotations
 
 import gc
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -62,7 +77,7 @@ class _Graph(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
     inputs: Batch               # static model batch
     truth: Batch                # static ground truth
-    outputs: Batch              # static metrics
+    outputs: Any                # static outputs of the captured call
     grads: list                 # (parameter, its gradient buffer)
 
 
@@ -76,33 +91,37 @@ def _static(t: torch.Tensor) -> torch.Tensor:
                                device=t.device).copy_(t)
 
 
-class StepGraphs:
-    """The forward and backward of ``train_step``: ``forward_backward(state,
-    mb, raw) -> metrics`` run eagerly or through a CUDA graph (module
-    docstring); ``raw`` is the raw batch, of which the loss reads the
-    ground truth."""
+class _Captures:
+    """What both graphs share: ``fn(state, mb, raw)`` run eagerly or
+    through the CUDA graph of its key (module docstring). A subclass
+    says on which device a call may capture (``_device``), which of the
+    state's objects its graphs read (``_owner_of``), how a graph is made
+    (``_capture``, around :meth:`_record`) and replayed (``_replay``,
+    around :meth:`_launch`)."""
 
-    def __init__(self, forward_backward: Callable):
-        self.forward_backward = forward_backward
+    def __init__(self, fn: Callable):
+        self.fn = fn
         self.counts = {"captures": 0, "replays": 0, "eager": 0}
-        self._owner: Optional[torch.nn.Module] = None
+        self._owner: Tuple = ()
         self._graphs: Dict[tuple, _Graph] = {}
         self._warm: set = set()
         self._stream: Optional[torch.cuda.Stream] = None
 
-    def eager(self, state, mb: Batch, raw: Batch) -> Batch:
-        """The eager forward and backward, counted."""
+    def eager(self, state, mb: Batch, raw: Batch):
+        """The eager call, counted."""
         self.counts["eager"] += 1
-        return self.forward_backward(state, mb, raw)
+        return self.fn(state, mb, raw)
 
-    def __call__(self, state, mb: Batch, raw: Batch) -> Batch:
-        if (torch.is_anomaly_enabled()
-                or not state.optimizer.params[0].is_cuda):
+    def __call__(self, state, mb: Batch, raw: Batch):
+        dev = self._device(state)
+        if dev is None:
             return self.eager(state, mb, raw)
-        if state.trainables is not self._owner:
-            # graphs read and write one state's tensors: a step on another
+        owner = self._owner_of(state)
+        if len(owner) != len(self._owner) or any(
+                a is not b for a, b in zip(owner, self._owner)):
+            # graphs read and write one state's tensors: a call on another
             # state starts over
-            self._owner = state.trainables
+            self._owner = owner
             self._graphs.clear()
             self._warm.clear()
         truth = {k: raw[k] for k in TRUTH if k in raw}
@@ -113,8 +132,8 @@ class StepGraphs:
             if key not in self._warm:
                 self._warm.add(key)
                 self.counts["eager"] += 1
-                return self._warm_up(state, mb, raw)
-            g = self._graphs[key] = self._capture(state, mb, truth)
+                return self._warm_up(dev, state, mb, raw)
+            g = self._graphs[key] = self._capture(dev, state, mb, truth)
         return self._replay(g, mb, truth)
 
     def _side_stream(self, device: torch.device) -> torch.cuda.Stream:
@@ -122,23 +141,22 @@ class StepGraphs:
             self._stream = torch.cuda.Stream(device)
         return self._stream
 
-    def _warm_up(self, state, mb: Batch, raw: Batch) -> Batch:
-        """The eager step on the capture's stream, so that what the work
+    def _warm_up(self, dev: torch.device, state, mb: Batch, raw: Batch):
+        """The eager call on the capture's stream, so that what the work
         sets up lazily per stream exists before the capture."""
-        dev = state.optimizer.params[0].device
         side, current = self._side_stream(dev), torch.cuda.current_stream(dev)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            metrics = self.forward_backward(state, mb, raw)
+            out = self.fn(state, mb, raw)
         current.wait_stream(side)
-        return metrics
+        return out
 
-    def _capture(self, state, mb: Batch, truth: Batch) -> _Graph:
-        dev = state.optimizer.params[0].device
+    def _record(self, dev: torch.device, graph: "torch.cuda.CUDAGraph",
+                state, mb: Batch, truth: Batch):
+        """Capture ``fn`` on static copies of ``mb`` and ``truth`` into
+        ``graph``: (static inputs, static truth, static outputs)."""
         inputs = {k: _static(v) for k, v in mb.items()}
         static_truth = {k: _static(v) for k, v in truth.items()}
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(state.generator)
         # an object that the collector frees during the capture may call
         # the runtime from its destructor (an event, pinned host memory),
         # which invalidates the capture: collect first, then hold the
@@ -152,26 +170,59 @@ class StepGraphs:
             with torch.cuda.device(dev), torch.cuda.graph(
                     graph, stream=self._side_stream(dev),
                     capture_error_mode="thread_local"):
-                # forward_backward sets the gradients to None before the
-                # backward, so the graph writes them and accumulates
-                # nothing
-                outputs = self.forward_backward(state, inputs,
-                                                static_truth)
+                outputs = self.fn(state, inputs, static_truth)
         finally:
             if collecting:
                 gc.enable()
         self.counts["captures"] += 1
+        return inputs, static_truth, outputs
+
+    @staticmethod
+    def _launch(g: _Graph, mb: Batch, truth: Batch) -> None:
+        """This call's inputs into the static buffers, then the graph."""
+        for k, t in g.inputs.items():
+            t.copy_(mb[k])
+        for k, t in g.truth.items():
+            t.copy_(truth[k])
+        g.graph.replay()
+
+    def graph_counts(self) -> Dict[str, int]:
+        """A copy of :attr:`counts`."""
+        return dict(self.counts)
+
+
+class StepGraphs(_Captures):
+    """The forward and backward of ``train_step``: ``forward_backward(state,
+    mb, raw) -> metrics`` run eagerly or through a CUDA graph (module
+    docstring); ``raw`` is the raw batch, of which the loss reads the
+    ground truth."""
+
+    @staticmethod
+    def _device(state) -> Optional[torch.device]:
+        p = state.optimizer.params[0]
+        if torch.is_anomaly_enabled() or not p.is_cuda:
+            return None
+        return p.device
+
+    @staticmethod
+    def _owner_of(state) -> Tuple:
+        return (state.trainables,)
+
+    def _capture(self, dev: torch.device, state, mb: Batch,
+                 truth: Batch) -> _Graph:
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(state.generator)
+        # forward_backward sets the gradients to None before the backward,
+        # so the graph writes them and accumulates nothing
+        inputs, static_truth, outputs = self._record(dev, graph, state, mb,
+                                                     truth)
         grads = [(p, p.grad) for p in state.optimizer.params
                  if p.grad is not None]
         return _Graph(graph, inputs, static_truth, outputs, grads)
 
     def _replay(self, g: _Graph, mb: Batch, truth: Batch) -> Batch:
         with span("train.forward"):
-            for k, t in g.inputs.items():
-                t.copy_(mb[k])
-            for k, t in g.truth.items():
-                t.copy_(truth[k])
-            g.graph.replay()
+            self._launch(g, mb, truth)
             for p, grad in g.grads:
                 if p.grad is not grad:
                     p.grad = grad
@@ -182,6 +233,34 @@ class StepGraphs:
         self.counts["replays"] += 1
         return metrics
 
-    def graph_counts(self) -> Dict[str, int]:
-        """A copy of :attr:`counts`."""
-        return dict(self.counts)
+
+class EvalGraphs(_Captures):
+    """The model and loss of ``eval_step``: ``model_loss(state, mb, raw)
+    -> (x_pred, q_pred, metrics)``, the model already in eval mode, run
+    eagerly or through a CUDA graph (module docstring). The caller holds
+    the span ``eval.model`` around the call: on a replay it holds the
+    input copies, the graph launch and the clones."""
+
+    @staticmethod
+    def _device(state) -> Optional[torch.device]:
+        p = next(state.model.parameters())
+        return p.device if p.is_cuda else None
+
+    @staticmethod
+    def _owner_of(state) -> Tuple:
+        # the model and the loss's parameters the graph reads
+        return (state.model,) + tuple(state.loss_params.values())
+
+    def _capture(self, dev: torch.device, state, mb: Batch,
+                 truth: Batch) -> _Graph:
+        graph = torch.cuda.CUDAGraph()
+        inputs, static_truth, outputs = self._record(dev, graph, state, mb,
+                                                     truth)
+        return _Graph(graph, inputs, static_truth, outputs, [])
+
+    def _replay(self, g: _Graph, mb: Batch, truth: Batch):
+        self._launch(g, mb, truth)
+        x_pred, q_pred, metrics = g.outputs
+        self.counts["replays"] += 1
+        return (x_pred.clone(), q_pred.clone(),
+                {k: v.clone() for k, v in metrics.items()})

@@ -29,7 +29,8 @@ state's ``trainables`` (``train/state.py::Trainables``). On one CUDA
 device, outside autograd's anomaly mode, the forward, the loss and the
 backward run as one CUDA graph from the second step of each input layout
 on (``train/graph.py``); the spans are the same, ``train.backward`` empty
-on a replay.
+on a replay. So do an eval call's forward, loss and metrics on one CUDA
+device, under the same span ``eval.model``.
 
 Data parallelism (``build_train_step(cfg, mesh)`` with a mesh whose
 process group is set, JAX's shard_map step): each rank runs the step
@@ -60,7 +61,7 @@ from deeplio_tpu_torch.models.zoo import DTYPES
 from deeplio_tpu_torch.ops.augment import yaw_augment
 from deeplio_tpu_torch.ops.projection import make_projector
 from deeplio_tpu_torch.parallel.mesh import Mesh
-from deeplio_tpu_torch.train.graph import StepGraphs
+from deeplio_tpu_torch.train.graph import EvalGraphs, StepGraphs
 from deeplio_tpu_torch.train.state import TrainState
 from deeplio_tpu_torch.utils.timing import span
 
@@ -167,6 +168,8 @@ def build_train_step(cfg: Config, mesh: Optional[Mesh] = None
     (``captures``, ``replays``, ``eager``: ``train/graph.py``);
     ``train_step.eager`` is the same step with the forward and backward
     always eager, the reference the card's tests hold the graph against.
+    ``eval_step.graph_counts()`` and ``eval_step.eager`` are the same for
+    the eval call's forward and loss.
     """
     ds = cfg.datasets
     projector = make_projector(ds.projection, ds.channels, ds.mean, ds.std,
@@ -217,19 +220,38 @@ def build_train_step(cfg: Config, mesh: Optional[Mesh] = None
     train_step.eager = eager_train_step
     train_step.graph_counts = graphs.graph_counts
 
-    @torch.no_grad()
-    def eval_step(state: TrainState, raw: Batch):
+    def model_loss(state: TrainState, mb: Batch, raw: Batch):
+        x_pred, q_pred = state.model(mb)
+        _, metrics = pose_loss(cfg.loss, state.loss_params, x_pred, q_pred,
+                               raw["x_gt"], raw["q_gt"], raw.get("valid"))
+        return x_pred, q_pred, {k: v.detach().clone()
+                                for k, v in metrics.items()}
+
+    eval_graphs = EvalGraphs(model_loss)
+    # the data-parallel call stays eager, as the data-parallel training
+    # step does: no cell runs either
+    model_eval = eval_graphs.eager if dp else eval_graphs
+
+    def evaluate(state: TrainState, raw: Batch, run: Callable):
         with span("eval.project"):
             mb = make_model_batch(cfg, projector, raw)
         with span("eval.model"):
-            x_pred, q_pred = state.model.eval()(mb)
-            _, metrics = pose_loss(cfg.loss, state.loss_params, x_pred,
-                                   q_pred, raw["x_gt"], raw["q_gt"],
-                                   raw.get("valid"))
-            metrics = {k: v.detach().clone() for k, v in metrics.items()}
+            state.model.eval()
+            x_pred, q_pred, metrics = run(state, mb, raw)
         if dp:
             metrics = _mean_over(mesh, metrics)
             x_pred, q_pred = _gather(mesh, x_pred), _gather(mesh, q_pred)
         return x_pred, q_pred, metrics
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, raw: Batch):
+        return evaluate(state, raw, model_eval)
+
+    @torch.no_grad()
+    def eager_eval_step(state: TrainState, raw: Batch):
+        return evaluate(state, raw, model_loss)
+
+    eval_step.eager = eager_eval_step
+    eval_step.graph_counts = eval_graphs.graph_counts
 
     return train_step, eval_step

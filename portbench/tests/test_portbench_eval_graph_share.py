@@ -1,0 +1,41 @@
+"""``metrics/eval_graph_share.py``: None for a program whose eval call has
+no graph counter, the share of the calls counted so far that replayed
+where it has one, and 0% in a traced CPU run, where the eval call never
+captures a graph."""
+
+from types import SimpleNamespace
+
+from portbench import run
+from portbench.metrics import eval_graph_share
+from portbench.tests.test_portbench_loops import SEED, TINY
+
+
+def _run(counts=None):
+    """A run whose loop's eval call has the counter ``counts``, or none."""
+    def eval_step(state, raw):
+        return None, None, {}
+    if counts is not None:
+        eval_step.graph_counts = lambda: dict(counts)
+    return SimpleNamespace(loop=SimpleNamespace(eval_step=eval_step))
+
+
+def test_a_program_without_the_counter_reads_none():
+    assert eval_graph_share.read(_run()) is None
+    assert eval_graph_share.read(SimpleNamespace(loop=object())) is None
+    assert eval_graph_share.read(
+        _run({"captures": 0, "replays": 0, "eager": 0})) is None
+
+
+def test_the_share_of_the_calls_that_replayed():
+    for counts, want in (({"captures": 1, "replays": 7, "eager": 1}, 87.5),
+                         ({"captures": 2, "replays": 6, "eager": 2}, 75.0),
+                         ({"captures": 0, "replays": 0, "eager": 5}, 0.0)):
+        assert eval_graph_share.read(_run(counts)) == want
+
+
+def test_traced_cpu_run_reads_no_replay():
+    r = run.execute("deeplio_kitti_tpu.score", SEED, 0.3, True,
+                    device="cpu", overrides=TINY, log=lambda *_: None)
+    assert r["metrics"]["eval_graph_share.score"] == {"value": 0.0,
+                                                      "unit": "%"}
+    assert r["correct"] is True

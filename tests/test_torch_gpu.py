@@ -1552,3 +1552,96 @@ def test_darknet_train_step_graph_equals_the_eager_step(cuda, deterministic):
             assert torch.equal(graphed.model.state_dict()[k], v), (i, k)
     assert train_step.graph_counts() == {"captures": 1, "replays": 3,
                                          "eager": 1}
+
+
+# --------------------------------------------- the eval call's CUDA graph
+
+def _assert_eval_equal(got, want, where):
+    (x, q, m), (ex, eq, em) = got, want
+    assert torch.equal(x, ex) and torch.equal(q, eq), where
+    assert m.keys() == em.keys(), where
+    for k in m:
+        assert torch.equal(m[k], em[k]), (where, k)
+
+
+def test_eval_step_graph_equals_the_eager_call(cuda, deterministic):
+    """From one state, the eval call through its CUDA graph and the eager
+    call (``eval_step.eager``) over two layouts (2 and 3 windows: a second
+    graph), interleaved: each call's ``x_pred``, ``q_pred`` and every
+    metric bit for bit; each kept prediction reads its own call's values
+    after the later calls; the counters read e, c + r, r, r on 2 windows
+    and e, c + r, r on 3."""
+    from deeplio_tpu_torch.train.step import build_train_step
+    cfg, model, batches = _graph_setup(cuda)
+    two, three = batches(2), batches(3)
+    seq = [two[0], two[1], three[0], two[2], three[1], two[0], three[0]]
+    _, eval_step = build_train_step(cfg)
+    state = _fresh(cfg, model)
+    kept, want = [], []
+    for i, raw in enumerate(seq):
+        got = eval_step(state, raw)
+        ref = eval_step.eager(state, raw)
+        _assert_eval_equal(got, ref, i)
+        kept.append(got)
+        want.append(tuple(t.clone() for t in ref[:2]))
+    assert eval_step.graph_counts() == {"captures": 2, "replays": 5,
+                                        "eager": 2}
+    for i, ((x, q, _), (wx, wq)) in enumerate(zip(kept, want)):
+        assert torch.equal(x, wx) and torch.equal(q, wq), i
+    assert not torch.equal(kept[0][0], kept[1][0])
+    assert not state.model.training
+
+
+def test_eval_step_graph_reads_the_trained_state(cuda, deterministic):
+    """Graphed training steps between graphed eval calls on one state:
+    after each step the next replay equals the eager call on the updated
+    parameters, BatchNorm running statistics and ``sx``/``sq``, and reads
+    other values than the call before the step."""
+    from deeplio_tpu_torch.train.step import build_train_step
+    cfg, model, batches = _graph_setup(cuda)
+    two = batches(2)
+    train_step, eval_step = build_train_step(cfg)
+    state = _fresh(cfg, model)
+    before = None
+    for i in range(5):
+        got = eval_step(state, two[0])
+        _assert_eval_equal(got, eval_step.eager(state, two[0]), i)
+        if before is not None:
+            assert not torch.equal(got[0], before[0]), i
+            assert not torch.equal(got[2]["sx"], before[2]["sx"]), i
+        before = got
+        state, _ = train_step(state, two[1 + i % 2])
+    assert eval_step.graph_counts() == {"captures": 1, "replays": 4,
+                                        "eager": 1}
+    assert train_step.graph_counts() == {"captures": 1, "replays": 4,
+                                         "eager": 1}
+
+
+def test_eval_step_graph_reads_a_restored_checkpoint(cuda, deterministic,
+                                                      tmp_path):
+    """A state whose eval graph is captured, then ``CheckpointManager.
+    restore`` of another run's trained state into it (copies in place):
+    the next call replays, equals the eager call on the restored state,
+    and equals the eager call on the run that was saved."""
+    from deeplio_tpu_torch.train.checkpoint import CheckpointManager
+    from deeplio_tpu_torch.train.step import build_train_step
+    cfg, model, batches = _graph_setup(cuda)
+    two = batches(2)
+    train_step, eval_step = build_train_step(cfg)
+    saved = _fresh(cfg, model)
+    for raw in two:
+        saved, _ = train_step(saved, raw)
+    ckpt = CheckpointManager(str(tmp_path), save_every_steps=0)
+    ckpt.maybe_save(saved, force=True)
+    ckpt.wait()
+    state = _fresh(cfg, model)
+    first = [eval_step(state, two[0]) for _ in range(2)]
+    assert eval_step.graph_counts() == {"captures": 1, "replays": 1,
+                                        "eager": 1}
+    ckpt.restore(state)
+    got = eval_step(state, two[0])
+    assert eval_step.graph_counts() == {"captures": 1, "replays": 2,
+                                        "eager": 1}
+    _assert_eval_equal(got, eval_step.eager(state, two[0]), "restored")
+    _assert_eval_equal(got, eval_step.eager(saved, two[0]), "saved")
+    assert not torch.equal(got[0], first[1][0])

@@ -190,6 +190,35 @@ def test_train_step_on_the_cpu_is_eager_and_counted(tiny):
         assert torch.equal(got_sd[k], v), k
 
 
+def test_eval_step_on_the_cpu_is_eager_and_counted(tiny):
+    """Off the card ``eval_step`` never captures a graph: every call runs
+    the eager forward and loss, the counters read eager calls only (and
+    ``eval_step.eager`` counts nothing), each call records
+    ``eval.project`` then ``eval.model``, and the call returns what
+    ``eval_step.eager`` returns, bit for bit."""
+    cfg, model, raw = tiny
+    state = create_train_state(cfg, model, seed=0)
+    _, eval_step = build_train_step(cfg)
+    assert eval_step.graph_counts() == {"captures": 0, "replays": 0,
+                                        "eager": 0}
+    for _ in range(2):
+        with recording() as rec:
+            x, q, m = eval_step(state, raw)
+        assert [r.name for r in rec if r.parent is None] == [
+            "eval.project", "eval.model"]
+        with recording() as rec:
+            ex, eq, em = eval_step.eager(state, raw)
+        assert [r.name for r in rec if r.parent is None] == [
+            "eval.project", "eval.model"]
+        assert torch.equal(x, ex) and torch.equal(q, eq)
+        assert m.keys() == em.keys()
+        for k in m:
+            assert torch.equal(m[k], em[k]), k
+    assert eval_step.graph_counts() == {"captures": 0, "replays": 0,
+                                        "eager": 2}
+    assert not state.model.training
+
+
 def test_stream_tick_records_its_layers(tiny):
     cfg, model, _ = tiny
     so = StreamingOdometry(cfg, model, chunk=1, device="cpu")

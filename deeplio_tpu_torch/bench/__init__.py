@@ -1,2 +1,4 @@
-"""Measurements on the card that ``chip_smoke.py`` does not repeat on
-every run; each module is run with ``python -m``."""
+"""What the tests build from: the JAX benchmark's configuration
+(``flagship.py``), the two configurations of the optimizer, stem and Fire
+slice (``slice10.py``) and a KITTI devkit tree of synthetic drives
+(``kitti_tree.py``)."""

@@ -1,7 +1,7 @@
 """A KITTI raw devkit tree written from synthetic drives, so that the
 KITTI path (``data/drives.py::KittiRawDrive`` and everything above it)
-runs with no recorded drive on disk. A fixture of ``chip_smoke.py`` and
-the tests, not a feature of the package.
+runs with no recorded drive on disk. A fixture of the tests, not a
+feature of the package.
 
 For each drive, ``<root>/<date>/<date>_drive_%04d_sync`` holds:
 

@@ -12,7 +12,7 @@ so no file is added under ``configs/``.
 
 Both keep the file's 16 windows of 9 frames, its 64x1024 images, bf16,
 h-stride 2, w-stride 4 and ``pool: stride``, its schedule and its clip.
-``chip_smoke.py`` and the CPU tests build them from here.
+The tests build them from here.
 """
 
 from __future__ import annotations

@@ -26,7 +26,6 @@ from __future__ import annotations
 import json
 import os
 import shutil
-import time
 from typing import Dict, List, Optional
 
 import torch
@@ -56,8 +55,6 @@ class CheckpointManager:
         os.makedirs(self.directory, exist_ok=True)
         self.keep = keep
         self.save_every_steps = save_every_steps
-        self.save_ms: List[float] = []
-        self.restore_ms: List[float] = []
 
     def _dir(self, step: int) -> str:
         return os.path.join(self.directory, str(step))
@@ -90,7 +87,6 @@ class CheckpointManager:
 
     def _write(self, state: TrainState, metrics: Optional[dict],
                step: int) -> None:
-        t0 = time.perf_counter()
         d = self._dir(step)
         os.makedirs(d, exist_ok=True)
         _atomic_save(state.state_dict(), os.path.join(d, STATE_FILE))
@@ -100,7 +96,6 @@ class CheckpointManager:
         os.replace(tmp, os.path.join(d, METRICS_FILE))
         for old in self.all_steps()[:-self.keep] if self.keep > 0 else ():
             shutil.rmtree(self._dir(old))
-        self.save_ms.append((time.perf_counter() - t0) * 1e3)
 
     def metrics(self, step: int) -> Dict[str, float]:
         """The metrics saved with ``step`` ({} for a periodic save)."""
@@ -114,9 +109,6 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def nbytes(self, step: int) -> int:
-        return os.path.getsize(os.path.join(self._dir(step), STATE_FILE))
-
     def restore(self, state: TrainState, step: Optional[int] = None
                 ) -> TrainState:
         """Load the checkpoint of ``step`` (default the latest) into
@@ -124,11 +116,9 @@ class CheckpointManager:
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
-        t0 = time.perf_counter()
         saved = torch.load(os.path.join(self._dir(step), STATE_FILE),
                            map_location="cpu", weights_only=True)
         state.load_state_dict(saved)
-        self.restore_ms.append((time.perf_counter() - t0) * 1e3)
         return state
 
     def wait(self) -> None:

@@ -183,14 +183,12 @@ class Trainer:
                 f"windows): every epoch would drop all its batches")
         self.train_step, self.eval_step = build_train_step(cfg, self.mesh)
         self._train_bank = self._val_bank = None
-        self.bank_ms: Dict[str, float] = {}
         if cfg.train.device_dataset and not eval_only:
             self._stage_banks()
         # one set of page-locked staging buffers for every epoch, every
         # validation and the evaluator's batches (depth + 1 batches)
         self.ring = PinnedRing(cfg.train.prefetch + 1) \
             if self.device.type == "cuda" else None
-        self.data_timings: List[Dict[str, float]] = []
 
         self.ckpt = CheckpointManager(
             os.path.join(workdir, cfg.train.checkpoint_dir),
@@ -224,7 +222,7 @@ class Trainer:
 
     def _stage_banks(self) -> None:
         """Build the host banks of both splits and copy them to the device
-        once (``bank_ms``: host build and copy ms, and the MB)."""
+        once."""
         if self.mesh.data > 1:
             raise ValueError("device-dataset is single-process only")
         if not self.train_ds.with_points:
@@ -241,17 +239,10 @@ class Trainer:
                     f"more than the device's {free / 1e6:.0f} MB free")
         self.log.info("staging the device-resident dataset (%.0f MB)",
                       nbytes / 1e6)
-        t0 = time.perf_counter()
-        hosts = [dbank.build_host_bank(ds) for ds in splits]
-        t1 = time.perf_counter()
-        banks = [dbank.put_bank(h, self.device) for h in hosts]
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t2 = time.perf_counter()
+        banks = [dbank.put_bank(dbank.build_host_bank(ds), self.device)
+                 for ds in splits]
         self._train_bank = banks[0]
         self._val_bank = banks[1] if len(banks) > 1 else None
-        self.bank_ms = {"mb": nbytes / 1e6, "build": (t1 - t0) * 1e3,
-                        "put": (t2 - t1) * 1e3}
 
     def _bank_epoch(self, ds, bank, shuffle: bool, seed: int = 0):
         """One epoch's batches gathered from ``bank`` on the device, in
@@ -335,8 +326,6 @@ class Trainer:
                     self._periodic_save()
             finally:
                 it.close()
-            if isinstance(it, DevicePrefetcher):
-                self.data_timings.append(it.timings())
             if (self.val_ds is not None and len(self.val_ds)
                     and (epoch + 1) % cfg.train.eval_every_epochs == 0):
                 self._after_validation(epoch, self.validate())

@@ -13,8 +13,7 @@ What holds on the card:
    reads): cycle several distinct inputs.
 
 Host-clock times of a short call include the host's own issue time;
-``chip_smoke.py::graph_ms`` (CUDA-graph replay) gives device time alone,
-and :func:`graph_work` lists the device work of one call.
+:func:`graph_work` lists the device work of one call.
 
 Layer spans: the training and eval steps and the streaming tick mark
 each layer's host work with :func:`span` (``train.*``, ``eval.*``,

@@ -214,3 +214,87 @@ def trainer_rank(rank, world, cfg_dict, workdir):
                                 mesh=tr.mesh)
     tr.close()
     return out
+
+
+def card_rank(rank, world, f32_dict, host, tree_dict, workdir):
+    """A rank of two on the one card (gloo): the float32 step of
+    ``f32_dict`` on this rank's rows of ``host``, its scatter selection
+    spied and held against the plain version and its launches counted,
+    and the metrics, sx/sq and variables after it; then
+    ``Trainer.fit(epochs=1)`` of ``tree_dict`` in ``workdir`` and its
+    launches."""
+    import numpy as np
+    import torch
+
+    from deeplio_tpu_torch.config import load_config_dict
+    from deeplio_tpu_torch.models.from_flax import to_flax_variables
+    from deeplio_tpu_torch.models.zoo import build_model
+    from deeplio_tpu_torch.ops import projection_io as tio
+    from deeplio_tpu_torch.ops import projection_ring as tring
+    from deeplio_tpu_torch.ops import projection_scatter as tsc
+    from deeplio_tpu_torch.parallel import make_mesh, shard_batch
+    from deeplio_tpu_torch.train import Trainer
+    from deeplio_tpu_torch.train.state import create_train_state
+    from deeplio_tpu_torch.train.step import batch_to_device, build_train_step
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"ring": tring._OP.launches, "scatter": tsc._OP.launches,
+                "prologue": tio._PROLOGUE.launches,
+                "epilogue": tio._EPILOGUE.launches}
+
+    def since(before):
+        return {k: v - before[k] for k, v in counts().items()}
+
+    def flat(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out.update(flat(v, f"{prefix}{k}/"))
+            else:
+                out[prefix + k] = np.asarray(v)
+        return out
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(device="cuda:0")
+    cfg = load_config_dict(f32_dict)
+    state = create_train_state(cfg, build_model(cfg, device=mesh.device,
+                                                seed=0), mesh=mesh)
+    train_step, _ = build_train_step(cfg, mesh)
+    raw = batch_to_device(shard_batch(mesh, host), mesh.device)
+    first = []
+    op = tsc.scatter_select
+
+    def spy(*args):
+        out = op(*args)
+        if not first:
+            first.append(([a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args], [o.clone() for o in out]))
+        return out
+
+    tsc.scatter_select = spy
+    try:
+        before = counts()
+        state, m = train_step(state, raw)
+        launches = since(before)
+    finally:
+        tsc.scatter_select = op
+    args, outs = first[0]
+    out = {"f32_launches": launches, "f32_b": int(args[0].shape[0]),
+           "f32_held": all(torch.equal(a, r) for a, r in zip(
+               outs, tsc.scatter_select_reference(*args))),
+           "metrics": {k: float(v) for k, v in m.items()},
+           "loss_params": {k: float(v)
+                           for k, v in state.loss_params.items()},
+           "variables": flat(to_flax_variables(state.model))}
+    trainer = Trainer(load_config_dict(tree_dict), workdir,
+                      device=mesh.device)
+    try:
+        before = counts()
+        trainer.fit(epochs=1)
+        out.update(fit_launches=since(before), fit_steps=trainer.step,
+                   fit_world=trainer.mesh.data)
+    finally:
+        trainer.close()
+    return out

@@ -60,17 +60,6 @@ def write_config(path):
 
 
 @pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two intra-op threads while this file runs: its tensors are small,
-    and under a parallel test run each worker's default thread pool (one
-    thread a core) oversubscribes the cores many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
-@pytest.fixture(scope="module", autouse=True)
 def no_optional_imports():
     """Neither TensorBoard nor matplotlib imports here, as on the card's
     machine: ``MetricsWriter`` then writes no TensorBoard mirror (the JSONL

@@ -43,16 +43,6 @@ DARKNET = ROOT / "configs" / "torch" / "deeplio_darknet53.yaml"
 B, P, H, W, T = 2, 2, 4, 64, 16
 
 
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two intra-op threads, as the other model files of the suite run
-    under its six workers."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
-
-
 def _dict(h=H, w=W, arch="deeplio"):
     with open(DARKNET) as f:
         d = yaml.safe_load(f)

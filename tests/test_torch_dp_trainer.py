@@ -97,6 +97,8 @@ def world(tmp_path_factory):
     wd = str(root / "dp2")
     ranks = run_ranks(trainer_rank, WORLD, d, wd, timeout=150.0)
     cfg = load_config_dict(d)
+    # the ranks' intra-op threads (tests/_torch_dp.py): the one-process
+    # run then sums in their order, which the comparisons' tolerances need
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     try:

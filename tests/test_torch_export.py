@@ -58,17 +58,6 @@ def tiny_dict():
     return d
 
 
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two intra-op threads while this file runs: its tensors are small,
-    and under a parallel test run each worker's default thread pool (one
-    thread a core) oversubscribes the cores many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def artifact(tmp_path_factory):
     cfg = port_config(tiny_dict())

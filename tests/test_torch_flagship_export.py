@@ -24,15 +24,6 @@ from deeplio_tpu_torch.models import zoo  # noqa: E402
 from tests.test_torch_flagship import H, N, small_dict  # noqa: E402
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads, as the other whole-model files run."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 def test_auto_export_serves_both_branches(tmp_path):
     cfg = port_config(small_dict(**{"kernel-aligned": "auto"}))
     model = zoo.build_model(cfg, device="cpu", seed=0)

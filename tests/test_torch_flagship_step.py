@@ -55,15 +55,6 @@ from tests.test_torch_flagship import H, N, small_dict  # noqa: E402
 STEPS_PER_EPOCH = 100
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads, as the other whole-model files run."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 def _ring_scans(b, seed=0):
     """[b, N, 4] ring-ordered compacted scans and their valid masks, as a
     KITTI loader gives them: ``synthetic_ring_batch`` scans (no point near

@@ -54,15 +54,6 @@ MODEL_TOL = 1e-4
 H, W, C = 16, 128, 5
 
 
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two intra-op threads (the tier-1 run has six workers)."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
-
-
 def _randomize(module: nn.Module, g: torch.Generator) -> nn.Module:
     with torch.no_grad():
         for name, t in module.state_dict(keep_vars=True).items():

@@ -46,15 +46,6 @@ MODEL_TOL = 1e-4
 H, W = 16, 128
 
 
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two intra-op threads (the tier-1 run has six workers)."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
-
-
 def _dict(**lidar):
     """``configs/deeplio_kitti_tpu.yaml`` cut to 16x128, windows of 3,
     narrow nets, float32."""

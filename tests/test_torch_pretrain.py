@@ -74,15 +74,6 @@ LABEL_MAP = {10: 1, 40: 2, 44: 2, 48: 3, 50: 4, 70: 5, 252: 6, 2049: 7,
              3000: 9, 0xFFFF: 3}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two intra-op threads (the tier-1 run has six workers)."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
-
-
 def slice_dict(**datasets):
     with open(KITTI_TPU) as f:
         d = yaml.safe_load(f)

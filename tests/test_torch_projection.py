@@ -10,7 +10,7 @@
 * the weight bridge: a round trip and its strictness.
 
 The CUDA kernel is held against its plain version on the card by
-``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+``tests/test_torch_gpu.py``.
 """
 
 import numpy as np

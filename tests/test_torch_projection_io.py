@@ -24,7 +24,8 @@
   ``normalize_channels``, the cast) bit for bit.
 
 The CUDA kernels (``csrc/proj_io.cu``) are held against the plain versions
-on the card by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+on the card by ``tests/test_torch_gpu.py`` and
+``tests/test_torch_gpu_paths.py``.
 """
 
 import numpy as np

@@ -14,7 +14,7 @@ JAX reference on the CPU.
   atan2/asin ulps move a boundary point by one pixel (<= 0.1% of pixels).
 
 The CUDA kernel is held against its plain version on the card by
-``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+``tests/test_torch_gpu.py``.
 """
 
 import functools

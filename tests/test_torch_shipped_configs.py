@@ -135,21 +135,16 @@ def test_port_only_config_loads_and_fits_two_steps(path, tmp_path,
     """A ``configs/torch/`` file loads in the port as shipped and, cut as
     :func:`_fit_dict` cuts the shipped files (the image, the scan
     capacity, synthetic drives, batches of 2, float32), trains two steps
-    and validates once at its own widths through ``Trainer.fit``, on two
-    intra-op threads (a Darknet-53 step is some 50 GFLOP here; the suite's
-    six workers oversubscribe the cores at one thread a core)."""
+    and validates once at its own widths through ``Trainer.fit``."""
     import sys
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     assert load_config(path).model.arch in ("deepio", "deeplo", "deeplio")
     cfg = load_config_dict(_fit_dict(str(path.relative_to(CONFIGS[0].parent))))
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
     trainer = Trainer(cfg, str(tmp_path / "run"), device="cpu")
     try:
         state = trainer.fit(epochs=1)
     finally:
         trainer.close()
-        torch.set_num_threads(threads)
     assert state.step == 2
     recs = [json.loads(line) for line in
             (tmp_path / "run" / "metrics.jsonl").read_text().splitlines()]

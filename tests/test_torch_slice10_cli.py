@@ -29,7 +29,6 @@ from tests.test_torch_cli import (  # noqa: F401
     EVAL_KEYS,
     STREAM_KEYS,
     no_optional_imports,
-    two_threads,
     write_config,
 )
 

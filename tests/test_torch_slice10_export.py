@@ -18,7 +18,7 @@ from deeplio_tpu_torch.eval.export import (
 )
 from deeplio_tpu_torch.eval.streaming import StreamingOdometry
 from deeplio_tpu_torch.models.zoo import build_model
-from tests.test_torch_slice10_serve import H, NPTS, cut_dict, two_threads  # noqa: F401
+from tests.test_torch_slice10_serve import H, NPTS, cut_dict
 
 
 @pytest.mark.parametrize("which", ["A", "B"])

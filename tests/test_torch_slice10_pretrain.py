@@ -51,15 +51,6 @@ B, N = 2, 1024
 UPDATE_L2 = 0.05
 
 
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two intra-op threads (the tier-1 run has six workers)."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
-
-
 def _jax_step(cfg, k, lr):
     """JAX ``pretrain_pointseg``'s net and step for ``cfg`` (its stem
     rule: ``s2d-pre`` as ``s2d``, ``factorized`` on one pair (0, 0))."""

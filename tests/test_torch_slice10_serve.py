@@ -36,15 +36,6 @@ H, W, NPTS = 16, 128, 2048
 FRAMES = {"A": 3, "B": 2}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two intra-op threads (the tier-1 run has six workers)."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
-
-
 def cut_dict(which, **datasets):
     """Configuration ``which`` on the shipped file at 16x128, 2048 points,
     narrow nets, float32."""

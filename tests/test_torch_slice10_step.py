@@ -70,15 +70,6 @@ STATS_TOL = 1e-5
 STEPS_PER_EPOCH = 100
 
 
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two intra-op threads (the tier-1 run has six workers)."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
-
-
 def cut_dict(which):
     """Configuration ``which`` on the shipped file cut to 16x64, 1024
     points, windows of 3 frames, narrow nets, float32, dropout 0."""

@@ -7,7 +7,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tests.test_torch_slice10_step import check_train_step, two_threads  # noqa: E402,F401
+from tests.test_torch_slice10_step import check_train_step  # noqa: E402
 
 
 def test_one_train_step_matches_jax_b(monkeypatch):

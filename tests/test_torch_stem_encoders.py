@@ -36,15 +36,6 @@ from tests.test_torch_models import (  # noqa: E402
 from tests.test_torch_stems import B, C, H, HS, STATS_TOL, W, WS, _leaves  # noqa: E402
 
 
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two intra-op threads (the tier-1 run has six workers)."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
-
-
 # ------------------------------------------------------------ encoders
 
 # (stem, fire, pool): JAX's test_pointseg_tpu_variants cases, then the

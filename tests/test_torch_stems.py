@@ -55,15 +55,6 @@ B, H, W, C = 2, 16, 128, 5          # frames of C channels, pairs of 2C
 HS, WS = 2, 4
 
 
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two intra-op threads (the tier-1 run has six workers)."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
-
-
 def _leaves(tree):
     return {jax.tree_util.keystr(p): np.asarray(a) for p, a in
             jax.tree_util.tree_leaves_with_path(tree)}

@@ -71,15 +71,6 @@ NET_TOL, FWD_TOL, STATS_TOL = 1e-5, 1e-4, 1e-5
 STEPS_PER_EPOCH = 100
 
 
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two intra-op threads (the tier-1 run has six workers)."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
-
-
 def _mask(b, t, seed):
     """[b, t] validity with ragged tails, one row fully masked."""
     rng = np.random.default_rng(seed)

@@ -21,11 +21,20 @@ identity motion is a ``torch.where`` and not a Python branch.
 copies (one pinned, asynchronous copy per chunk) and the frames of one
 step call; results do not depend on it.
 
-Each tick runs under three layer spans (``utils/timing.py::span``):
+On one CUDA device, with grad mode off and outside ``torch.export``'s
+trace, a call of the step runs the whole chunk as one CUDA graph
+(``train/graph.py::StreamGraphs``): the first call of each layout of the
+carry and the inputs runs eagerly as the capture's warm-up, the second
+captures it, every later one replays it. ``StreamingStep.eager`` is the
+always-eager chunk, which ``torch.export`` traces and the graph is held
+against; ``StreamingStep.graph_counts()`` tallies the calls by path.
+
+Each eager tick runs under three layer spans (``utils/timing.py::span``):
 ``stream.project`` (the projection, the pair and the IMU window),
 ``stream.model`` and ``stream.compose`` (the first frame's select and the
-composition); ``StreamingOdometry.to_device``'s copies run under
-``stream.to_device``.
+composition); a replay holds its input copies, the graph launch and the
+outputs' clones under ``stream.model`` and enters the other two empty.
+``StreamingOdometry.to_device``'s copies run under ``stream.to_device``.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from deeplio_tpu_torch.data.drives import Drive
 from deeplio_tpu_torch.device import DeviceLike, resolve_device
 from deeplio_tpu_torch.models.blocks import space_to_depth_pairs
 from deeplio_tpu_torch.ops.projection import make_projector
+from deeplio_tpu_torch.train.graph import StreamGraphs
 from deeplio_tpu_torch.utils import spatial as sp
 from deeplio_tpu_torch.utils.timing import span
 
@@ -56,17 +66,29 @@ def chunk_keys(arch: str) -> Tuple[str, ...]:
     return CHUNK_KEYS if arch == "deeplio" else CHUNK_KEYS[:2]
 
 
+def _tick(step: "StreamingStep", mb: Dict[str, torch.Tensor], raw):
+    """The eager chunk on the carry and inputs ``mb`` by name."""
+    return step.eager(**mb)
+
+
 class StreamingStep(nn.Module):
     """``(prev_img, pose, started, points [c, N, 4], valid [c, N], imu [c,
     T, 6], imu_mask [c, T]) -> (prev_img, pose, started, poses [c, 4, 4],
     dx [c, 3], dq [c, 4])``: ``c`` ticks from the carry, the new carry
     first. ``started`` is a float32 scalar, 0 before the first frame.
-    DeepLO's step takes no ``imu`` and ``imu_mask``."""
+    DeepLO's step takes no ``imu`` and ``imu_mask``. A call runs eagerly
+    or through the chunk's CUDA graph (module docstring); :meth:`eager`
+    always runs eagerly."""
 
     def __init__(self, model: nn.Module, projector: Callable):
         super().__init__()
         self.model = model
         self.projector = projector
+        self.graphs = StreamGraphs(_tick)
+
+    def graph_counts(self) -> Dict[str, int]:
+        """The calls by path: ``captures``, ``replays``, ``eager``."""
+        return self.graphs.graph_counts()
 
     def pair(self, prev_img: torch.Tensor,
              img: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -85,6 +107,14 @@ class StreamingStep(nn.Module):
 
     def forward(self, prev_img, pose, started, points, valid, imu=None,
                 imu_mask=None):
+        mb = {"prev_img": prev_img, "pose": pose, "started": started,
+              "points": points, "valid": valid}
+        if imu is not None:
+            mb.update(imu=imu, imu_mask=imu_mask)
+        return self.graphs(self, mb, {})
+
+    def eager(self, prev_img, pose, started, points, valid, imu=None,
+              imu_mask=None):
         poses, dxs, dqs = [], [], []
         for j in range(points.shape[0]):
             with span("stream.project"):
@@ -99,8 +129,8 @@ class StreamingStep(nn.Module):
             with span("stream.compose"):
                 go = started > 0              # first frame: identity motion
                 dx = torch.where(go, x[0, 0], torch.zeros_like(x[0, 0]))
-                dq = torch.where(go, q[0, 0],
-                                 q.new_tensor([1.0, 0.0, 0.0, 0.0]))
+                dq = torch.where(go, q[0, 0], sp.device_constant(
+                    (1.0, 0.0, 0.0, 0.0), q))
                 pose = sp.apply_relative(pose, dx, dq)
             poses.append(pose)
             dxs.append(dx)

@@ -1,6 +1,7 @@
-"""The training step's forward, loss and backward, and the eval call's
-forward and loss, each as one CUDA graph (``train/step.py::
-build_train_step``'s ``train_step`` and ``eval_step`` on one CUDA device).
+"""The training step's forward, loss and backward, the eval call's
+forward and loss, and the streaming tick, each as one CUDA graph
+(``train/step.py::build_train_step``'s ``train_step`` and ``eval_step``
+on one CUDA device; ``eval/streaming.py::StreamingStep``).
 
 On the card the tuned step's model issues some 3,000 kernel launches from
 the host, an eval call's some 1,300, and the host takes longer to issue
@@ -11,17 +12,20 @@ one graph launch in place of the launches. The projection before it and
 the optimizer after it stay eager. :class:`EvalGraphs` does the same for
 the eval call's forward in eval mode, the pose loss and its metrics; the
 projection before it stays eager, and so does the data-parallel reduction
-after it.
+after it. :class:`StreamGraphs` captures a whole streaming chunk: every
+tick's projection, pair, model forward in eval mode and pose composition.
 
 Which path a call takes follows from what the call can observe: the graph
 on a state whose parameters are on a CUDA device (for the training step
 also with autograd's anomaly mode off); the eager path everywhere else
 (the CPU, and anomaly mode, whose check of each backward output for NaN
 reads the value on the host, which a capture cannot do and a replay would
-skip). The data-parallel step and eval call call ``eager`` and never
-capture (``train/step.py``). For one key (the state's tensors the call
-reads, and the shape, strides and dtype of each model input and each
-ground-truth tensor):
+skip); the streaming tick takes the graph with grad mode off, outside
+``torch.export``'s trace, and only after a warm-up that read nothing from
+the host (:class:`StreamGraphs`). The data-parallel step and eval call
+call ``eager`` and never capture (``train/step.py``). For one key (the
+state's tensors the call reads, and the shape, strides and dtype of each
+model input and each ground-truth tensor):
 
 1. the first call runs eagerly, on the side stream the capture uses, and
    is the capture's warm-up;
@@ -51,9 +55,10 @@ What a replay keeps equal to the eager call:
   it is captured, so it writes them and accumulates nothing; replays do
   not zero them, and a replay binds them to the parameters again where
   something else (an eager step) set ``p.grad`` meanwhile;
-- outputs: the metrics (and the eval call's predictions) are cloned from
-  the graph's static outputs after each replay, so a caller keeping call
-  i's ``loss`` or ``x_pred`` still reads call i's value after call i + 1.
+- outputs: the metrics (and the eval call's predictions, the tick's
+  carry, poses and motions) are cloned from the graph's static outputs
+  after each replay, so a caller keeping call i's ``loss`` or ``x_pred``
+  still reads call i's value after call i + 1.
 
 ``counts`` tallies the calls by path (``captures``, ``replays``,
 ``eager``; a capturing call counts one capture and one replay).
@@ -62,9 +67,11 @@ What a replay keeps equal to the eager call:
 from __future__ import annotations
 
 import gc
+import warnings
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch._guards import detect_fake_mode
 
 from deeplio_tpu_torch.utils.timing import span
 
@@ -264,3 +271,86 @@ class EvalGraphs(_Captures):
         self.counts["replays"] += 1
         return (x_pred.clone(), q_pred.clone(),
                 {k: v.clone() for k, v in metrics.items()})
+
+
+# the warning of a synchronising CUDA operation under
+# torch.cuda.set_sync_debug_mode("warn")
+_SYNC = "called a synchronizing CUDA operation"
+
+
+class StreamGraphs(_Captures):
+    """A chunk of streaming ticks: ``tick(step, mb, raw) -> (prev_img,
+    pose, started, poses, dx, dq)``, ``step`` the ``StreamingStep``, ``mb``
+    the carry and the chunk's inputs by name, ``raw`` empty, run eagerly
+    or through a CUDA graph (module docstring). The projection, the pair,
+    the model and the composition are all inside the graph.
+
+    A layout is captured only after a warm-up that read nothing from the
+    host (watched with ``torch.cuda.set_sync_debug_mode("warn")``): a host
+    read cannot be captured, and a route that reads the host (the checked
+    slot-aligned routes, ``kernel-aligned: auto | on``) chooses by data
+    that a replay would not read again. Such a layout warms up again on
+    its next call, so a constant made on a first call costs one more eager
+    call, and a tick that reads the host on every call stays eager.
+
+    On a replay the span ``stream.model`` holds the input copies, the
+    graph launch and the outputs' clones; ``stream.project`` and
+    ``stream.compose`` are entered empty, their work being in the graph."""
+
+    @staticmethod
+    def _device(step) -> Optional[torch.device]:
+        p = next(step.model.parameters())
+        if (not p.is_cuda or torch.is_grad_enabled()
+                or torch.compiler.is_exporting()
+                or detect_fake_mode() is not None):
+            return None
+        return p.device
+
+    @staticmethod
+    def _owner_of(step) -> Tuple:
+        return (step.model,)
+
+    def _warm_up(self, dev: torch.device, step, mb: Batch, raw: Batch):
+        mode = torch.cuda.get_sync_debug_mode()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            # the mode's own notice that it is a prototype
+            warnings.filterwarnings("ignore", "Synchronization debug mode")
+            if mode == 0:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = super()._warm_up(dev, step, mb, raw)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        synced = False
+        for w in seen:
+            if _SYNC in str(w.message):
+                synced = True
+            else:
+                warnings.warn_explicit(w.message, w.category, w.filename,
+                                       w.lineno)
+        if synced:
+            # the key _Captures.__call__ made for this call (no truth)
+            self._warm.discard(
+                (tuple((k, _layout(v)) for k, v in mb.items()), ()))
+        return out
+
+    def _capture(self, dev: torch.device, step, mb: Batch,
+                 truth: Batch) -> _Graph:
+        graph = torch.cuda.CUDAGraph()
+        inputs, static_truth, outputs = self._record(dev, graph, step, mb,
+                                                     truth)
+        return _Graph(graph, inputs, static_truth, outputs, [])
+
+    def _replay(self, g: _Graph, mb: Batch, truth: Batch):
+        # the projection and the pair run inside the graph
+        with span("stream.project"):
+            pass
+        with span("stream.model"):
+            self._launch(g, mb, truth)
+            out = tuple(t.clone() for t in g.outputs)
+        # the composition runs inside the graph
+        with span("stream.compose"):
+            pass
+        self.counts["replays"] += 1
+        return out

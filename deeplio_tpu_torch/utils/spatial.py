@@ -14,9 +14,34 @@ package pins HIGHEST precision for the same reason).
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
+from torch._guards import detect_fake_mode
+
+_CONSTANTS: Dict[tuple, torch.Tensor] = {}
+
+
+def device_constant(values: Tuple[float, ...],
+                    like: torch.Tensor) -> torch.Tensor:
+    """``values`` as a 1-D tensor of ``like``'s dtype on its device, made
+    there once (zeros, then a fill of each nonzero entry), so that a call
+    copies nothing from the host, nor inside a CUDA graph's capture: the
+    streaming tick's eager warm-up makes it before the capture. Under a
+    fake mode (``torch.export``'s trace) it is the trace's own constant,
+    built from the host list, and is not kept: a kept fake tensor would
+    reach every later eager call."""
+    if detect_fake_mode() is not None:
+        return like.new_tensor(values)
+    key = (values, like.device, like.dtype)
+    c = _CONSTANTS.get(key)
+    if c is None:
+        c = like.new_zeros(len(values))
+        for i, v in enumerate(values):
+            if v:
+                c[i] = v
+        _CONSTANTS[key] = c
+    return c
 
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -114,7 +139,7 @@ def se3_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = R.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(batch + (1, 4))
+    bottom = device_constant((0.0, 0.0, 0.0, 1.0), R).expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

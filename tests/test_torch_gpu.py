@@ -1645,3 +1645,151 @@ def test_eval_step_graph_reads_a_restored_checkpoint(cuda, deterministic,
     _assert_eval_equal(got, eval_step.eager(state, two[0]), "restored")
     _assert_eval_equal(got, eval_step.eager(saved, two[0]), "saved")
     assert not torch.equal(got[0], first[1][0])
+
+
+# ------------------------------------------- the streaming tick's CUDA graph
+
+def _stream_setup(cuda, name, chunk, frames):
+    """``StreamingOdometry`` of ``name`` at ``chunk`` on the card and the
+    drive's whole chunks on the card: ``deeplio_full`` is the benchmark's
+    stream cell (``configs/deeplio_kitti_tpu.yaml`` at full width, bf16),
+    ``deeplio`` the same at 16x128, ``deeplo`` ``configs/deeplo_synth.yaml``
+    at 16x128 (no IMU input, the sort route)."""
+    from deeplio_tpu_torch.config import load_config_dict
+    from deeplio_tpu_torch.data.drives import SyntheticDrive
+    from deeplio_tpu_torch.eval.streaming import StreamingOdometry
+    from deeplio_tpu_torch.models.zoo import build_model
+    f = "deeplo_synth.yaml" if name == "deeplo" else KITTI_TPU.name
+    with open(KITTI_TPU.parent / f) as fh:
+        d = yaml.safe_load(fh)
+    if name != "deeplio_full":
+        d["datasets"].update({"image-height": 16, "image-width": 128,
+                              "max-points": 2048})
+    cfg = load_config_dict(d)
+    proj = cfg.datasets.projection
+    drive = SyntheticDrive(n_frames=frames, max_points=proj.max_points,
+                           seed=11, rings=proj.height,
+                           **({"world_points": 300_000}
+                              if name == "deeplio_full" else {}))
+    so = StreamingOdometry(cfg, build_model(cfg, device=cuda, seed=0),
+                           chunk=chunk, device=cuda)
+    chunks = [so.to_device(h) for n, h in so.host_chunks(drive)
+              if n == chunk]
+    return cfg, so, chunks
+
+
+def _args(so, chunk):
+    return tuple(chunk[k] for k in so.keys)
+
+
+def _assert_bits(got, want, where):
+    assert len(got) == len(want) == 6, where
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == w.dtype, (where, i)
+        assert torch.equal(_int_bits(g), _int_bits(w)), (where, i)
+
+
+@pytest.mark.parametrize("name,chunk,frames", [("deeplio_full", 1, 3),
+                                               ("deeplio", 4, 9),
+                                               ("deeplo", 4, 9)])
+def test_stream_graph_equals_the_eager_chunk(cuda, deterministic, name,
+                                             chunk, frames):
+    """The step through its CUDA graph and ``step.eager``, each carrying
+    its own state, over more than one pass of a cycled drive: the carry
+    (the carried image too), poses, dx and dq bit for bit at every call;
+    the first tick the identity motion; each kept output reads its own
+    call's values after the later calls; the counters read one eager
+    call (the warm-up), one capture, the rest replays."""
+    _, so, chunks = _stream_setup(cuda, name, chunk, frames)
+    step = so.step
+    seq = chunks * 2 + chunks[:1]
+    with torch.no_grad():
+        # the constants made on a first call exist before the counting
+        step.eager(*so.init_carry(), *_args(so, chunks[0]))
+        g_carry = e_carry = so.init_carry()
+        kept, want = [], []
+        for i, chunk_in in enumerate(seq):
+            got = step(*g_carry, *_args(so, chunk_in))
+            ref = step.eager(*e_carry, *_args(so, chunk_in))
+            _assert_bits(got, ref, i)
+            kept.append(got)
+            want.append(tuple(t.clone() for t in ref))
+            g_carry, e_carry = got[:3], ref[:3]
+    assert step.graph_counts() == {"captures": 1, "replays": len(seq) - 1,
+                                   "eager": 1}
+    for i, (k, w) in enumerate(zip(kept, want)):
+        _assert_bits(k, w, ("kept", i))
+    poses, dx, dq = kept[0][3:]
+    assert torch.equal(poses[0], torch.eye(4, device=cuda))
+    assert not dx[0].any()
+    assert dq[0].tolist() == [1.0, 0.0, 0.0, 0.0]
+    assert all(bool(torch.isfinite(t.float()).all()) for t in kept[-1])
+    assert not torch.equal(kept[1][4], kept[2][4])
+    assert not torch.equal(kept[1][1], kept[2][1])
+
+
+def test_stream_graph_starts_over_for_a_second_model(cuda, deterministic):
+    """A step whose graph is captured, then given another model: its next
+    call runs eagerly again (the new model's warm-up), the one after
+    captures anew, and each call equals ``step.eager`` on the new model,
+    not the old one's graph."""
+    from deeplio_tpu_torch.models.zoo import build_model
+    cfg, so, chunks = _stream_setup(cuda, "deeplio", 1, 4)
+    step = so.step
+    with torch.no_grad():
+        step.eager(*so.init_carry(), *_args(so, chunks[0]))
+        carry = so.init_carry()
+        first = []
+        for c in chunks[:3]:
+            first.append(step(*carry, *_args(so, c)))
+            carry = first[-1][:3]
+        assert step.graph_counts() == {"captures": 1, "replays": 2,
+                                       "eager": 1}
+        step.model = build_model(cfg, device=cuda, seed=1).eval()
+        carry = ref_carry = first[0][:3]
+        for i, c in enumerate(chunks[1:4]):
+            got = step(*carry, *_args(so, c))
+            ref = step.eager(*ref_carry, *_args(so, c))
+            _assert_bits(got, ref, i)
+            if i < 2:
+                assert not torch.equal(got[4], first[i + 1][4]), i
+            carry, ref_carry = got[:3], ref[:3]
+    assert step.graph_counts() == {"captures": 2, "replays": 4, "eager": 2}
+
+
+def test_stream_graph_stays_eager_where_the_tick_reads_the_host(cuda):
+    """``kernel-aligned: auto`` on a scan capacity on the slot grid reads
+    its check on the host every tick (``ops/projection.py``): the step
+    never captures, counts every call eager, and equals ``step.eager``
+    bit for bit on grid scans (no launch) and on shifted ones (one)."""
+    from deeplio_tpu_torch.bench.flagship import flagship_dict
+    from deeplio_tpu_torch.config import load_config_dict
+    from deeplio_tpu_torch.eval.streaming import StreamingOdometry
+    from deeplio_tpu_torch.models.zoo import build_model
+    d = flagship_dict()
+    d["datasets"].update({"image-height": H, "image-width": W,
+                          "max-points": 2 * H * W, "kernel-aligned": "auto"})
+    cfg = load_config_dict(d)
+    so = StreamingOdometry(cfg, build_model(cfg, device=cuda, seed=0),
+                           chunk=1, device=cuda)
+    grid = synthetic_ring_batch(np.random.default_rng(0), 1, 2 * H * W,
+                                rings=H)
+    step = so.step
+    carry = ref_carry = so.init_carry()
+    with torch.no_grad():
+        for i, (pts, launches) in enumerate(
+                [(grid, 0), (grid, 0), (np.roll(grid, 1, axis=1), 1),
+                 (grid, 0)]):
+            chunk = {"points": torch.from_numpy(pts).to(cuda),
+                     "valid": torch.ones(pts.shape[:2], dtype=torch.bool,
+                                         device=cuda),
+                     "imu": torch.zeros(1, 16, 6, device=cuda),
+                     "imu_mask": torch.ones(1, 16, device=cuda)}
+            before = tring.ring_select.launches
+            got = step(*carry, *_args(so, chunk))
+            torch.cuda.synchronize()
+            assert tring.ring_select.launches - before == launches, i
+            ref = step.eager(*ref_carry, *_args(so, chunk))
+            _assert_bits(got, ref, i)
+            carry, ref_carry = got[:3], ref[:3]
+    assert step.graph_counts() == {"captures": 0, "replays": 0, "eager": 4}

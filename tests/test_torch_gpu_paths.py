@@ -364,15 +364,34 @@ def test_cli_test_use_best_on_the_card(trained, monkeypatch, tmp_path):
     _cli_test(trained, monkeypatch, tmp_path / "best", ["--use-best"])
 
 
-def test_cli_stream_on_the_card(trained):
-    """``cli.stream``: one selection a tick, finite scores, and the first
-    pose of the trajectory the identity."""
+def test_cli_stream_on_the_card(trained, monkeypatch):
+    """``cli.stream``: one selection a tick that runs the operators, finite
+    scores, and the first pose of the trajectory the identity. The chunks
+    after the CUDA graph's capture replay it (``eval/streaming.py``), and
+    a replay's launches leave the operators' counters alone: every
+    configuration captures once, except ``auto`` on the slot grid, whose
+    check reads the host every tick and keeps every chunk eager."""
     from deeplio_tpu_torch.cli import stream as stream_cli
+    made = []
+
+    class Kept(stream_cli.StreamingOdometry):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    monkeypatch.setattr(stream_cli, "StreamingOdometry", Kept)
     t = trained
     with Launches() as counted:
         scores = stream_cli.main(t["common"] + ["--chunk", "4"])
     ((name, s),) = scores.items()
-    assert counted.n == _want(t["cfg"], t["kernel"], s["frames"])
+    (so,) = made
+    c = so.step.graph_counts()
+    assert c["replays"] + c["eager"] == -(-s["frames"] // 4)
+    reads_host = t["cfg"].datasets.projection.kernel_aligned == "auto"
+    assert c["captures"] == (0 if reads_host else 1)
+    # a call that only replays is a whole chunk of 4 ticks
+    ticks = s["frames"] - 4 * (c["replays"] - c["captures"])
+    assert counted.n == _want(t["cfg"], t["kernel"], ticks)
     assert s["frames"] == TEST_FRAMES and np.isfinite(s["ate_m"])
     poses = np.loadtxt(pathlib.Path(t["wd"]) / "stream" /
                        f"{name}_stream.txt")
@@ -385,8 +404,10 @@ def test_cli_stream_on_the_card(trained):
 def test_cli_export_on_the_card(trained, card):
     """``cli.export --chunk 4``, then the artifact fed the test drive
     chunk by chunk (the last padded) against the eager chunk step of
-    ``StreamingOdometry`` on the restored weights: poses, dx, dq bit for
-    bit, one selection a tick."""
+    ``StreamingOdometry`` on the restored weights (``so.step.eager``) and
+    against its CUDA graph (``so.step``: one warm-up, one capture, the
+    rest replays): poses, dx, dq bit for bit, one selection a tick in
+    the eager step and in the artifact."""
     from deeplio_tpu_torch.cli import export as export_cli
     from deeplio_tpu_torch.cli._common import restore_trainer
     from deeplio_tpu_torch.data.dataset import build_drives
@@ -404,14 +425,18 @@ def test_cli_export_on_the_card(trained, card):
         chunks = list(so.host_chunks(build_drives(cfg, "test")[0],
                                      pad=True))
 
-        def eager(carry, inp):
-            with torch.no_grad():
-                *carry, p, x, q = so.step(*carry,
-                                          *(inp[k] for k in so.keys))
-            return carry, (p, x, q)
+        def through(chunk_step):
+            def call(carry, inp):
+                with torch.no_grad():
+                    *carry, p, x, q = chunk_step(*carry,
+                                                 *(inp[k] for k in so.keys))
+                return carry, (p, x, q)
+            return call
 
-        outs = {}
-        for name, fn, c0 in (("eager", eager, so.init_carry),
+        outs, launched = {}, {}
+        for name, fn, c0 in (("eager", through(so.step.eager),
+                              so.init_carry),
+                             ("graph", through(so.step), so.init_carry),
                              ("artifact", step, init_carry)):
             carry, got = c0(), []
             with Launches() as counted:
@@ -419,12 +444,18 @@ def test_cli_export_on_the_card(trained, card):
                     carry, res = fn(carry, so.to_device(host))
                     got.append([r[:n_real].cpu().numpy() for r in res])
             outs[name] = [np.concatenate(o) for o in zip(*got)]
+            launched[name] = counted.n
+        graph_counts = so.step.graph_counts()
     finally:
         trainer.close()
     assert counted.n == _want(cfg, t["kernel"], 4 * len(chunks))
-    for a, e in zip(outs["artifact"], outs["eager"]):
+    assert launched["eager"] == counted.n
+    assert graph_counts == {"captures": 1, "replays": len(chunks) - 1,
+                            "eager": 1}
+    for a, e, g in zip(outs["artifact"], outs["eager"], outs["graph"]):
         assert np.isfinite(a).all()
         np.testing.assert_array_equal(a, e)
+        np.testing.assert_array_equal(a, g)
 
 
 @pytest.mark.parametrize("trained", ["slice10_A"], indirect=True)

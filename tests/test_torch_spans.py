@@ -233,3 +233,37 @@ def test_stream_tick_records_its_layers(tiny):
                             ("model.lidar", "stream.model"),
                             ("stream.compose", None)]
     assert poses.shape == (1, 4, 4)
+
+
+STREAM_LAYERS = [("stream.project", None), ("stream.model", None),
+                 ("model.lidar", "stream.model"), ("stream.compose", None)]
+
+
+def test_stream_step_on_the_cpu_is_eager_and_counted(tiny):
+    """Off the card the streaming step never captures a graph: calls with
+    grad mode off, with it on and under ``torch.export``'s trace all run
+    the eager chunk and count as eager (``step.eager`` counts nothing),
+    each eager call records the tick's three layers, and a call returns
+    what ``step.eager`` returns, bit for bit."""
+    cfg, model, _ = tiny
+    so = StreamingOdometry(cfg, model, chunk=2, device="cpu")
+    _, host = next(so.host_chunks(SyntheticDrive(n_frames=2,
+                                                 max_points=NPTS)))
+    chunk = so.to_device(host)
+    inputs = tuple(chunk[k] for k in so.keys)
+    step = so.step
+    assert step.graph_counts() == {"captures": 0, "replays": 0, "eager": 0}
+    carry = so.init_carry()
+    for grad in (False, False, True):
+        with torch.set_grad_enabled(grad):
+            with recording() as rec:
+                got = step(*carry, *inputs)
+            assert _layers(rec) == STREAM_LAYERS * 2
+            want = step.eager(*carry, *inputs)
+        assert len(got) == len(want) == 6
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        carry = got[:3]
+    with torch.no_grad():
+        torch.export.export(step, (*so.init_carry(), *inputs), strict=False)
+    assert step.graph_counts() == {"captures": 0, "replays": 0, "eager": 4}

@@ -15,8 +15,9 @@ world, the segmentation labels of PointSeg pretraining (``labels-path``,
 its ``classic``, ``cheap``, ``stride`` and ``stride-fold`` pools, its
 ``classic`` and ``pair-split`` stems and its ``encoder+decoder`` part,
 ``lidar-feat-simple-0`` and ``-1``, and the port's own
-``lidar-feat-darknet``: RangeNet++'s Darknet-21 or -53 encoder, which
-the JAX package does not have), the IMU and odometry nets (LSTM or
+``lidar-feat-darknet``, RangeNet++'s Darknet-21 or -53 encoder, and
+``lidar-feat-rangevit``, RangeViT's convolutional stem and ViT encoder,
+which the JAX package does not have), the IMU and odometry nets (LSTM or
 GRU, the IMU one also bidirectional, or the FC nets), their dropout and
 warm starts, the slot-aligned projection
 routes (``kernel-aligned: auto | on | trust | halves``) and host slot
@@ -59,7 +60,8 @@ FOLD_STEMS = ("classic", "pair-split")
 FIRES = ("classic", "fused", "mixed")
 OPTIMIZERS = ("adam", "sgd")
 LIDAR_NETS = ("lidar-feat-pointseg", "lidar-feat-simple-0",
-              "lidar-feat-simple-1", "lidar-feat-darknet")
+              "lidar-feat-simple-1", "lidar-feat-darknet",
+              "lidar-feat-rangevit")
 # Darknet depths of RangeNet++ (models/darknet.py)
 DARKNET_LAYERS = (21, 53)
 ARCHS = ("deepio", "deeplo", "deeplio")
@@ -350,6 +352,18 @@ class LidarFeatConfig:
     # dropout after each of its five stages, training only
     layers: int = 53
     stage_dropout: float = 0.01
+    # lidar-feat-rangevit (models/rangevit.py): the ViT's token width,
+    # blocks, heads and MLP ratio, the (rows, columns) of a patch, the
+    # stem's widths (its context blocks', then its last block's) and the
+    # largest drop-path rate (the last block's), training only
+    embed_dim: int = 384
+    depth: int = 12
+    heads: int = 6
+    mlp_ratio: int = 4
+    patch: Tuple[int, int] = (2, 8)
+    stem_width: int = 32
+    stem_hidden: int = 256
+    drop_path: float = 0.1
     # warm start of the PointSeg encoder from a snapshot
     # (train/checkpoint.py::load_pointseg_backbone)
     pretrained: bool = False
@@ -395,6 +409,16 @@ class LidarFeatConfig:
             raise ConfigError(f"darknet layers must be "
                               f"{'|'.join(map(str, DARKNET_LAYERS))}, got "
                               f"{layers}")
+        vit = {k: int(_get(d, k, v)) for k, v in (
+            ("embed-dim", 384), ("depth", 12), ("heads", 6),
+            ("mlp-ratio", 4), ("stem-width", 32), ("stem-hidden", 256))}
+        patch = tuple(int(v) for v in _get(d, "patch", (2, 8)))
+        if min(vit.values()) < 1 or len(patch) != 2 or min(patch) < 1:
+            raise ConfigError(f"rangevit sizes must be positive, got "
+                              f"{vit} and patch {list(patch)}")
+        if vit["embed-dim"] % vit["heads"]:
+            raise ConfigError(f"rangevit heads ({vit['heads']}) must divide "
+                              f"embed-dim ({vit['embed-dim']})")
         return LidarFeatConfig(
             name=name,
             part=part,
@@ -412,6 +436,14 @@ class LidarFeatConfig:
             layers=layers,
             stage_dropout=_rate(_get(d, "stage-dropout", 0.01),
                                 "darknet stage dropout"),
+            embed_dim=vit["embed-dim"],
+            depth=vit["depth"],
+            heads=vit["heads"],
+            mlp_ratio=vit["mlp-ratio"],
+            patch=patch,
+            stem_width=vit["stem-width"],
+            stem_hidden=vit["stem-hidden"],
+            drop_path=_rate(_get(d, "drop-path", 0.1), "rangevit drop-path"),
             pretrained=bool(_get(d, "pretrained", False)),
             model_path=str(_get(d, "model-path", "")),
         )
@@ -717,6 +749,13 @@ class Config:
             pretrained=bool(_get(block, "pretrained", False)),
             model_path=str(_get(block, "model-path", "")),
         )
+        if lidar is not None and lidar.name == "lidar-feat-rangevit":
+            proj = datasets.projection
+            ph, pw = lidar.patch
+            if proj.height % ph or proj.width % pw:
+                raise ConfigError(
+                    f"rangevit patch {ph}x{pw} must divide the image "
+                    f"{proj.height}x{proj.width}")
         train = TrainConfig.from_dict(_get(d, "train", {}) or {})
         if train.cache_projections and datasets.augment_yaw:
             raise ConfigError(

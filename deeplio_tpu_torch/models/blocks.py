@@ -2,7 +2,7 @@
 ``SplitInputConv``, ``ConvBN``, ``SELayer``, ``Fire`` (classic and
 fused), ``FactorizedStem``, ``space_to_depth`` and
 ``space_to_depth_pairs``, ``FireDeconv`` and ``ASPP``, and flax's SAME
-max-pool).
+max-pool), and the inverted dropout every tower draws its masks with.
 
 Modules take NCHW tensors. Submodules carry the names flax gives the
 matching parameters (``Conv_0``, ``BatchNorm_0``, ``Dense_0``...), so
@@ -28,6 +28,26 @@ Pair = Tuple[int, int]
 Pads = Tuple[Pair, Pair]
 # a conv's input: one NCHW tensor, or the (a, b) halves of its channels
 ConvInput = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
+def inverted_dropout(x: torch.Tensor, rate: float, training: bool,
+                     generator: Optional[torch.Generator] = None,
+                     mask_shape: Optional[Sequence[int]] = None
+                     ) -> torch.Tensor:
+    """Inverted dropout with flax's arithmetic: one ``torch.bernoulli``
+    keep draw for each entry of ``mask_shape`` (``x``'s own shape by
+    default; a shape of ones broadcasts a draw over those axes), from
+    ``generator``; kept values are divided by the keep probability,
+    dropped ones are zero. The identity unless training with a positive
+    rate."""
+    if not training or rate <= 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.bernoulli(
+        torch.full(tuple(x.shape if mask_shape is None else mask_shape),
+                   keep_prob, device=x.device),
+        generator=generator).bool()
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 def _pair(v) -> Pair:

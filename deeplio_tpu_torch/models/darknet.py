@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deeplio_tpu_torch.models.blocks import FlaxBatchNorm2d
+from deeplio_tpu_torch.models.blocks import FlaxBatchNorm2d, inverted_dropout
 
 # residual units a stage, by depth
 UNITS = {21: (1, 1, 2, 2, 1), 53: (1, 2, 8, 8, 4)}
@@ -49,16 +49,9 @@ def channel_dropout(x: torch.Tensor, rate: float, training: bool,
                     generator: Optional[torch.Generator] = None
                     ) -> torch.Tensor:
     """``Dropout2d`` with flax's inverted arithmetic: one keep draw per
-    sample and channel of an NCHW ``x``, kept channels divided by the keep
-    probability, dropped ones zero. The identity unless training with a
-    positive rate."""
-    if not training or rate <= 0.0:
-        return x
-    keep_prob = 1.0 - rate
-    keep = torch.bernoulli(
-        torch.full(x.shape[:2] + (1, 1), keep_prob, device=x.device),
-        generator=generator).bool()
-    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+    sample and channel of an NCHW ``x`` (``blocks.inverted_dropout``)."""
+    return inverted_dropout(x, rate, training, generator,
+                            x.shape[:2] + (1, 1))
 
 
 class ConvBNLeaky(nn.Module):

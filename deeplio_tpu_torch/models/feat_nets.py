@@ -2,7 +2,8 @@
 ``deeplio_tpu/models/feat_nets.py``: ``LidarPointSegFeat``,
 ``LidarSimpleFeat0``, ``LidarSimpleFeat1``, ``ImuFeatRnn``, ``ImuFeatFC``,
 ``FusionLayer``, ``OdomFeatRNN``, ``OdomFeatFC``, ``PoseHeads``; and the
-port's own ``LidarDarknetFeat``, which the JAX package does not have).
+port's own ``LidarDarknetFeat`` and ``LidarRangeViTFeat``, which the JAX
+package does not have).
 
 Dropout (the LiDAR towers after their Dense, ``PoseHeads`` before its
 layers) acts in training mode only, draws its masks from the generator
@@ -18,36 +19,41 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deeplio_tpu_torch.models.blocks import ConvBN, ConvInput
+from deeplio_tpu_torch.models.blocks import ConvBN, ConvInput, inverted_dropout
 from deeplio_tpu_torch.models.darknet import DarknetBackbone
 from deeplio_tpu_torch.models.pointseg import PointSegNet
+from deeplio_tpu_torch.models.rangevit import RangeViT
 from deeplio_tpu_torch.ops.rnn import MaskedRNN
 
 
-def inverted_dropout(x: torch.Tensor, rate: float, training: bool,
-                     generator: Optional[torch.Generator] = None
-                     ) -> torch.Tensor:
-    """Inverted dropout with flax's arithmetic: kept values are divided by
-    the keep probability, dropped ones are zero. The identity unless
-    training with a positive rate."""
-    if not training or rate <= 0.0:
-        return x
-    keep_prob = 1.0 - rate
-    keep = torch.bernoulli(
-        torch.full(x.shape, keep_prob, device=x.device),
-        generator=generator).bool()
-    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+class _PointSegTail(nn.Module):
+    """PointSeg's tail, which every deep tower ends in: two (2, 2)-strided
+    3x3 ConvBNs to 256 channels, spatial mean, Dense to ``feature_size``,
+    ReLU, dropout -> [B, F]. A tower registers it after its backbone
+    (:meth:`_tail_init`), so its parameters follow the backbone's."""
+
+    def _tail_init(self, width: int, feature_size: int,
+                   dropout: float) -> None:
+        self.dropout = dropout
+        self.ConvBN_0 = ConvBN(width, 256, (3, 3), (2, 2))
+        self.ConvBN_1 = ConvBN(256, 256, (3, 3), (2, 2))
+        self.Dense_0 = nn.Linear(256, feature_size)
+
+    def _tail(self, feat: torch.Tensor,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+        feat = self.ConvBN_1(self.ConvBN_0(feat))
+        feat = F.relu(self.Dense_0(feat.mean(dim=(-2, -1))))
+        return inverted_dropout(feat, self.dropout, self.training, generator)
 
 
-class LidarPointSegFeat(nn.Module):
+class LidarPointSegFeat(_PointSegTail):
     """PointSeg over pair-stacked images [B, 2C, H, W] (or, for the
     ``pair-split`` stem, the pair's two [B, C, H, W] frames; for the
     ``factorized`` stem the frames [B, S, C, H, W] and the pairs'
-    ``combos``) -> two strided 3x3 ConvBNs -> spatial mean -> Dense ->
-    ReLU -> dropout -> [B * P, F]. ``part="encoder"`` reads the
-    bottleneck map (512 channels), ``"encoder+decoder"`` the decoder's
-    per-pixel map (64 channels, at the stem's resolution). ``in_channels``
-    is the pair stack's width 2C for every stem."""
+    ``combos``), then PointSeg's tail -> [B * P, F]. ``part="encoder"``
+    reads the bottleneck map (512 channels), ``"encoder+decoder"`` the
+    decoder's per-pixel map (64 channels, at the stem's resolution).
+    ``in_channels`` is the pair stack's width 2C for every stem."""
 
     def __init__(self, in_channels: int, feature_size: int = 512,
                  h_stride: int = 1, w_stride: int = 2, se: bool = True,
@@ -55,48 +61,53 @@ class LidarPointSegFeat(nn.Module):
                  pool: str = "stride", part: str = "encoder",
                  stem: str = "classic", fire: str = "classic"):
         super().__init__()
-        self.dropout = dropout
         self.pointseg = PointSegNet(in_channels, part=part,
                                     h_stride=h_stride, w_stride=w_stride,
                                     with_se=se, el_squeeze=el_squeeze,
                                     pool=pool, stem=stem, fire=fire)
-        width = 512 if part == "encoder" else 64
-        self.ConvBN_0 = ConvBN(width, 256, (3, 3), (2, 2))
-        self.ConvBN_1 = ConvBN(256, 256, (3, 3), (2, 2))
-        self.Dense_0 = nn.Linear(256, feature_size)
+        self._tail_init(512 if part == "encoder" else 64, feature_size,
+                        dropout)
 
     def forward(self, x: ConvInput,
                 generator: Optional[torch.Generator] = None,
                 combos: Tuple[Tuple[int, int], ...] = ()) -> torch.Tensor:
-        feat = self.ConvBN_1(self.ConvBN_0(self.pointseg(x, combos)))
-        feat = F.relu(self.Dense_0(feat.mean(dim=(-2, -1))))
-        return inverted_dropout(feat, self.dropout, self.training, generator)
+        return self._tail(self.pointseg(x, combos), generator)
 
 
-class LidarDarknetFeat(nn.Module):
+class LidarDarknetFeat(_PointSegTail):
     """RangeNet++'s Darknet encoder (``models/darknet.py``) over
-    pair-stacked images [B, 2C, H, W], then :class:`LidarPointSegFeat`'s
-    tail: two strided 3x3 ConvBNs to 256 channels, spatial mean, Dense to
-    ``feature_size``, ReLU, dropout -> [B * P, F]. The masks are drawn in
-    the forward's order: the five stages' channel dropout, then the
-    tower's."""
+    pair-stacked images [B, 2C, H, W], then PointSeg's tail -> [B * P,
+    F]. The masks are drawn in the forward's order: the five stages'
+    channel dropout, then the tower's."""
 
     def __init__(self, in_channels: int, feature_size: int = 512,
                  layers: int = 53, dropout: float = 0.0,
                  stage_dropout: float = 0.01):
         super().__init__()
-        self.dropout = dropout
         self.darknet = DarknetBackbone(in_channels, layers, stage_dropout)
-        self.ConvBN_0 = ConvBN(self.darknet.out_channels, 256, (3, 3),
-                               (2, 2))
-        self.ConvBN_1 = ConvBN(256, 256, (3, 3), (2, 2))
-        self.Dense_0 = nn.Linear(256, feature_size)
+        self._tail_init(self.darknet.out_channels, feature_size, dropout)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        feat = self.ConvBN_1(self.ConvBN_0(self.darknet(x, generator)))
-        feat = F.relu(self.Dense_0(feat.mean(dim=(-2, -1))))
-        return inverted_dropout(feat, self.dropout, self.training, generator)
+        return self._tail(self.darknet(x, generator), generator)
+
+
+class LidarRangeViTFeat(_PointSegTail):
+    """RangeViT's convolutional stem and ViT encoder
+    (``models/rangevit.py``) over pair-stacked images [B, 2C, H, W], its
+    tokens laid out as a [B, D, H / ph, W / pw] map, then PointSeg's tail
+    -> [B * P, F]. The masks are drawn in the forward's order: the
+    blocks' drop-path, then the tower's dropout."""
+
+    def __init__(self, in_channels: int, image: Tuple[int, int],
+                 feature_size: int = 512, dropout: float = 0.0, **vit):
+        super().__init__()
+        self.rangevit = RangeViT(in_channels, image, **vit)
+        self._tail_init(self.rangevit.out_channels, feature_size, dropout)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self._tail(self.rangevit(x, generator), generator)
 
 
 def _tower_head(tower: nn.Module, x: torch.Tensor,

@@ -4,7 +4,8 @@ every IMU and odometry net (LSTM, GRU, bidirectional, FC), every stem's
 path of ``_lidar_features``, ``build_model`` and
 ``factorize_stem_variables``; ``sync_batchnorm`` is the counterpart of
 ``init_model(axis_name="data")``). The LiDAR archs also take the port's
-own ``lidar-feat-darknet`` tower (``models/darknet.py``), which the JAX
+own ``lidar-feat-darknet`` (``models/darknet.py``) and
+``lidar-feat-rangevit`` (``models/rangevit.py``) towers, which the JAX
 package does not have.
 
 Forward contract, as in the JAX package::
@@ -55,12 +56,14 @@ from deeplio_tpu_torch.models.feat_nets import (
     ImuFeatRnn,
     LidarDarknetFeat,
     LidarPointSegFeat,
+    LidarRangeViTFeat,
     LidarSimpleFeat0,
     LidarSimpleFeat1,
     OdomFeatFC,
     OdomFeatRNN,
     PoseHeads,
 )
+from deeplio_tpu_torch.models.rangevit import RangeViT
 from deeplio_tpu_torch.ops.rnn import GruCellScan, LstmCellScan
 from deeplio_tpu_torch.utils.timing import span
 
@@ -71,9 +74,10 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 Combos = Tuple[Tuple[int, int], ...]
 
 
-def _lidar_net(cfg: ModelConfig, image_channels: int) -> nn.Module:
+def _lidar_net(cfg: ModelConfig, image_channels: int,
+               image: Tuple[int, int]) -> nn.Module:
     """The LiDAR tower a config names, over pair-stacked images (or their
-    frames, for the factorized stem)."""
+    frames, for the factorized stem) of ``image`` (H, W)."""
     lc = cfg.lidar
     if lc.name == "lidar-feat-pointseg":
         return LidarPointSegFeat(
@@ -83,6 +87,13 @@ def _lidar_net(cfg: ModelConfig, image_channels: int) -> nn.Module:
     if lc.name == "lidar-feat-darknet":
         return LidarDarknetFeat(2 * image_channels, lc.feature_size,
                                 lc.layers, lc.dropout, lc.stage_dropout)
+    if lc.name == "lidar-feat-rangevit":
+        return LidarRangeViTFeat(
+            2 * image_channels, image, lc.feature_size, lc.dropout,
+            embed_dim=lc.embed_dim, depth=lc.depth, heads=lc.heads,
+            mlp_ratio=lc.mlp_ratio, patch=lc.patch,
+            stem_width=lc.stem_width, stem_hidden=lc.stem_hidden,
+            drop_path=lc.drop_path)
     simple = {"lidar-feat-simple-0": LidarSimpleFeat0,
               "lidar-feat-simple-1": LidarSimpleFeat1}.get(lc.name)
     if simple is None:
@@ -129,8 +140,8 @@ class _Odometry(nn.Module):
                               enabled=low)
 
     def _lidar_init(self, cfg: ModelConfig, image_channels: int,
-                    combos: Combos) -> None:
-        self.lidar_feat = _lidar_net(cfg, image_channels)
+                    combos: Combos, image: Tuple[int, int]) -> None:
+        self.lidar_feat = _lidar_net(cfg, image_channels, image)
         self.stem = cfg.lidar.stem
         self.combos = tuple(tuple(c) for c in combos)
 
@@ -182,7 +193,8 @@ class DeepIO(_Odometry):
     """IMU-only: imu-feat -> odom-feat -> pose heads."""
 
     def __init__(self, cfg: ModelConfig, image_channels: int = 0,
-                 imu_window: int = 16, combos: Combos = ()):
+                 imu_window: int = 16, combos: Combos = (),
+                 image: Tuple[int, int] = (64, 1024)):
         super().__init__()
         self.imu_feat = _imu_net(cfg, imu_window)
         self._tail(cfg, cfg.imu.feature_size)
@@ -199,9 +211,10 @@ class DeepLO(_Odometry):
     """LiDAR-only: lidar-feat -> odom-feat -> pose heads."""
 
     def __init__(self, cfg: ModelConfig, image_channels: int,
-                 imu_window: int = 16, combos: Combos = ()):
+                 imu_window: int = 16, combos: Combos = (),
+                 image: Tuple[int, int] = (64, 1024)):
         super().__init__()
-        self._lidar_init(cfg, image_channels, combos)
+        self._lidar_init(cfg, image_channels, combos, image)
         self._tail(cfg, cfg.lidar.feature_size)
 
     def forward(self, batch: Dict[str, torch.Tensor],
@@ -219,10 +232,11 @@ class DeepLIO(_Odometry):
     """lidar-feat (+) imu-feat -> fusion -> odom-feat -> pose heads."""
 
     def __init__(self, cfg: ModelConfig, image_channels: int,
-                 imu_window: int = 16, combos: Combos = ()):
+                 imu_window: int = 16, combos: Combos = (),
+                 image: Tuple[int, int] = (64, 1024)):
         super().__init__()
         lc, ic = cfg.lidar, cfg.imu
-        self._lidar_init(cfg, image_channels, combos)
+        self._lidar_init(cfg, image_channels, combos, image)
         self.imu_feat = _imu_net(cfg, imu_window)
         self.fusion = FusionLayer(lc.feature_size, ic.feature_size,
                                   cfg.fusion.kind)
@@ -247,7 +261,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     (truncated at two sigma), zero biases, unit BatchNorm, LSTM and GRU
     uniform +-1/sqrt(H), and the ``q_out`` bias at the identity
     quaternion. The FC nets' Dense layers are Linears: flax's Dense init
-    too."""
+    too. A RangeViT encoder's position embedding, class token, Linears and
+    LayerNorms then take timm's ViT init (``RangeViT.reset_parameters``)."""
     with torch.no_grad():
         for name, mod in model.named_modules():
             if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
@@ -269,6 +284,9 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                     nn.init.uniform_(prm, -k, k, generator=generator)
             if name.endswith("heads.q_out"):
                 mod.bias.copy_(torch.tensor([1.0, 0.0, 0.0, 0.0]))
+    for mod in model.modules():
+        if isinstance(mod, RangeViT):
+            mod.reset_parameters(generator)
 
 
 def build_model(cfg: Config, device: DeviceLike = None,
@@ -280,10 +298,12 @@ def build_model(cfg: Config, device: DeviceLike = None,
     (the same values on every device); ``seed=None`` leaves them
     uninitialised for a caller that loads a checkpoint."""
     dev = resolve_device(device)
+    proj = cfg.datasets.projection
     model = ARCHS[cfg.model.arch](cfg.model,
                                   cfg.datasets.num_image_channels,
                                   cfg.datasets.max_imu_per_pair,
-                                  cfg.datasets.effective_combinations)
+                                  cfg.datasets.effective_combinations,
+                                  (proj.height, proj.width))
     if seed is not None:
         init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

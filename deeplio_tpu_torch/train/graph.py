@@ -37,7 +37,11 @@ model input and each ground-truth tensor):
 
 A capture collects garbage first and holds the collector off until it
 ends: an object freed mid-capture may call the runtime from its
-destructor, which invalidates the capture.
+destructor, which invalidates the capture. It also hands the caching
+allocator's free blocks back to the device first: the warm-up's
+activations lie cached there, where the graph's private pool cannot
+reuse them, and a step whose activations fill half the card would
+otherwise find no room to capture.
 
 What a replay keeps equal to the eager call:
 
@@ -169,6 +173,7 @@ class _Captures:
         # which invalidates the capture: collect first, then hold the
         # collector off until the capture ends
         gc.collect()
+        torch.cuda.empty_cache()
         collecting = gc.isenabled()
         gc.disable()
         try:

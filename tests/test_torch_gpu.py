@@ -1512,46 +1512,200 @@ def test_train_step_runs_eagerly_in_anomaly_mode(cuda, deterministic):
     assert all(torch.isfinite(p).all() for p in stepped.optimizer.params)
 
 
-def test_darknet_train_step_graph_equals_the_eager_step(cuda, deterministic):
-    """DeepLIO on the Darknet-53 tower (``configs/torch/
-    deeplio_darknet53.yaml`` at its widths and 64x1024 image, bfloat16,
-    channel dropout 0.01 after each stage, the heads' 0.25) at a reduced
-    batch, 2 windows of 3 frames (16384-point synthetic scans), so that
-    it fits beside the suite: from one state, 4 steps through the graph
-    (warm-up, capture, replays) and 4 eager steps, each step's loss and
-    ``grad_norm``, the generator's state, the parameters and BatchNorm's
-    running statistics bit for bit."""
+def _tower_steps(cuda, name, windows, profiled=-1):
+    """DeepLIO as ``configs/torch/<name>`` ships it (its widths, its 64x1024
+    image, bfloat16, its dropout) at a reduced batch, ``windows`` windows
+    of 3 frames (16384-point synthetic scans), so that it fits beside the
+    suite: from one state, 4 steps through the graph (warm-up, capture,
+    replays) and 4 eager steps, the generator's state equal after each.
+    Yields after each step its index, both steps' metrics and states,
+    the state they began from and, for step ``profiled``, the names of the
+    kernels its graphed step ran (the CUDA profiler around it); checks
+    the graph's counts at the end."""
+    from torch.profiler import ProfilerActivity, profile
+
     from deeplio_tpu_torch.config import load_config_dict
     from deeplio_tpu_torch.data.dataset import WindowDataset
     from deeplio_tpu_torch.data.drives import SyntheticDrive
     from deeplio_tpu_torch.models.zoo import build_model
     from deeplio_tpu_torch.train.step import batch_to_device, build_train_step
-    with open(KITTI_TPU.parent / "torch" / "deeplio_darknet53.yaml") as f:
+    with open(KITTI_TPU.parent / "torch" / name) as f:
         d = yaml.safe_load(f)
     d["datasets"].update({"max-points": 16384, "synthetic": True})
     cfg = load_config_dict(d)
     ds = WindowDataset(cfg.datasets,
                        [SyntheticDrive(n_frames=9, max_points=16384)])
     batches = [batch_to_device(h, cuda)
-               for h in ds.iter_batches(2, shuffle=False)][:2]
+               for h in ds.iter_batches(windows, shuffle=False)][:2]
     assert len(batches) == 2
     model = build_model(cfg, cuda, seed=0)
+    start = copy.deepcopy(model.state_dict())
     train_step, _ = build_train_step(cfg)
     graphed, eager = _fresh(cfg, model), _fresh(cfg, model)
     del model
     for i in range(4):
         raw = batches[i % 2]
-        graphed, mg = train_step(graphed, raw)
+        kernels = []
+        if i == profiled:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                graphed, mg = train_step(graphed, raw)
+                torch.cuda.synchronize()
+            kernels = [e.key for e in prof.key_averages()]
+        else:
+            graphed, mg = train_step(graphed, raw)
         eager, me = train_step.eager(eager, raw)
-        for k in ("loss", "grad_norm", "sx", "sq"):
-            assert torch.equal(mg[k], me[k]), (i, k)
         assert torch.isfinite(mg["loss"])
         assert torch.equal(graphed.generator.get_state(),
                            eager.generator.get_state())
-        for k, v in eager.model.state_dict().items():
-            assert torch.equal(graphed.model.state_dict()[k], v), (i, k)
+        yield i, mg, me, graphed, eager, start, kernels
     assert train_step.graph_counts() == {"captures": 1, "replays": 3,
                                          "eager": 1}
+
+
+def _tower_graph_equals_eager(cuda, name, windows):
+    """:func:`_tower_steps`: each step's loss and ``grad_norm``, the
+    parameters and BatchNorm's running statistics bit for bit."""
+    for i, mg, me, graphed, eager, _, _ in _tower_steps(cuda, name,
+                                                        windows):
+        for k in ("loss", "grad_norm", "sx", "sq"):
+            assert torch.equal(mg[k], me[k]), (i, k)
+        for k, v in eager.model.state_dict().items():
+            assert torch.equal(graphed.model.state_dict()[k], v), (i, k)
+
+
+def test_darknet_train_step_graph_equals_the_eager_step(cuda, deterministic):
+    """DeepLIO on the Darknet-53 tower (channel dropout 0.01 after each
+    stage, the heads' 0.25), 2 windows: :func:`_tower_graph_equals_eager`."""
+    _tower_graph_equals_eager(cuda, "deeplio_darknet53.yaml", 2)
+
+
+def test_rangevit_train_step_graph_equals_the_eager_step(cuda, deterministic,
+                                                      monkeypatch):
+    """DeepLIO on the RangeViT tower (ViT-S over 4,097 tokens, drop-path up
+    to 0.1, the heads' dropout 0.25), 2 windows:
+    :func:`_tower_graph_equals_eager`, with PyTorch's deterministic
+    algorithms on: the fused attention's backward accumulates dQ in any
+    order by default, so that two eager steps differ too; deterministic
+    mode takes another attention backend (the default one is held to the
+    eager step by the next test). ``CUBLAS_WORKSPACE_CONFIG`` only
+    satisfies the check that deterministic mode makes on each cuBLAS
+    call: the workspace's size was fixed when cuBLAS started, and the
+    graph and the eager step share it."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        _tower_graph_equals_eager(cuda, "deeplio_rangevit.yaml", 2)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _norm(t: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(t.double()))
+
+
+def _graph_gaps(cuda, name, windows):
+    """:func:`_tower_steps` in PyTorch's default mode, as the benchmark and
+    ``cli.train`` run it. Per step, the graph's gap to the eager step: in
+    the loss and in ``grad_norm``, relative; and over the model state's
+    floating leaves that moved (parameters, BatchNorm's statistics) each
+    leaf's ``|graph - eager| / |eager - start|`` in norm, with its median
+    and its worst (and the worst leaf's name). Also the kernels of the
+    third step, the second replay."""
+    gaps, kernels = [], []
+    for i, mg, me, graphed, eager, start, names in _tower_steps(
+            cuda, name, windows, profiled=2):
+        kernels += names
+        got = graphed.model.state_dict()
+        leaf = {k: _norm(got[k] - v) / _norm(v - start[k])
+                for k, v in eager.model.state_dict().items()
+                if v.is_floating_point() and _norm(v - start[k]) > 0}
+        worst = max(leaf, key=leaf.get)
+        gaps.append({
+            "loss": abs(float(mg["loss"]) / float(me["loss"]) - 1),
+            "grad_norm": abs(float(mg["grad_norm"])
+                             / float(me["grad_norm"]) - 1),
+            "leaf_median": sorted(leaf.values())[len(leaf) // 2],
+            "leaf_worst": leaf[worst], "worst": worst})
+    return gaps, kernels
+
+
+def test_rangevit_train_step_graph_matches_the_default_eager_step(cuda):
+    """The RangeViT step in PyTorch's default mode, as the benchmark and
+    ``cli.train`` run it, so on the attention backend the cell replays
+    (cuDNN's fused kernels, by name, in a replay): the graph against the
+    eager step over 4 steps of 2 windows (:func:`_graph_gaps`). The two
+    run the same kernels and differ only in the order of the sums that
+    the attention's backward (dQ) and cuDNN's convolutions make in any
+    order, as two eager steps do; Adam turns a sum's sign on a
+    near-zero gradient into a step of the learning rate the other way,
+    so the leaves drift apart more than the losses. On an H100 over
+    these 4 steps two eager steps read up to 9.1e-5 in the loss, 1.2e-3
+    in ``grad_norm``, 0.061 at the median leaf and 0.34 at the worst;
+    the graph against the eager step 1.2e-4, 1.2e-3, 0.089 and 0.37. The
+    limits: 1e-3 (a quarter of bfloat16's epsilon), 1e-2, 0.25, and 0.9
+    (a leaf the graph left where it began, or moved the other way,
+    reads 1 or more)."""
+    gaps, kernels = _graph_gaps(cuda, "deeplio_rangevit.yaml", 2)
+    assert any(k in n.lower() for n in kernels
+               for k in ("flash", "fmha", "sdpa")), kernels
+    for i, g in enumerate(gaps):
+        assert g["loss"] <= 1e-3, (i, g)
+        assert g["grad_norm"] <= 1e-2, (i, g)
+        assert g["leaf_median"] <= 0.25, (i, g)
+        assert g["leaf_worst"] <= 0.9, (i, g)
+
+
+def test_rangevit_attention_is_fused_and_holds_no_scores(cuda):
+    """The RangeViT tower's bfloat16 forward in training mode on 2 pair
+    images of 64x1024 (4,097 tokens) runs a fused attention kernel
+    (PyTorch's flash, memory-efficient or cuDNN backend, by its kernel's
+    name) and no softmax; in an encoder block's forward on those tokens
+    no operation makes a tensor with a [4097, 4097] end or as large as a
+    quarter of the [2, 6, 4097, 4097] bfloat16 scores (403 MB)."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    from deeplio_tpu_torch.config import load_config
+    from deeplio_tpu_torch.models.zoo import build_model
+
+    class Outputs(TorchDispatchMode):
+        """The shape and bytes of every operation's tensor outputs."""
+
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_flatten(out)[0]:
+                if isinstance(t, torch.Tensor):
+                    self.seen.append((str(func), tuple(t.shape),
+                                      t.numel() * t.element_size()))
+            return out
+
+    cfg = load_config(KITTI_TPU.parent / "torch" / "deeplio_rangevit.yaml")
+    tower = build_model(cfg, cuda, seed=0).lidar_feat.train()
+    x = torch.randn(2, 10, 64, 1024, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    with torch.autocast("cuda", dtype=torch.bfloat16), \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tower(x, g)
+        torch.cuda.synchronize()
+    names = [e.key.lower() for e in prof.key_averages()]
+    fused = [n for n in names
+             if any(k in n for k in ("flash", "fmha", "sdpa"))]
+    assert fused, names
+    assert not any("softmax" in n for n in set(names) - set(fused)), names
+    tokens = torch.randn(2, 4097, 384, device=cuda)
+    outputs = Outputs()
+    with torch.autocast("cuda", dtype=torch.bfloat16), outputs:
+        tower.rangevit.Block_1(tokens, g)
+    scores = 2 * 6 * 4097 * 4097 * 2
+    assert outputs.seen
+    for func, shape, nbytes in outputs.seen:
+        assert shape[-2:] != (4097, 4097), (func, shape)
+        assert nbytes < scores / 4, (func, shape)
 
 
 # --------------------------------------------- the eval call's CUDA graph
